@@ -1,0 +1,677 @@
+"""Paged rollout worker: the port's data plane (counterpart of ``repro/engine/worker.py``).
+
+The worker owns one **paged KV pool** (``model.init_paged_pool``): physical
+blocks of ``page_size`` token slots shared by every lane, a page table per
+lane, and a host-side ``PagePool`` that allocates, shares and frees blocks.
+
+  * admission: the radix cache shares the matched prefix's full pages by
+    refcount and copies the boundary page, then the suffix is chunk-prefilled
+    straight into the lane's pages (``model.prefill_chunk_paged``);
+  * decode: a masked step loop over the whole pool; every step of every
+    attention layer calls the paged decode attention kernel;
+  * preemption: a mask flip -- the lane stays resident, nothing moves;
+  * migration: the lane's resident pages move device to device;
+  * tool absorption: chunked prefill at the lane's current offset.
+
+Sampling is per lane: a sequence's key is ``fold_in(PRNGKey(seed + worker_id),
+seq_id)``, and each decode step draws with ``fold_in(key, pos)``
+(``engine.prng`` reproduces ``jax.random`` bit for bit), so a lane's stream is
+independent of co-resident lanes and stable across preemption and migration
+(the key travels in the migration package).
+"""
+
+from __future__ import annotations
+
+import time
+from collections import OrderedDict
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.engine import prng
+from repro_torch.engine.paging import PagePool, PagePoolExhausted
+from repro_torch.engine.sampler import SamplerConfig, sample_slots
+from repro_torch.models import model as M
+from repro_torch.models.config import ModelConfig
+
+
+# ---------------------------------------------------------------- radix cache
+# (a copy of repro/engine/worker.py's PrefixCacheIndex: pure Python)
+
+class _TrieNode:
+    __slots__ = ("children", "refs", "last_used")
+
+    def __init__(self):
+        self.children: dict[int, _TrieNode] = {}
+        self.refs: dict[int, int] = {}       # lane slot -> epoch at insert
+        self.last_used = 0
+
+
+class PrefixCacheIndex:
+    """Radix cache over token prefixes: accounting trie + (lane, span) KV refs.
+
+    Accounting: every ``match_len``/``match_lane`` counts a lookup and classifies it
+    as a **full** hit (the whole query matched) or a **partial** hit (a nonzero
+    proper prefix matched) — ``hits`` aggregates both, so controller affinity stats
+    can consume the honest split.  Node count is bounded by ``max_nodes``: inserts
+    past the cap first prune the least-recently-used subtrees (a parent is always at
+    least as recent as its children, so pruning by timestamp cutoff removes whole
+    cold subtrees) and then truncate, keeping memory bounded even in pure
+    accounting mode.
+
+    KV ownership: ``insert(tokens, slot=...)`` tags every node on the path with a
+    ``(slot, epoch)`` ref, claiming that lane ``slot`` holds valid KV for this
+    prefix at positions ``[0, depth)``.  ``invalidate(slot)`` bumps the slot's epoch
+    (lane overwritten / evicted); stale refs are dropped lazily during matching.
+    ``match_lane`` returns the deepest live ref, which the engine implants with an
+    on-device lane-slice copy so only the unmatched suffix is prefilled.
+    """
+
+    def __init__(self, max_nodes: int = 65_536):
+        self.root = _TrieNode()
+        self.max_nodes = max_nodes
+        self.node_count = 0                  # root excluded
+        self._clock = 0
+        self._epochs: dict[int, int] = {}
+        self.lookups = 0
+        self.full_hits = 0
+        self.partial_hits = 0
+        self.hit_tokens = 0
+
+    @property
+    def hits(self) -> int:
+        return self.full_hits + self.partial_hits
+
+    def invalidate(self, slot: int) -> None:
+        """Mark lane ``slot``'s KV refs stale (lane reassigned or evicted)."""
+        self._epochs[slot] = self._epochs.get(slot, 0) + 1
+
+    # ------------------------------------------------------------ insert / match
+    def insert(self, tokens: list[int], slot: int | None = None) -> None:
+        self._clock += 1
+        now = self._clock
+        epoch = self._epochs.setdefault(slot, 0) if slot is not None else 0
+        node = self.root
+        node.last_used = now
+        for t in tokens:
+            child = node.children.get(int(t))
+            if child is None:
+                if self.node_count >= self.max_nodes:
+                    self._prune()
+                if self.node_count >= self.max_nodes:
+                    return                   # cap still binding: truncate the insert
+                child = _TrieNode()
+                node.children[int(t)] = child
+                self.node_count += 1
+            child.last_used = now
+            if slot is not None:
+                child.refs[slot] = epoch
+            node = child
+
+    def _walk(self, tokens: list[int]) -> tuple[int, int, int | None]:
+        """Walk + account one lookup; returns (trie depth, reuse depth, lane)."""
+        self._clock += 1
+        now = self._clock
+        node = self.root
+        n = 0
+        reuse_n, reuse_slot = 0, None
+        for t in tokens:
+            node = node.children.get(int(t))
+            if node is None:
+                break
+            node.last_used = now
+            n += 1
+            if node.refs:
+                stale = [s for s, e in node.refs.items()
+                         if self._epochs.get(s, 0) != e]
+                for s in stale:
+                    del node.refs[s]
+                if node.refs:
+                    reuse_n, reuse_slot = n, next(iter(node.refs))
+        self.lookups += 1
+        if n and n == len(tokens):
+            self.full_hits += 1
+        elif n:
+            self.partial_hits += 1
+        self.hit_tokens += n
+        return n, reuse_n, reuse_slot
+
+    def match_len(self, tokens: list[int]) -> int:
+        return self._walk(tokens)[0]
+
+    def match_lane(self, tokens: list[int]) -> tuple[int, int | None]:
+        """Deepest prefix of ``tokens`` backed by a live lane: (length, slot)."""
+        _, reuse_n, reuse_slot = self._walk(tokens)
+        return reuse_n, reuse_slot
+
+    # ------------------------------------------------------------ LRU pruning
+    def _subtree_size(self, node: _TrieNode) -> int:
+        count, stack = 0, [node]
+        while stack:
+            n = stack.pop()
+            count += 1
+            stack.extend(n.children.values())
+        return count
+
+    def _prune(self) -> None:
+        """Evict least-recently-used subtrees down to ~3/4 of the node cap."""
+        target = max(1, self.max_nodes * 3 // 4)
+        stamps: list[int] = []
+        stack = [self.root]
+        while stack:
+            node = stack.pop()
+            for c in node.children.values():
+                stamps.append(c.last_used)
+                stack.append(c)
+        excess = len(stamps) - target
+        if excess <= 0:
+            return
+        # never evict the in-flight insert path (stamped with the current clock)
+        cutoff = min(sorted(stamps)[excess - 1], self._clock - 1)
+        removed = 0
+        stack = [self.root]
+        while stack:
+            node = stack.pop()
+            doomed = [t for t, c in node.children.items() if c.last_used <= cutoff]
+            for t in doomed:
+                removed += self._subtree_size(node.children.pop(t))
+            stack.extend(node.children.values())
+        self.node_count -= removed
+
+
+# ---------------------------------------------------------------- decode loop
+
+def _decode_loop(cfg: ModelConfig, params, pool: dict, last: torch.Tensor,
+                 live: torch.Tensor, keys: torch.Tensor, n_tokens: int,
+                 stop_token: int | None, sampler: SamplerConfig):
+    """``n_tokens`` masked steps over the whole pool, with no host sync inside.
+
+    last: (B,) int32 last context token per lane; live: (B,) bool active mask;
+    keys: (B, 2) per-sequence base keys.  Each step draws lane ``b``'s token
+    with ``fold_in(keys[b], pos[b])``.  Returns (pool, last, live, emitted
+    (T, B) int32), where emitted is -1 for lanes that were inactive (or had
+    already stopped) at a step.
+    """
+    emitted = []
+    for _ in range(n_tokens):
+        step_keys = prng.fold_in(keys, pool["pos"])
+        logits, pool = M.decode_step(cfg, params, pool, last[:, None], active=live)
+        toks = sample_slots(step_keys, logits, sampler, active=live)
+        last = torch.where(live, toks, last)
+        if stop_token is not None:
+            live = live & (toks != stop_token)
+        emitted.append(toks)
+    return pool, last, live, torch.stack(emitted)
+
+
+# host-side chunk size for stop-token decodes: one host sync per CHUNK steps
+# buys the early exit once every requested lane has stopped
+_DECODE_CHUNK = 8
+
+
+# ---------------------------------------------------------------- worker
+
+@dataclass
+class Sequence:
+    seq_id: int
+    tokens: list[int]                    # full context (prompt + generated + tool)
+    slot: int                            # lane index in the worker's pool
+    key: np.ndarray                      # (2,) uint32 per-sequence sampling key
+    generated: int = 0
+    preempted: bool = False
+    finished: bool = False
+
+
+class RolloutWorker:
+    """One rollout worker holding model params and a paged KV pool.
+
+    The paged data plane of ``repro.engine.worker.RolloutWorker``, with the
+    same host-side bookkeeping (block ids, radix cache, retired lanes,
+    counters), so both allocate the same blocks for the same calls.  Admission
+    chunk-prefills the suffix that the radix cache cannot share; decode runs
+    the masked full-pool step loop; preemption is a mask flip; migration
+    moves resident pages device to device.
+
+    ``device=None`` means the card and raises where there is none; pass
+    ``device="cpu"`` to run on the CPU (the kernel's plain version then runs).
+    ``params`` is moved to ``device`` (a no-op for tensors already there, so
+    workers on one card share one copy).
+    """
+
+    def __init__(self, cfg: ModelConfig, params, capacity: int = 256,
+                 max_slots: int = 8, worker_id: int = 0,
+                 sampler: SamplerConfig = SamplerConfig(), seed: int = 0,
+                 chunk_size: int = 32, prefix_reuse: bool = True,
+                 retired_kv_bytes: int | None = None,
+                 prefix_index_nodes: int = 65_536, mp: int = 1,
+                 page_size: int = 16, num_blocks: int | None = None, device=None):
+        if not M.supports_paged_kv(cfg):
+            raise NotImplementedError(f"{cfg.name}: the dense plane is not ported yet")
+        M.check_ported(cfg)
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.capacity = capacity
+        self.max_slots = max_slots
+        self.worker_id = worker_id
+        self.sampler = sampler
+        self.mp = max(int(mp), 1)
+        self.base_key = prng.prng_key(seed + worker_id)
+        self.params = M.tree_to(params, self.device)
+        ps = max(int(page_size), 1)
+        while capacity % ps:                       # page size must tile the lane
+            ps //= 2
+        self.page_size = ps
+        self.num_pages = capacity // ps
+        # default block budget: the dense pool's footprint (+ scratch)
+        self.num_blocks = (num_blocks if num_blocks is not None
+                           else max_slots * self.num_pages + 1)
+        self.pages = PagePool(self.num_blocks)
+        self.lane_pages: dict[int, list[int]] = {}   # slot -> ordered blocks
+        self.block_grows = 0
+        self.pool = M.init_paged_pool(cfg, max_slots, self.num_blocks, ps, self.num_pages,
+                                      self.device)
+        self.store: dict[int, Sequence] = {}       # resident sequences (incl. preempted)
+        self.chunk_size = chunk_size
+        self._reuse = prefix_reuse and M.supports_prefix_reuse(cfg)
+        # byte prices: a dense lane (pos + K/V at full capacity), one block
+        # across every paged layer, and the per-lane dense remainder (pos)
+        itemsize = torch.empty((), dtype=M.torch_dtype(cfg)).element_size()
+        n_attn = sum(1 for k in cfg.block_pattern if M._paged_kind(k))
+        kv_per_token = 2 * cfg.n_periods * n_attn * cfg.n_kv_heads * cfg.hd * itemsize
+        self._state_bytes = 4
+        self._lane_bytes = self._state_bytes + kv_per_token * capacity
+        self._page_bytes = kv_per_token * self.page_size
+        budget = (retired_kv_bytes if retired_kv_bytes is not None
+                  else self._lane_bytes * max_slots)
+        self._max_retired = budget // self._lane_bytes if self._lane_bytes else 0
+        self.retired: OrderedDict[int, int] = OrderedDict()   # slot -> token count
+        self.prefix_index = PrefixCacheIndex(max_nodes=prefix_index_nodes)
+        self.decode_steps = 0
+        self.pool_grows = 0
+        self.reused_tokens = 0                     # admission tokens implanted, not computed
+        self.prefilled_tokens = 0                  # admission tokens actually computed
+        self.absorbed_tokens = 0                   # tool tokens teacher-forced (extend)
+        self.prefill_dispatches = 0                # chunk launches
+        # measured decode timing: every call is timed (eager PyTorch compiles
+        # nothing), up to the host copy of the emitted tokens
+        self.decode_wall_s = 0.0
+        self.decode_timed_steps = 0
+        self.decode_timed_lane_steps = 0
+        self.decode_calls = 0
+
+    # ------------------------------------------------------------ slot bookkeeping
+    def _alloc_slot(self) -> int:
+        """Lowest free lane, else the LRU retired lane, else lane growth (doubling).
+
+        The returned lane is about to be overwritten, so its radix refs are
+        invalidated and its pages freed (shared blocks survive via their
+        sharers' refcounts)."""
+        used = {s.slot for s in self.store.values()}
+        for slot in range(self.max_slots):
+            if slot not in used and slot not in self.retired:
+                self.prefix_index.invalidate(slot)
+                self._free_lane_pages(slot)
+                return slot
+        if self.retired:
+            slot, _ = self.retired.popitem(last=False)
+            self.prefix_index.invalidate(slot)
+            self._free_lane_pages(slot)
+            return slot
+        slot = self.max_slots
+        # lane growth only: page-table rows and pos double, block pools stay
+        self.pool = M.grow_paged_lanes(self.cfg, self.pool, self.max_slots)
+        self.max_slots *= 2
+        self.pool_grows += 1
+        self.prefix_index.invalidate(slot)
+        return slot
+
+    def _retire_slot(self, slot: int, n_tokens: int) -> None:
+        """Hand a released lane to the radix cache (LRU, byte-budgeted); its
+        tail pages past ceil(n_tokens / page_size) are freed now."""
+        if not (self._reuse and self._max_retired > 0 and n_tokens > 0):
+            self.prefix_index.invalidate(slot)
+            self._free_lane_pages(slot)
+            return
+        self._trim_lane_pages(slot, n_tokens)
+        self.retired[slot] = n_tokens
+        self.retired.move_to_end(slot)
+        while len(self.retired) > self._max_retired:
+            old, _ = self.retired.popitem(last=False)
+            self.prefix_index.invalidate(old)
+            self._free_lane_pages(old)
+
+    # ------------------------------------------------------------ page bookkeeping
+    def _row_of(self, blocks: list[int]) -> np.ndarray:
+        """Fixed-shape (num_pages,) row; unmapped tail -> scratch block 0."""
+        row = np.zeros((self.num_pages,), np.int32)
+        row[:len(blocks)] = blocks
+        return row
+
+    def _sync_row(self, slot: int) -> None:
+        """Mirror ``lane_pages[slot]`` into the device page table."""
+        M.paged_set_row(self.pool, slot, self._row_of(self.lane_pages.get(slot, [])))
+
+    def _free_lane_pages(self, slot: int) -> None:
+        """Release every page a lane holds and point its row at scratch."""
+        blocks = self.lane_pages.pop(slot, None)
+        if blocks:
+            self.pages.free(blocks)
+            self._sync_row(slot)
+
+    def _trim_lane_pages(self, slot: int, n_tokens: int) -> None:
+        """Free pages past ceil(n_tokens / page_size) (retire headroom trim)."""
+        blocks = self.lane_pages.get(slot, [])
+        keep = -(-n_tokens // self.page_size)
+        if len(blocks) > keep:
+            self.pages.free(blocks[keep:])
+            self.lane_pages[slot] = blocks[:keep]
+            self._sync_row(slot)
+
+    def _alloc_blocks(self, n: int) -> list[int]:
+        """Allocate ``n`` blocks, evicting retired lanes under pressure and
+        doubling the device block pool only once nothing is left to reclaim."""
+        while True:
+            try:
+                return self.pages.alloc(n)
+            except PagePoolExhausted:
+                if self.retired:
+                    old, _ = self.retired.popitem(last=False)
+                    self.prefix_index.invalidate(old)
+                    self._free_lane_pages(old)
+                    continue
+                self._grow_blocks(n)
+
+    def _grow_blocks(self, min_extra: int) -> None:
+        extra = max(min_extra, self.num_blocks)     # doubling growth
+        self.pool = M.grow_paged_blocks(self.pool, extra)
+        self.pages.grow(self.num_blocks + extra)
+        self.num_blocks += extra
+        self.block_grows += 1
+
+    def _ensure_coverage(self, slot: int, total_tokens: int) -> None:
+        """Map enough pages on lane ``slot`` for ``total_tokens`` positions
+        (capped at lane capacity -- past it, writes go to scratch)."""
+        need = min(-(-total_tokens // self.page_size), self.num_pages)
+        have = self.lane_pages.get(slot, [])
+        if len(have) >= need:
+            return
+        self.lane_pages[slot] = have + self._alloc_blocks(need - len(have))
+        self._sync_row(slot)
+
+    # ------------------------------------------------------------ lifecycle
+    def prefill(self, seq_id: int, tokens: list[int]) -> None:
+        """Admit a sequence: share the radix-matched prefix's pages, then
+        chunk-prefill the suffix."""
+        reuse_n, src = 0, None
+        if self._reuse:
+            reuse_n, src = self.prefix_index.match_lane(tokens)
+        else:
+            self.prefix_index.match_len(tokens)
+        slot = self._alloc_slot()
+        self._prefill_paged(slot, tokens, reuse_n, src)
+        key = prng.fold_in(self.base_key, seq_id).numpy().astype(np.uint32)
+        self.store[seq_id] = Sequence(seq_id, list(tokens), slot, key)
+        self.prefix_index.insert(tokens, slot=slot)
+
+    def _prefill_paged(self, slot: int, tokens: list[int], reuse_n: int,
+                       src: int | None) -> None:
+        """Share the matched prefix's full pages by refcount (no KV copy),
+        copy its boundary partial page device to device, then chunk-prefill
+        the suffix straight into freshly mapped pages."""
+        S, ps = len(tokens), self.page_size
+        blocks: list[int] = []
+        boundary: tuple[int, int] | None = None
+        reuse_eff = 0
+        if src is not None and reuse_n > 0:
+            if src in self.retired:
+                self.retired.move_to_end(src)             # LRU touch
+            src_blocks = self.lane_pages.get(src, [])
+            reuse_eff = min(reuse_n, len(src_blocks) * ps)
+            n_full = reuse_eff // ps
+            if n_full:
+                blocks = list(src_blocks[:n_full])
+                self.pages.share(blocks)
+            if reuse_eff % ps:
+                [b] = self._alloc_blocks(1)
+                boundary = (b, src_blocks[n_full])
+                blocks.append(b)
+            self.reused_tokens += reuse_eff
+        need = min(-(-S // ps), self.num_pages)
+        if need > len(blocks):
+            blocks = blocks + self._alloc_blocks(need - len(blocks))
+        self.lane_pages[slot] = blocks
+        M.paged_set_lane(self.pool, slot, self._row_of(blocks), reuse_eff)
+        if boundary is not None:
+            M.paged_copy_block(self.pool, boundary[0], boundary[1])
+        self._chunk_into_paged(slot, tokens, reuse_eff)
+        self.prefilled_tokens += S - reuse_eff
+
+    def _chunk_into_paged(self, slot: int, tokens: list[int], start: int) -> None:
+        """Feed ``tokens[start:]`` into lane ``slot``'s pages, one fixed-shape
+        (1, chunk_size) chunk at a time."""
+        C = self.chunk_size
+        off, S = start, len(tokens)
+        while off < S:
+            step = min(C, S - off)
+            buf = np.zeros((1, C), np.int64)
+            buf[0, :step] = tokens[off:off + step]
+            M.prefill_chunk_paged(self.cfg, self.params, self.pool, slot,
+                                  torch.from_numpy(buf).to(self.device), step)
+            off += step
+            self.prefill_dispatches += 1
+
+    def extend(self, seq_id: int, tool_tokens: list[int]) -> None:
+        """Absorb tool output: chunked prefill into the lane at its current offset."""
+        seq = self.store[seq_id]
+        ext = list(seq.tokens) + [int(t) for t in tool_tokens]
+        self._ensure_coverage(seq.slot, len(ext))
+        self._chunk_into_paged(seq.slot, ext, len(seq.tokens))
+        self.absorbed_tokens += len(tool_tokens)
+        seq.tokens = ext
+        self.prefix_index.insert(seq.tokens, slot=seq.slot)
+
+    def decode(self, seq_ids: list[int], n_tokens: int, stop_token: int | None = None
+               ) -> dict[int, list[int]]:
+        """Batched decode of the requested resident sequences for ``n_tokens`` steps.
+
+        One step loop over the whole pool; lanes not requested (free,
+        preempted, idle) ride along masked out at frozen ``pos``.  Requesting a
+        preempted sequence resumes it.  A finished sequence is never resumed
+        and yields an empty stream.  With a stop token the host checks once per
+        ``_DECODE_CHUNK`` steps whether every requested lane has stopped.
+        """
+        requested = [sid for sid in seq_ids if not self.store[sid].finished]
+        if not requested:
+            return {sid: [] for sid in seq_ids}
+        B = self.max_slots
+        last = np.zeros((B,), np.int32)
+        live = np.zeros((B,), bool)
+        keys = np.zeros((B, 2), np.int64)
+        for seq in self.store.values():
+            last[seq.slot] = seq.tokens[-1]
+            keys[seq.slot] = seq.key
+        for sid in requested:
+            seq = self.store[sid]
+            seq.preempted = False
+            live[seq.slot] = True
+            # map decode headroom up front: the loop writes positions
+            # [len(tokens), len(tokens) + n_tokens) with no host check inside
+            self._ensure_coverage(seq.slot, len(seq.tokens) + n_tokens)
+        last_t = torch.from_numpy(last).to(self.device)
+        live_t = torch.from_numpy(live).to(self.device)
+        keys_t = torch.from_numpy(keys).to(self.device)
+        chunk = n_tokens if stop_token is None else _DECODE_CHUNK
+        parts = []
+        remaining = n_tokens
+        ran = 0
+        lane_steps = 0
+        t0 = time.perf_counter()
+        while remaining > 0:
+            step = min(chunk, remaining)
+            self.pool, last_t, live_t, em = _decode_loop(
+                self.cfg, self.params, self.pool, last_t, live_t, keys_t,
+                step, stop_token, self.sampler)
+            parts.append(em)           # device-resident: copied to the host after the loop
+            remaining -= step
+            ran += step
+            self.decode_steps += step
+            if stop_token is None:                          # nothing stops early
+                lane_steps += step * len(requested)
+            else:
+                n_live = int(live_t.sum())   # the one host sync per chunk: early exit
+                lane_steps += step * n_live
+                if remaining > 0 and n_live == 0:
+                    break
+        emitted = (torch.cat(parts).cpu().numpy() if parts
+                   else np.zeros((0, B), np.int32))       # n_tokens == 0 edge
+        self.decode_wall_s += time.perf_counter() - t0
+        self.decode_timed_steps += ran
+        self.decode_timed_lane_steps += lane_steps
+        self.decode_calls += 1
+        out: dict[int, list[int]] = {sid: [] for sid in seq_ids}
+        for sid in requested:
+            seq = self.store[sid]
+            toks = [int(t) for t in emitted[:, seq.slot] if t >= 0]
+            out[sid] = toks
+            seq.tokens.extend(toks)
+            seq.generated += len(toks)
+            if stop_token is not None and toks and toks[-1] == stop_token:
+                seq.finished = True
+            self.prefix_index.insert(seq.tokens, slot=seq.slot)
+        return out
+
+    # ------------------------------------------------------------ control ops
+    def preempt(self, seq_id: int) -> None:
+        """Evict from the running batch but keep the KV: a mask flip."""
+        self.store[seq_id].preempted = True
+
+    def release(self, seq_id: int) -> None:
+        """Finish a sequence; its lane retires into the radix cache's LRU set."""
+        seq = self.store.pop(seq_id, None)
+        if seq is not None:
+            self._retire_slot(seq.slot, len(seq.tokens))
+
+    def _package_meta(self, seq: Sequence, preempted: bool, finished: bool) -> dict:
+        return {
+            "seq_id": seq.seq_id,
+            "tokens": list(seq.tokens),
+            "generated": seq.generated,
+            "key": np.asarray(seq.key),
+            "preempted": preempted,
+            "finished": finished,
+        }
+
+    def _gather_resident(self, seq: Sequence) -> tuple[dict, dict, list[int], int]:
+        """Pages + dense state of one lane, trimmed to resident tokens."""
+        keep = -(-len(seq.tokens) // self.page_size)
+        blocks = self.lane_pages.get(seq.slot, [])[:keep]
+        pages = M.paged_gather_pages(self.pool, blocks)
+        state = M.paged_gather_state(self.pool, seq.slot)
+        logical = len(blocks) * self._page_bytes + self._state_bytes
+        return pages, state, blocks, logical
+
+    def migrate_out(self, seq_id: int) -> dict:
+        """Package one lane's context and resident pages for transfer.
+
+        The page stacks stay on the device (a move between workers on one card
+        is a device-to-device copy); ``logical_bytes`` prices the resident
+        pages + dense state.  The local copy retires into the radix cache."""
+        seq = self.store.pop(seq_id)
+        pages, state, _, logical = self._gather_resident(seq)
+        pkg = self._package_meta(seq, seq.preempted, seq.finished)
+        pkg.update(pages=pages, state=state, page_size=self.page_size,
+                   capacity=self.capacity, logical_bytes=logical)
+        self._retire_slot(seq.slot, len(seq.tokens))
+        return pkg
+
+    def checkpoint_out(self, seq_id: int) -> dict:
+        """Host copy of one lane WITHOUT evicting it (tool-boundary checkpoint).
+
+        Same package format as :meth:`migrate_out`, copied to host memory so it
+        outlives this worker's device; lifecycle flags are snapshotted clean."""
+        seq = self.store[seq_id]
+        pages, state, _, logical = self._gather_resident(seq)
+        pkg = self._package_meta(seq, False, False)
+        pkg.update(pages=M.tree_to(pages, "cpu"), state=M.tree_to(state, "cpu"),
+                   page_size=self.page_size, capacity=self.capacity,
+                   logical_bytes=logical)
+        return pkg
+
+    def _ingest_pages(self, package: dict, slot: int) -> None:
+        """Land a paged package: allocate blocks, scatter the page stacks."""
+        pages, state = package["pages"], package["state"]
+        n = next(M.tree_leaves(pages)).shape[1] if pages else 0
+        blocks = self._alloc_blocks(n) if n else []
+        self.lane_pages[slot] = blocks
+        M.paged_scatter_pages(self.pool, pages, blocks)
+        M.paged_write_state(self.pool, state, slot, self._row_of(blocks))
+
+    def migrate_in(self, package: dict) -> None:
+        """Implant a migrated lane into a free slot.
+
+        Only a paged package with this worker's page size and capacity lands
+        here; the cross-layout paths need the dense plane, not ported yet."""
+        if ("pages" not in package or package.get("page_size") != self.page_size
+                or package.get("capacity") != self.capacity):
+            raise NotImplementedError(
+                "migrate_in: only same-layout paged packages are ported (the dense "
+                "plane is not)")
+        slot = self._alloc_slot()
+        self._ingest_pages(package, slot)
+        self._register_seq(package, slot)
+
+    def _register_seq(self, package: dict, slot: int) -> None:
+        key = package.get("key")
+        if key is None:                                     # foreign package: re-key
+            key = prng.fold_in(self.base_key, package["seq_id"]).numpy()
+        seq = Sequence(package["seq_id"], list(package["tokens"]), slot,
+                       np.asarray(key, np.uint32), generated=package["generated"],
+                       preempted=package.get("preempted", False),
+                       finished=package.get("finished", False))
+        self.store[package["seq_id"]] = seq
+        self.prefix_index.insert(seq.tokens, slot=slot)
+
+    # ------------------------------------------------------------ accounting
+    def kv_bytes(self, seq_id: int) -> int:
+        """Resident pages + dense state of one lane."""
+        if seq_id not in self.store:
+            raise KeyError(seq_id)
+        slot = self.store[seq_id].slot
+        return len(self.lane_pages.get(slot, [])) * self._page_bytes + self._state_bytes
+
+    def reset_cache(self) -> None:
+        """Drop every resident and retired lane and all radix refs (weight sync)."""
+        for slot in list(self.lane_pages):
+            self._free_lane_pages(slot)
+        self.store.clear()
+        self.retired.clear()
+        self.prefix_index = PrefixCacheIndex(max_nodes=self.prefix_index.max_nodes)
+
+    def dispatch_stats(self) -> dict:
+        """Admission, reuse, block-pool and decode counters (same keys as the
+        JAX worker's)."""
+        idx = self.prefix_index
+        stats = {"blocks_" + k: v for k, v in self.pages.stats().items()}
+        return {
+            **stats,
+            "page_size": self.page_size,
+            "block_grows": self.block_grows,
+            "reused_tokens": self.reused_tokens,
+            "prefilled_tokens": self.prefilled_tokens,
+            "absorbed_tokens": self.absorbed_tokens,
+            "prefill_dispatches": self.prefill_dispatches,
+            "full_hits": idx.full_hits,
+            "partial_hits": idx.partial_hits,
+            "lookups": idx.lookups,
+            "hit_tokens": idx.hit_tokens,
+            "retired_lanes": len(self.retired),
+            "decode_steps": self.decode_steps,
+            "pool_grows": self.pool_grows,
+            "mp": self.mp,
+            "decode_wall_s": self.decode_wall_s,
+            "decode_timed_steps": self.decode_timed_steps,
+            "decode_timed_lane_steps": self.decode_timed_lane_steps,
+            "decode_calls": self.decode_calls,
+        }

@@ -1,0 +1,315 @@
+"""Model assembly for the paged decode path (counterpart of ``repro/models/model.py``).
+
+Parameters and caches keep the JAX package's layout: nested dicts keyed
+``blocks/<ii>_<kind>/...`` with a leading ``n_periods`` axis on every stacked
+leaf.  JAX's ``lax.scan`` over periods becomes a Python loop that indexes that
+axis.  Only the ``attn+mlp`` kind is ported; the other kinds raise.
+
+The paged pool is ``{"pos": (B,) int32, "page_table": (B, num_pages) int32,
+"blocks": {key: {"k", "v": (P, NB, page_size, KV, hd)}}}``.  Functions that
+the JAX package writes as pure (returning a new pool) update the pool's
+tensors **in place** here and return the same dict; functions that must
+enlarge a tensor (``grow_*``) put the new tensor into the dict.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any
+
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.models import layers as L
+from repro_torch.models.config import ModelConfig
+
+PORTED_KINDS = ("attn+mlp",)
+
+
+def torch_dtype(cfg: ModelConfig) -> torch.dtype:
+    return {"bfloat16": torch.bfloat16, "float32": torch.float32,
+            "float16": torch.float16}[cfg.dtype]
+
+
+def check_ported(cfg: ModelConfig) -> None:
+    """Raise unless every layer kind of ``cfg`` is one the port runs."""
+    missing = sorted(set(cfg.block_pattern) - set(PORTED_KINDS))
+    if missing or cfg.arch_type in ("audio", "vlm"):
+        raise NotImplementedError(
+            f"{cfg.name}: layer kinds {missing or [cfg.arch_type]} are not ported yet "
+            f"(ported: {', '.join(PORTED_KINDS)})")
+
+
+# ------------------------------------------------------------------ init
+
+def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
+    """Random parameters with ``model.init_params``'s names, shapes and scales.
+
+    Drawn from a ``torch.Generator`` seeded with ``seed`` on ``device``, so the
+    numbers differ from ``jax.random``'s; to hold the port against the JAX
+    package, convert the JAX pytree with ``repro_torch.params.from_jax``.
+    """
+    check_ported(cfg)
+    dev = resolve_device(device)
+    dtype = torch_dtype(cfg)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    d, H, KV, hd, P = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.n_periods
+    s = 0.02
+    s_out = s / math.sqrt(2 * cfg.n_layers)
+
+    def normal(shape, scale):
+        return torch.randn(shape, generator=gen, device=dev, dtype=dtype) * scale
+
+    def ones(shape):
+        return torch.ones(shape, device=dev, dtype=dtype)
+
+    params: dict[str, Any] = {
+        "tok_embed": normal((cfg.vocab, d), 0.02),
+        "final_norm": {"scale": ones((d,))},
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = normal((d, cfg.vocab), 0.02)
+    blocks = {}
+    for i, kind in enumerate(cfg.block_pattern):
+        mixer = {"wq": normal((P, d, H, hd), s), "wk": normal((P, d, KV, hd), s),
+                 "wv": normal((P, d, KV, hd), s), "wo": normal((P, H, hd, d), s_out)}
+        if cfg.qk_norm:
+            mixer["q_norm"] = ones((P, hd))
+            mixer["k_norm"] = ones((P, hd))
+        mlp = {"w_in": normal((P, d, cfg.d_ff), s), "w_out": normal((P, cfg.d_ff, d), s_out)}
+        if cfg.activation == "swiglu":
+            mlp["w_gate"] = normal((P, d, cfg.d_ff), s)
+        blocks[f"{i:02d}_{kind}"] = {"norm1": {"scale": ones((P, d))}, "mixer": mixer,
+                                     "norm2": {"scale": ones((P, d))}, "mlp": mlp}
+    if cfg.norm == "layernorm":
+        for tree in [params["final_norm"]] + [b[n] for b in blocks.values()
+                                              for n in ("norm1", "norm2")]:
+            tree["bias"] = torch.zeros_like(tree["scale"])
+    params["blocks"] = blocks
+    return params
+
+
+def param_count(params) -> int:
+    return sum(t.numel() for t in tree_leaves(params))
+
+
+def tree_leaves(tree):
+    """The tensors of a nested dict, in insertion order."""
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from tree_leaves(v)
+    else:
+        yield tree
+
+
+def tree_to(tree, device):
+    """A nested dict of tensors moved to ``device`` (tensors already there are
+    returned as they are, not copied)."""
+    if isinstance(tree, dict):
+        return {k: tree_to(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+def _period(tree, p: int):
+    """View of one period's slice of a stacked parameter or cache tree."""
+    if isinstance(tree, dict):
+        return {k: _period(v, p) for k, v in tree.items()}
+    return tree[p]
+
+
+def _logits(cfg: ModelConfig, params, x) -> torch.Tensor:
+    x = L.block_norm(cfg, params["final_norm"], x)
+    head = params["tok_embed"].T if cfg.tie_embeddings else params["lm_head"]
+    return x @ head
+
+
+# ------------------------------------------------------------------ gates
+
+def supports_chunked_prefill(cfg: ModelConfig) -> bool:
+    """Chunked prefill serves linear (non-ring) caches without cross-attention or MoE."""
+    for kind in cfg.block_pattern:
+        mixer, _, mlp_kind = kind.partition("+")
+        if mixer not in ("attn", "mamba", "mlstm", "slstm"):
+            return False
+        if mlp_kind not in ("", "mlp"):
+            return False
+    return cfg.sliding_window == 0 and cfg.arch_type not in ("audio", "vlm")
+
+
+def supports_prefix_reuse(cfg: ModelConfig) -> bool:
+    """Prefix KV implanting needs position-sliceable caches: attention-only stacks."""
+    return supports_chunked_prefill(cfg) and all(
+        k.partition("+")[0] == "attn" for k in cfg.block_pattern)
+
+
+def supports_paged_kv(cfg: ModelConfig) -> bool:
+    """Paged KV serves linear (non-ring) decoder-only stacks."""
+    for kind in cfg.block_pattern:
+        if kind.partition("+")[0] not in ("attn", "mamba", "mlstm", "slstm"):
+            return False
+    return cfg.sliding_window == 0 and cfg.arch_type not in ("audio", "vlm")
+
+
+def _paged_kind(kind: str) -> bool:
+    return kind.partition("+")[0] == "attn"
+
+
+# ------------------------------------------------------------------ decode
+
+def _layer_step(cfg, kind, p, x, cache, pos, page_table):
+    h = L.block_norm(cfg, p["norm1"], x)
+    out, _, _ = L.attention_decode_paged(p["mixer"], h, cfg, cache["k"], cache["v"],
+                                         page_table, pos)
+    x = x + out
+    h = L.block_norm(cfg, p["norm2"], x)
+    return x + L.mlp(p["mlp"], h, cfg.activation)
+
+
+def decode_step(cfg: ModelConfig, params, cache: dict, tokens: torch.Tensor,
+                active: torch.Tensor | None = None):
+    """One paged decode step.  tokens: (B, 1) int; cache: a paged pool.
+    Returns (logits (B, V), cache), the cache updated in place.
+
+    ``active``: optional (B,) bool lane mask.  Inactive lanes do not advance
+    ``pos``; their KV write lands at the frozen ``pos`` slot (their own page,
+    or scratch) and is overwritten when the lane resumes.  Their logits are
+    garbage and the caller masks them.
+    """
+    pos = cache["pos"]
+    page_table = cache["page_table"]
+    x = params["tok_embed"][tokens.long()]
+    for pi in range(cfg.n_periods):
+        for i, kind in enumerate(cfg.block_pattern):
+            key = f"{i:02d}_{kind}"
+            x = _layer_step(cfg, kind, _period(params["blocks"][key], pi), x,
+                            _period(cache["blocks"][key], pi), pos, page_table)
+    logits = _logits(cfg, params, x)
+    cache["pos"] = pos + 1 if active is None else pos + active.to(torch.int32)
+    return logits[:, 0], cache
+
+
+# ------------------------------------------------------------------ paged pool
+
+def init_paged_pool(cfg: ModelConfig, max_lanes: int, num_blocks: int, page_size: int,
+                    num_pages: int, device) -> dict:
+    """Empty paged pool: zeroed block pools for every attention kind."""
+    check_ported(cfg)
+    dtype = torch_dtype(cfg)
+    shape = (cfg.n_periods, num_blocks, page_size, cfg.n_kv_heads, cfg.hd)
+    blocks = {f"{i:02d}_{kind}": {"k": torch.zeros(shape, dtype=dtype, device=device),
+                                  "v": torch.zeros(shape, dtype=dtype, device=device)}
+              for i, kind in enumerate(cfg.block_pattern)}
+    return {"pos": torch.zeros((max_lanes,), dtype=torch.int32, device=device),
+            "page_table": torch.zeros((max_lanes, num_pages), dtype=torch.int32,
+                                      device=device),
+            "blocks": blocks}
+
+
+def _layer_chunk_paged(cfg, kind, p, x, cache, pt_row, off, length):
+    h = L.block_norm(cfg, p["norm1"], x)
+    out, _, _ = L.attention_prefill_chunk_paged(p["mixer"], h, cfg, cache["k"], cache["v"],
+                                                pt_row, off, length)
+    x = x + out
+    h = L.block_norm(cfg, p["norm2"], x)
+    return x + L.mlp(p["mlp"], h, cfg.activation)
+
+
+def prefill_chunk_paged(cfg: ModelConfig, params, pool: dict, slot: int,
+                        tokens: torch.Tensor, length: int) -> dict:
+    """Teacher-force a fixed-shape (1, C) chunk straight into lane ``slot``'s pages.
+
+    Rows >= ``length`` of ``tokens`` are padding.  The chunk lands at positions
+    ``pos[slot] .. pos[slot] + length``; ``pos[slot]`` is read on the device.
+    K/V scatter to the lane's mapped blocks and queries attend through the
+    gathered page view (resident prefix, possibly shared pages, plus the
+    chunk's own causal keys).  Updates the pool in place and returns it.
+    """
+    if tokens.shape[0] != 1:
+        raise ValueError("prefill_chunk_paged operates on one lane (batch 1)")
+    off = pool["pos"][slot].clone()
+    pt_row = pool["page_table"][slot]
+    x = params["tok_embed"][tokens.long()]
+    for pi in range(cfg.n_periods):
+        for i, kind in enumerate(cfg.block_pattern):
+            key = f"{i:02d}_{kind}"
+            x = _layer_chunk_paged(cfg, kind, _period(params["blocks"][key], pi), x,
+                                   _period(pool["blocks"][key], pi), pt_row, off, length)
+    pool["pos"][slot] += length
+    return pool
+
+
+def _row(pool: dict, row) -> torch.Tensor:
+    return torch.as_tensor(row, dtype=torch.int32).to(pool["page_table"].device)
+
+
+def paged_set_lane(pool: dict, slot: int, row, pos0: int) -> dict:
+    """Map lane ``slot``: write its page-table row and reset its position."""
+    pool["pos"][slot] = pos0
+    pool["page_table"][slot] = _row(pool, row)
+    return pool
+
+
+def paged_set_row(pool: dict, slot: int, row) -> dict:
+    """Rewrite one page-table row without touching ``pos``."""
+    pool["page_table"][slot] = _row(pool, row)
+    return pool
+
+
+def paged_copy_block(pool: dict, dst: int, src: int) -> dict:
+    """Device-to-device copy of one physical block across every paged leaf."""
+    for c in pool["blocks"].values():
+        for leaf in c.values():
+            leaf[:, dst] = leaf[:, src]
+    return pool
+
+
+def _index(pool: dict, blocks_idx) -> torch.Tensor:
+    return torch.as_tensor(blocks_idx, dtype=torch.long).to(pool["pos"].device)
+
+
+def paged_gather_pages(pool: dict, blocks_idx) -> dict:
+    """Copy physical blocks ``blocks_idx`` out of every paged leaf as compact
+    (P, n, page_size, KV, hd) stacks (the D2D migration payload)."""
+    idx = _index(pool, blocks_idx)
+    return {key: {name: leaf[:, idx] for name, leaf in c.items()}
+            for key, c in pool["blocks"].items() if _paged_kind(key[3:])}
+
+
+def paged_gather_state(pool: dict, slot: int) -> dict:
+    """Lane ``slot``'s dense (non-paged) state: ``pos`` only for attention stacks."""
+    return {"pos": pool["pos"][slot:slot + 1].clone(), "blocks": {}}
+
+
+def paged_scatter_pages(pool: dict, pages: dict, blocks_idx) -> dict:
+    """Write page stacks (from :func:`paged_gather_pages`) into blocks ``blocks_idx``."""
+    idx = _index(pool, blocks_idx)
+    for key, pg in pages.items():
+        for name, leaf in pool["blocks"][key].items():
+            leaf[:, idx] = torch.as_tensor(pg[name]).to(device=leaf.device, dtype=leaf.dtype)
+    return pool
+
+
+def paged_write_state(pool: dict, state: dict, slot: int, row) -> dict:
+    """Write a lane's ``state`` (from :func:`paged_gather_state`) into lane ``slot``
+    and map its page-table row."""
+    pool["pos"][slot] = torch.as_tensor(state["pos"]).to(pool["pos"].device)[0]
+    pool["page_table"][slot] = _row(pool, row)
+    return pool
+
+
+def grow_paged_blocks(pool: dict, extra: int) -> dict:
+    """Append ``extra`` zeroed physical blocks to every paged leaf (block ids stay)."""
+    for c in pool["blocks"].values():
+        for name, leaf in c.items():
+            pad = leaf.new_zeros((leaf.shape[0], extra) + tuple(leaf.shape[2:]))
+            c[name] = torch.cat([leaf, pad], dim=1)
+    return pool
+
+
+def grow_paged_lanes(cfg: ModelConfig, pool: dict, extra: int) -> dict:
+    """Append ``extra`` empty lanes: ``pos`` and page-table rows grow, the block
+    pools are untouched."""
+    pool["pos"] = torch.cat([pool["pos"], pool["pos"].new_zeros((extra,))])
+    pt = pool["page_table"]
+    pool["page_table"] = torch.cat([pt, pt.new_zeros((extra, pt.shape[1]))])
+    return pool
