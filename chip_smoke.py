@@ -8,11 +8,14 @@ Phases (each raises on failure; any failure exits non-zero with no result line):
 1. device  -- the card's name and power limit (nvidia-smi), torch's device name
               and count; no CUDA device is a failure.
 2. build   -- nvcc builds every kernel of the path from the sources in this
-              checkout (src/repro_torch/kernels/csrc/).
-3. kernels -- each kernel against its plain PyTorch version at the main path's
-              shapes, in bf16 and f32, with poisoned scratch / unmapped blocks
-              / slots past valid_len; times for the kernel, the plain version,
-              a library call computing the same function, and the bound.
+              checkout (src/repro_torch/kernels/csrc/) into one library, one
+              nvcc per source, all started together, then a link.
+3. kernels -- each kernel against its plain PyTorch version at the main
+              paths' shapes, in bf16 and f32 (bf16 also relative to the
+              output's size), with poisoned scratch / unmapped blocks / slots
+              past valid_len; times for the kernel, the plain version, a
+              library call computing the same function, and the bound.  The dense kernel runs at the linear pool's shape and at
+              the sliding-window ring's.
 4. slice   -- qwen3-1.7b at full width (28 layers, d_model 2048, bf16, random
               weights from a seed): two paged RolloutWorkers on the card serve
               8 requests in 2 GRPO groups (radix page sharing), decode at
@@ -20,13 +23,22 @@ Phases (each raises on failure; any failure exits non-zero with no result line):
               migration w0 -> w1, a checkpoint restored on w1, release.  The
               kernels' launch counts are zeroed just before and read just
               after; block conservation is checked on both workers.
-5. profile -- one full-width decode step (8 lanes of ~1,024 tokens): wall
-              time, device-busy time and launches per step, and the kernels
-              that take the device's time (torch.profiler), beside the
-              step's bound (weights and KV read once).
-6. reference -- the same model reduced (2 layers, f32): decode logits on the
-              card (kernel) against the CPU (plain version) under teacher
-              forcing.
+5. dense   -- the dense plane at the same width, counts zeroed before and read
+              after: (a) a dense worker (paged=False) beside a paged one: the
+              same groups with lane-prefix reuse, decode, extend, preempt and
+              resume, a checkpoint restored, migration dense -> paged ->
+              dense, a ninth request that doubles the pool; (b) the
+              sliding-window variant (window 8192, dense by force): prompts of
+              9,000 tokens (flash attention, the ring wraps at admission) and
+              3,000, decode, per-token tool absorption.
+6. profile -- one full-width decode step (8 lanes of ~1,024 tokens) on the
+              paged and on the dense worker: wall time, device-busy time and
+              launches per step, and the kernels that take the device's time
+              (torch.profiler), beside the step's bound (weights and KV read
+              once).
+7. reference -- the same model reduced (2 layers, f32): decode logits on the
+              card (kernels) against the CPU (plain versions) under teacher
+              forcing, on the paged plane and on a sliding-window ring.
 
 float32 matrix products run in full float32: TF32 is switched off for matmuls
 and cuDNN.  The next-to-last line is one JSON object describing each kernel;
@@ -36,6 +48,7 @@ the last is {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -49,6 +62,7 @@ PEAK_FLOPS = {"bfloat16": 989e12,    # dense tensor-core rate
               "float32": 67e12}      # outside the tensor cores
 TOL = {"bfloat16": 2.5e-2,           # the plain version rounds probabilities to bf16
        "float32": 1e-5}              # sums in another order (8 warps' partials merged)
+BF16_REL = 2e-2                      # bf16 is also held to this share of max |reference|
 SEED = 0
 
 
@@ -95,13 +109,14 @@ def phase_device(torch):
 
 # ---------------------------------------------------------------- phase 2
 def phase_build():
-    from repro_torch.kernels.build import PAGED_DECODE
+    from repro_torch.kernels.build import DECODE
     t0 = time.perf_counter()
-    PAGED_DECODE.load()
-    log(f"[build] {PAGED_DECODE.name}: {time.perf_counter() - t0:.2f} s "
-        f"(nvcc {PAGED_DECODE.build_seconds:.2f} s) -> {PAGED_DECODE.path}")
-    for line in PAGED_DECODE.log.splitlines():
-        if "registers" in line or "spill" in line:
+    DECODE.load()
+    log(f"[build] {DECODE.name} ({', '.join(DECODE.sources)}): "
+        f"{time.perf_counter() - t0:.2f} s (nvcc {DECODE.build_seconds:.2f} s, one per "
+        f"source, started together) -> {DECODE.path}")
+    for line in DECODE.log.splitlines():           # ptxas -v: instantiations that spill
+        if any(int(n) for n in re.findall(r"(\d+) bytes spill", line)):
             log(f"[build]   {line.strip()}")
 
 
@@ -147,35 +162,85 @@ def _library_call(torch, q, k_pool, v_pool, pt, vl):
     return out.transpose(1, 2).reshape(B, KV, G, hd)
 
 
+def _dense_inputs(torch, gen, dtype, P, B, C, KV, G, hd, valid_len):
+    """Stacked per-period caches like the dense pool's, and a copy poisoned
+    with +-99 past each lane's valid_len (a no-op where valid_len = C)."""
+    dev = "cuda"
+    q = torch.randn((P, B, KV, G, hd), generator=gen, device=dev).to(dtype)
+    k = torch.randn((P, B, C, KV, hd), generator=gen, device=dev).to(dtype)
+    v = torch.randn((P, B, C, KV, hd), generator=gen, device=dev).to(dtype)
+    kp, vp = k.clone(), v.clone()
+    for b, n in enumerate(valid_len.tolist()):
+        kp[:, b, n:], vp[:, b, n:] = 99.0, -99.0
+    return q, k, v, kp, vp
+
+
+def _dense_library_call(torch, q, k, v, vl):
+    """Yardstick only (never called by the port): PyTorch SDPA with a
+    valid_len mask."""
+    import torch.nn.functional as F
+    B, KV, G, hd = q.shape
+    C = k.shape[1]
+    mask = (torch.arange(C, device=q.device)[None] < vl[:, None])[:, None, None]
+    out = F.scaled_dot_product_attention(q.reshape(B, 1, KV * G, hd).transpose(1, 2),
+                                         k.transpose(1, 2), v.transpose(1, 2),
+                                         attn_mask=mask, enable_gqa=True)
+    return out.transpose(1, 2).reshape(B, KV, G, hd)
+
+
+def _row(name, err, ms, plain_ms, library_ms, nbytes, flops):
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / PEAK_FLOPS[name] * 1e3
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def _time_three(torch, P, kernel_fn, plain_fn, library_fn):
+    """CUDA-event ms of the kernel (4 passes over the P periods), the plain
+    version and the library call (one pass each): every call reads another
+    period's cache, so L2 is cold as on the decode path."""
+    return (event_ms(torch, lambda i: kernel_fn(i % P), 4 * P),
+            event_ms(torch, lambda i: plain_fn(i % P), P),
+            event_ms(torch, lambda i: library_fn(i % P), P))
+
+
+def _limit(name, scale):
+    """The tolerance for outputs whose largest |value| is ``scale``: in bf16
+    also relative, so that small outputs (8,192 tokens averaged) are checked."""
+    return TOL[name] if name == "float32" else min(TOL[name], BF16_REL * scale)
+
+
+def _check_err(label, name, got, err, limit):
+    finite = all(bool(g.float().isfinite().all()) for g in got)
+    if not finite or err > limit:
+        raise AssertionError(f"{label} {name}: max |err| {err} > {limit} "
+                             f"(finite={finite})")
+
+
 def phase_kernels(torch):
     from repro_torch.kernels import decode_attention as kernel
     from repro_torch.kernels import ref
-    P, B, KV, G, hd, ps, num_pages, NB = 28, 8, 8, 2, 128, 16, 128, 1025
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    rows = {}
+    rows = {"paged_decode_attention": {}, "decode_attention": {}, "decode_attention_ring": {}}
+    P, B, KV, G, hd, ps, num_pages, NB = 28, 8, 8, 2, 128, 16, 128, 1025
     for name in ("bfloat16", "float32"):
         dtype = getattr(torch, name)
         q, k, v, kp, vp, pt, vl = _paged_inputs(torch, gen, dtype, P, B, KV, G, hd, ps,
                                                 num_pages, NB, max_len=2048)
-        err = 0.0
+        err, scale, got = 0.0, 0.0, []
         for p in (0, P - 1):
             want = ref.paged_decode_attention_ref(q[p], k[p], v[p], pt, vl).float()
+            scale = max(scale, float(want.abs().max()))
             for kk, vv in ((k, v), (kp, vp)):
-                got = kernel.paged_decode_attention(q[p], kk[p], vv[p], pt, vl)
+                got.append(kernel.paged_decode_attention(q[p], kk[p], vv[p], pt, vl))
                 torch.cuda.synchronize()
-                err = max(err, float((got.float() - want).abs().max()))
-        finite = bool(torch.isfinite(got.float()).all())
-        if not finite or err > TOL[name]:
-            raise AssertionError(f"paged_decode_attention {name}: max |err| {err} "
-                                 f"> {TOL[name]} (finite={finite})")
-        # one launch per period's pool, as the decode path calls it: each
-        # call reads a pool the previous calls did not touch
-        ms = event_ms(torch, lambda i: kernel.paged_decode_attention(
-            q[i % P], k[i % P], v[i % P], pt, vl), 4 * P)
-        plain_ms = event_ms(torch, lambda i: ref.paged_decode_attention_ref(
-            q[i % P], k[i % P], v[i % P], pt, vl), P)
-        library_ms = event_ms(torch, lambda i: _library_call(
-            torch, q[i % P], k[i % P], v[i % P], pt, vl), P)
+                err = max(err, float((got[-1].float() - want).abs().max()))
+        limit = _limit(name, scale)
+        _check_err("paged_decode_attention", name, got, err, limit)
+        ms, plain_ms, library_ms = _time_three(
+            torch, P, lambda i: kernel.paged_decode_attention(q[i], k[i], v[i], pt, vl),
+            lambda i: ref.paged_decode_attention_ref(q[i], k[i], v[i], pt, vl),
+            lambda i: _library_call(torch, q[i], k[i], v[i], pt, vl))
         lib_err = float((_library_call(torch, q[0], k[0], v[0], pt, vl).float()
                          - ref.paged_decode_attention_ref(q[0], k[0], v[0], pt, vl).float())
                         .abs().max())
@@ -184,88 +249,156 @@ def phase_kernels(torch):
         pages = int(((vl + ps - 1) // ps).sum())
         nbytes = (2 * tokens * KV * hd * item + 2 * q[0].numel() * item
                   + pages * 4 + B * 4)
-        flops = 4 * tokens * KV * G * hd
-        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / PEAK_FLOPS[name] * 1e3
-        rows[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                      "library_ms": library_ms, "bound_ms": max(t_bytes, t_ops),
-                      "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+        row = _row(name, err, ms, plain_ms, library_ms, nbytes, 4 * tokens * KV * G * hd)
+        rows["paged_decode_attention"][name] = row
         log(f"[kernels] paged_decode_attention {name}: B={B} KV={KV} G={G} hd={hd} ps={ps} "
             f"num_pages={num_pages} NB={NB}, valid_len sum {tokens} max {int(vl.max())}; "
             f"max|err| {err:.3e} "
-            f"(tol {TOL[name]}, poisoned scratch/unmapped/tail); kernel {ms:.4f} ms, "
+            f"(tol {limit:.3e}, max|ref| {scale:.3e}, poisoned scratch/unmapped/tail); kernel {ms:.4f} ms, "
             f"plain {plain_ms:.4f} ms, gather+SDPA {library_ms:.4f} ms "
-            f"(|err| {lib_err:.2e}); bound {rows[name]['bound_ms']:.4f} ms "
-            f"({nbytes / 1e6:.1f} MB, {rows[name]['bound_by']}-bound)")
+            f"(|err| {lib_err:.2e}); bound {row['bound_ms']:.4f} ms "
+            f"({nbytes / 1e6:.1f} MB, {row['bound_by']}-bound)")
         del q, k, v, kp, vp
         torch.cuda.empty_cache()
+    # the dense kernel: the linear pool's shape (random lengths) and the
+    # sliding-window ring's (every slot valid)
+    for label, B, C in (("decode_attention", 8, 2048), ("decode_attention_ring", 4, 8192)):
+        for name in ("bfloat16", "float32"):
+            dtype = getattr(torch, name)
+            vl = (torch.full((B,), C, dtype=torch.int32, device="cuda") if C == 8192 else
+                  torch.randint(1, C + 1, (B,), generator=gen, device="cuda",
+                                dtype=torch.int32))
+            q, k, v, kp, vp = _dense_inputs(torch, gen, dtype, P, B, C, KV, G, hd, vl)
+            err, scale, got = 0.0, 0.0, []
+            for p in (0, P - 1):
+                want = ref.decode_attention_ref(q[p], k[p], v[p], vl).float()
+                scale = max(scale, float(want.abs().max()))
+                for kk, vv in ((k, v), (kp, vp)):
+                    got.append(kernel.decode_attention(q[p], kk[p], vv[p], vl))
+                    torch.cuda.synchronize()
+                    err = max(err, float((got[-1].float() - want).abs().max()))
+            limit = _limit(name, scale)
+            _check_err(label, name, got, err, limit)
+            ms, plain_ms, library_ms = _time_three(
+                torch, P, lambda i: kernel.decode_attention(q[i], k[i], v[i], vl),
+                lambda i: ref.decode_attention_ref(q[i], k[i], v[i], vl),
+                lambda i: _dense_library_call(torch, q[i], k[i], v[i], vl))
+            lib_err = float((_dense_library_call(torch, q[0], k[0], v[0], vl).float()
+                             - ref.decode_attention_ref(q[0], k[0], v[0], vl).float())
+                            .abs().max())
+            tokens = int(vl.sum())
+            item = q.element_size()
+            nbytes = 2 * tokens * KV * hd * item + 2 * q[0].numel() * item + B * 4
+            row = _row(name, err, ms, plain_ms, library_ms, nbytes, 4 * tokens * KV * G * hd)
+            rows[label][name] = row
+            log(f"[kernels] {label} {name}: B={B} C={C} KV={KV} G={G} hd={hd}, valid_len "
+                f"sum {tokens} max {int(vl.max())}; max|err| {err:.3e} (tol {limit:.3e}, "
+                f"max|ref| {scale:.3e}, poisoned past valid_len); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                f"SDPA {library_ms:.4f} ms (|err| {lib_err:.2e}); bound "
+                f"{row['bound_ms']:.4f} ms ({nbytes / 1e6:.1f} MB, {row['bound_by']}-bound)")
+            del q, k, v, kp, vp
+            torch.cuda.empty_cache()
     return rows
 
 
 # ---------------------------------------------------------------- phase 4
-def phase_slice(torch):
-    import numpy as np
-    from repro_torch.configs import get_config
-    from repro_torch.engine.paging import check_block_conservation
-    from repro_torch.engine.sampler import SamplerConfig
-    from repro_torch.engine.worker import RolloutWorker
-    from repro_torch.kernels import decode_attention
-    from repro_torch.models.model import init_params, param_count
+class Script:
+    """Drives workers through a scenario: times each step with a synchronised
+    host clock, and checks every decoded token."""
 
+    def __init__(self, torch, cfg):
+        self.torch, self.cfg = torch, cfg
+        self.times: dict[str, float] = {}
+        self.decoded = 0
+
+    def timed(self, label, fn):
+        out, t = sync_ms(self.torch, fn)
+        self.times[label] = self.times.get(label, 0.0) + t
+        return out
+
+    def decode(self, w, sids, n, label="decode"):
+        out = self.timed(label, lambda: w.decode(sids, n))
+        self.decoded += sum(len(t) for t in out.values())
+        for toks in out.values():
+            if len(toks) != n or not all(0 <= t < self.cfg.vocab for t in toks):
+                raise AssertionError(f"{label}: bad tokens {toks[:8]}...")
+        return out
+
+    def release_all(self, *workers):
+        for w in workers:
+            for sid in list(w.store):
+                self.timed("release", lambda: w.release(sid))
+
+    def report(self, tag, steps):
+        self.torch.cuda.synchronize()
+        log(f"[{tag}] phase ms: " + ", ".join(f"{k} {v:.1f}" for k, v in self.times.items()))
+        log(f"[{tag}] decode {self.decoded / (self.times['decode'] / 1e3):.1f} tokens/s "
+            f"({self.times['decode'] / steps:.2f} ms per step); peak allocated "
+            f"{self.torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+
+def _full_width(torch):
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import init_params, param_count
     cfg = get_config("qwen3_1_7b")
-    torch.cuda.reset_peak_memory_stats()
     params, ms = sync_ms(torch, lambda: init_params(cfg, seed=SEED, device="cuda"))
-    log(f"[slice] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+    log(f"[model] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
         f"{cfg.n_heads}/{cfg.n_kv_heads} heads, hd {cfg.hd}, d_ff {cfg.d_ff}, vocab "
         f"{cfg.vocab}, {cfg.dtype}; {param_count(params) / 1e9:.3f} B params "
         f"(init {ms:.0f} ms)")
+    return cfg, params
+
+
+def _reset_launches():
+    from repro_torch.kernels import decode_attention
+    for name in decode_attention.launches:
+        decode_attention.launches[name] = 0
+
+
+def _read_launches(torch):
+    from repro_torch.kernels import decode_attention
+    torch.cuda.synchronize()
+    return dict(decode_attention.launches)
+
+
+def phase_slice(torch):
+    import numpy as np
+    from repro_torch.engine.paging import check_block_conservation
+    from repro_torch.engine.sampler import SamplerConfig
+    from repro_torch.engine.worker import RolloutWorker
+
+    torch.cuda.reset_peak_memory_stats()
+    cfg, params = _full_width(torch)
     kw = dict(capacity=2048, page_size=16, max_slots=8, sampler=SamplerConfig(1.0, 0.9),
               seed=SEED, device="cuda")
     w0 = RolloutWorker(cfg, params, worker_id=0, **kw)
     w1 = RolloutWorker(cfg, params, worker_id=1, **kw)
     rng = np.random.default_rng(SEED)
     groups = [rng.integers(0, cfg.vocab, n).tolist() for n in (300, 257)]
-    times = {}
-    decoded = 0
+    run = Script(torch, cfg)
 
-    def timed(label, fn):
-        out, t = sync_ms(torch, fn)
-        times[label] = times.get(label, 0.0) + t
-        return out
-
-    def decode(w, sids, n, label):
-        nonlocal decoded
-        out = timed(label, lambda: w.decode(sids, n))
-        decoded += sum(len(t) for t in out.values())
-        for toks in out.values():
-            if len(toks) != n or not all(0 <= t < cfg.vocab for t in toks):
-                raise AssertionError(f"{label}: bad tokens {toks[:8]}...")
-        return out
-
-    decode_attention.launches = 0                           # main path starts here
+    _reset_launches()                                       # main path starts here
     for sid in range(8):
-        timed("prefill", lambda: w0.prefill(sid, groups[sid // 4]))
+        run.timed("prefill", lambda: w0.prefill(sid, groups[sid // 4]))
     stats = w0.dispatch_stats()
     if stats["blocks_shared"] == 0 or stats["reused_tokens"] < 3 * sum(map(len, groups)):
         raise AssertionError(f"radix page sharing did not engage: {stats}")
-    decode(w0, list(range(8)), 64, "decode")
-    timed("extend", lambda: w0.extend(0, rng.integers(0, cfg.vocab, 48).tolist()))
+    run.decode(w0, list(range(8)), 64)
+    run.timed("extend", lambda: w0.extend(0, rng.integers(0, cfg.vocab, 48).tolist()))
     w0.preempt(1)
-    decode(w0, [0, 2, 3, 4, 5, 6, 7], 8, "decode")
-    decode(w0, [1], 8, "decode")                            # resume
-    pkg = timed("migrate", lambda: w0.migrate_out(2))
-    timed("migrate", lambda: w1.migrate_in(pkg))
-    decode(w1, [2], 16, "decode")
-    ck = timed("checkpoint", lambda: w0.checkpoint_out(3))
-    timed("checkpoint", lambda: w1.migrate_in(ck))
-    a = decode(w1, [3], 8, "decode")[3]
-    b = decode(w0, [3], 8, "decode")[3]
+    run.decode(w0, [0, 2, 3, 4, 5, 6, 7], 8)
+    run.decode(w0, [1], 8)                                  # resume
+    pkg = run.timed("migrate", lambda: w0.migrate_out(2))
+    run.timed("migrate", lambda: w1.migrate_in(pkg))
+    run.decode(w1, [2], 16)
+    ck = run.timed("checkpoint", lambda: w0.checkpoint_out(3))
+    run.timed("checkpoint", lambda: w1.migrate_in(ck))
+    a = run.decode(w1, [3], 8)[3]
+    b = run.decode(w0, [3], 8)[3]
     if a != b:
         raise AssertionError(f"restored lane diverged from its source: {a} vs {b}")
-    for w in (w0, w1):
-        for sid in list(w.store):
-            timed("release", lambda: w.release(sid))
-    torch.cuda.synchronize()
-    launches = {"paged_decode_attention": decode_attention.launches}   # main path ends
+    run.release_all(w0, w1)
+    launches = _read_launches(torch)                        # main path ends
     steps = w0.decode_steps + w1.decode_steps
     if launches["paged_decode_attention"] < cfg.n_layers * steps:
         raise AssertionError(f"paged_decode_attention launched {launches} times for "
@@ -276,36 +409,131 @@ def phase_slice(torch):
             raise AssertionError(f"worker {i}: {bad}")
     s0, s1 = w0.dispatch_stats(), w1.dispatch_stats()
     log(f"[slice] decode steps {steps} (w0 {w0.decode_steps}, w1 {w1.decode_steps}); "
-        f"paged_decode_attention launches {launches['paged_decode_attention']} "
-        f"(>= {cfg.n_layers} x {steps}); tokens decoded {decoded}")
+        f"launches {launches} (paged >= {cfg.n_layers} x {steps}); tokens decoded "
+        f"{run.decoded}")
     log(f"[slice] blocks w0: {s0['reused_tokens']} prompt tokens reused by sharing, "
         f"high watermark {s0['blocks_used_high_watermark']}/{s0['blocks_total']}; "
         f"w1 high watermark {s1['blocks_used_high_watermark']}; conservation clean")
-    log("[slice] phase ms: " + ", ".join(f"{k} {v:.1f}" for k, v in times.items()))
-    log(f"[slice] decode {decoded / (times['decode'] / 1e3):.1f} tokens/s "
-        f"({times['decode'] / steps:.2f} ms per step); peak allocated "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    run.report("slice", steps)
     del w0, w1, params, pkg, ck
     torch.cuda.empty_cache()
-    return launches
+    return launches["paged_decode_attention"]
 
 
 # ---------------------------------------------------------------- phase 5
-def phase_profile(torch):
+def phase_dense(torch):
+    """The dense plane at full width: (a) the linear dense pool beside a paged
+    worker, (b) the sliding-window ring.  Returns the dense kernel's launches
+    over both."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.engine.sampler import SamplerConfig
+    from repro_torch.engine.worker import RolloutWorker
+    from repro_torch.models.config import LONG_CONTEXT_WINDOW
+
+    torch.cuda.reset_peak_memory_stats()
+    cfg, params = _full_width(torch)
+    kw = dict(sampler=SamplerConfig(1.0, 0.9), seed=SEED, device="cuda")
+    rng = np.random.default_rng(SEED + 2)
+    groups = [rng.integers(0, cfg.vocab, n).tolist() for n in (300, 257)]
+    run = Script(torch, cfg)
+
+    _reset_launches()                                       # dense path starts here
+    # (a) the linear dense pool; a paged worker takes the cross-layout moves
+    wd = RolloutWorker(cfg, params, worker_id=0, capacity=2048, max_slots=8, paged=False, **kw)
+    wp = RolloutWorker(cfg, params, worker_id=1, capacity=2048, max_slots=8, page_size=16,
+                       **kw)
+    pool_gb = sum(t.numel() * t.element_size() for c in wd.pool["blocks"].values()
+                  for t in c.values()) / 1e9
+    for sid in range(8):
+        run.timed("prefill", lambda: wd.prefill(sid, groups[sid // 4]))
+    if wd.dispatch_stats()["reused_tokens"] == 0:
+        raise AssertionError(f"lane-prefix reuse did not engage: {wd.dispatch_stats()}")
+    run.decode(wd, list(range(8)), 64)
+    run.timed("extend", lambda: wd.extend(0, rng.integers(0, cfg.vocab, 48).tolist()))
+    wd.preempt(1)
+    run.decode(wd, [0, 2, 3, 4, 5, 6, 7], 8)
+    run.decode(wd, [1], 8)                                  # resume
+    pkg = run.timed("migrate", lambda: wd.migrate_out(2))   # dense -> paged
+    run.timed("migrate", lambda: wp.migrate_in(pkg))
+    run.decode(wp, [2], 16)
+    pkg = run.timed("migrate", lambda: wp.migrate_out(2))   # paged -> dense
+    run.timed("migrate", lambda: wd.migrate_in(pkg))
+    run.decode(wd, [2], 8)
+    run.timed("prefill", lambda: wd.prefill(8, rng.integers(0, cfg.vocab, 200).tolist()))
+    if wd.pool_grows != 1 or wd.max_slots != 16:            # the ninth concurrent lane
+        raise AssertionError(f"the dense pool did not double once: {wd.pool_grows} grows, "
+                             f"{wd.max_slots} lanes")
+    ck = run.timed("checkpoint", lambda: wd.checkpoint_out(3))
+    run.timed("checkpoint", lambda: wd.migrate_in(dict(ck, seq_id=100)))
+    a = run.decode(wd, [100], 8)[100]
+    b = run.decode(wd, [3], 8)[3]
+    if a != b:
+        raise AssertionError(f"restored lane diverged from its source: {a} vs {b}")
+    run.decode(wd, list(wd.store), 8)
+    run.release_all(wd, wp)
+    launches_a = _read_launches(torch)
+    steps_a = wd.decode_steps
+    if launches_a["decode_attention"] < cfg.n_layers * steps_a:
+        raise AssertionError(f"(a) decode_attention launched {launches_a} times for "
+                             f"{steps_a} dense decode steps x {cfg.n_layers} layers")
+    if launches_a["paged_decode_attention"] < cfg.n_layers * wp.decode_steps:
+        raise AssertionError(f"(a) paged_decode_attention launched {launches_a} times for "
+                             f"{wp.decode_steps} paged decode steps")
+    log(f"[dense] (a) dense pool {pool_gb:.2f} GB at 8 lanes (doubled to "
+        f"{wd.max_slots}); {wd.dispatch_stats()['reused_tokens']} prompt tokens reused by "
+        f"lane copies; decode steps dense {steps_a}, paged {wp.decode_steps}; launches "
+        f"{launches_a}")
+    del wd, wp, pkg, ck
+    torch.cuda.empty_cache()
+
+    # (b) the sliding-window variant: a ring, dense by force
+    wcfg = get_config("qwen3_1_7b").with_sliding_window(LONG_CONTEXT_WINDOW)
+    ws = RolloutWorker(wcfg, params, worker_id=2, capacity=LONG_CONTEXT_WINDOW, max_slots=4,
+                       **kw)
+    if ws._paged:
+        raise AssertionError("a sliding-window config must take the dense plane")
+    ring_gb = sum(t.numel() * t.element_size() for c in ws.pool["blocks"].values()
+                  for t in c.values()) / 1e9
+    before = _read_launches(torch)
+    run.timed("prefill_9000", lambda: ws.prefill(20, rng.integers(0, cfg.vocab, 9000).tolist()))
+    run.timed("prefill_3000", lambda: ws.prefill(21, rng.integers(0, cfg.vocab, 3000).tolist()))
+    run.decode(ws, [20, 21], 32)
+    run.timed("extend_per_token", lambda: ws.extend(20, rng.integers(0, cfg.vocab, 16).tolist()))
+    run.decode(ws, [20], 4)
+    run.release_all(ws)
+    launches = _read_launches(torch)                        # dense path ends
+    steps_b = ws.decode_steps + ws.absorbed_tokens
+    if launches["decode_attention"] - before["decode_attention"] < cfg.n_layers * steps_b:
+        raise AssertionError(f"(b) decode_attention launched "
+                             f"{launches['decode_attention'] - before['decode_attention']} "
+                             f"times for {steps_b} steps x {cfg.n_layers} layers")
+    if launches["paged_decode_attention"] != before["paged_decode_attention"]:
+        raise AssertionError("(b) the paged kernel ran on the sliding-window plane")
+    log(f"[dense] (b) window {LONG_CONTEXT_WINDOW}: ring pool {ring_gb:.2f} GB at 4 lanes; "
+        f"admitted 9,000 + 3,000 tokens by full forward (flash); decode steps "
+        f"{ws.decode_steps}, per-token extend steps {ws.absorbed_tokens}; decode_attention "
+        f"launches {launches['decode_attention'] - before['decode_attention']}")
+    run.report("dense", steps_a + ws.decode_steps)
+    del ws, params
+    torch.cuda.empty_cache()
+    return launches["decode_attention"]
+
+
+# ---------------------------------------------------------------- phase 6
+def _profile_step(torch, cfg, params, paged):
     """Where one decode step's time goes at full width: 8 lanes of ~1,024
     tokens.  Wall time of ``n`` steps without the profiler, then the device
     time of the same number of steps by kernel under torch.profiler."""
     import numpy as np
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.configs import get_config
     from repro_torch.engine.sampler import SamplerConfig
     from repro_torch.engine.worker import RolloutWorker
-    from repro_torch.models.model import init_params, param_count
+    from repro_torch.models.model import param_count
 
-    cfg = get_config("qwen3_1_7b")
-    params = init_params(cfg, seed=SEED, device="cuda")
-    w = RolloutWorker(cfg, params, capacity=2048, page_size=16, max_slots=8,
+    tag = "paged" if paged else "dense"
+    w = RolloutWorker(cfg, params, capacity=2048, page_size=16, max_slots=8, paged=paged,
                       chunk_size=256, sampler=SamplerConfig(1.0, 0.9), seed=SEED,
                       device="cuda")
     rng = np.random.default_rng(SEED + 1)
@@ -321,25 +549,43 @@ def phase_profile(torch):
     kern = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
                   key=lambda e: -e.self_device_time_total)
     busy = sum(e.self_device_time_total for e in kern) / 1e3 / n
+    attn = sum(e.self_device_time_total for e in kern
+               if f"{tag}_decode_kernel" in e.key) / 1e3 / n
     item = params["tok_embed"].element_size()
-    kv_bytes = (context + 8 * (n + 1) / 2) * cfg.n_layers     # mean over the n steps * 2 * cfg.n_kv_heads * cfg.hd * item
-    bound = (param_count(params) * item + kv_bytes) / HBM_BYTES_PER_S * 1e3
-    log(f"[profile] decode step, 8 lanes, {context / 8:.0f} tokens of context each: wall "
-        f"{wall / n:.3f} ms, device busy {busy:.3f} ms ({100 * busy * n / wall:.1f}% of "
-        f"wall), {sum(e.count for e in kern) / n:.0f} device launches; bound {bound:.3f} ms "
-        f"(weights + KV read once at 3.35 TB/s)")
+    # KV read by the n profiled steps, per step: each lane's context grows by
+    # one token a step, so the mean context is context + 8 * (n + 1) / 2
+    kv_bytes = ((context + 8 * (n + 1) / 2) * cfg.n_layers
+                * 2 * cfg.n_kv_heads * cfg.hd * item)
+    weight_bytes = param_count(params) * item
+    bound = (weight_bytes + kv_bytes) / HBM_BYTES_PER_S * 1e3
+    log(f"[profile] {tag} decode step, 8 lanes, {context / 8:.0f} tokens of context each: "
+        f"wall {wall / n:.3f} ms, device busy {busy:.3f} ms ({100 * busy * n / wall:.1f}% "
+        f"of wall), {sum(e.count for e in kern) / n:.0f} device launches; {tag} decode "
+        f"kernel {attn:.3f} ms ({100 * attn / busy if busy else 0:.1f}% of busy); bound "
+        f"{bound:.3f} ms (weights {weight_bytes / 1e9:.3f} GB + KV {kv_bytes / 1e9:.3f} GB "
+        f"read once at 3.35 TB/s)")
     if busy == 0:
         log("[profile] torch.profiler recorded no device time on this machine")
     for e in kern[:10]:
         log(f"[profile]   {e.self_device_time_total / 1e3 / n:8.3f} ms/step "
             f"{e.count / n:6.0f}x  {e.key[:90]}")
-    del w, params
+    del w
     torch.cuda.empty_cache()
 
 
-# ---------------------------------------------------------------- phase 6
+def phase_profile(torch):
+    cfg, params = _full_width(torch)
+    for paged in (True, False):
+        _profile_step(torch, cfg, params, paged)
+    del params
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------- phase 7
 def phase_reference(torch):
-    """Teacher-forced decode logits, card (kernel) vs CPU (plain version)."""
+    """Teacher-forced decode logits, card (kernels) vs CPU (plain versions):
+    the paged plane, and a sliding-window ring (window 32, a 50-token prompt
+    admitted by a full forward, so the ring has wrapped)."""
     import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.models import model as M
@@ -355,7 +601,22 @@ def phase_reference(torch):
         buf = torch.tensor([list(range(5, 29))], device=dev)
         M.prefill_chunk_paged(cfg, prm, pool, 1, buf, 24)
         pools[dev] = pool
-    tok = torch.tensor([[0], [28]])
+    err = _teacher_forced(torch, cfg, params, gparams, pools, torch.tensor([[0], [28]]))
+    log(f"[reference] reduced {cfg.name} (2 layers, f32), paged: 8 teacher-forced decode "
+        f"steps, logits card vs CPU max |err| {err:.2e} (tol 1e-4)")
+    wcfg = cfg.with_sliding_window(32)
+    prompt = torch.tensor([list(range(3, 53))])
+    for dev, prm in (("cpu", params), ("cuda", gparams)):
+        _, _, lane = M.forward_full(wcfg, prm, {"tokens": prompt.to(dev)}, capacity=32)
+        pools[dev] = M.write_slot(M.init_cache(wcfg, 2, 32, dev), lane, 1)
+    err = _teacher_forced(torch, wcfg, params, gparams, pools, torch.tensor([[0], [52]]))
+    log(f"[reference] reduced {cfg.name} (2 layers, f32), sliding-window ring (window 32, "
+        f"50-token prompt): 8 teacher-forced decode steps, logits card vs CPU max |err| "
+        f"{err:.2e} (tol 1e-4)")
+
+
+def _teacher_forced(torch, cfg, params, gparams, pools, tok):
+    from repro_torch.models import model as M
     err = 0.0
     for _ in range(8):
         lc, _ = M.decode_step(cfg, params, pools["cpu"], tok)
@@ -363,9 +624,9 @@ def phase_reference(torch):
         err = max(err, float((lg.cpu() - lc).abs().max()))
         tok = lc.argmax(-1, keepdim=True)
     if not err < 1e-4:
-        raise AssertionError(f"reduced decode logits: card vs CPU max |err| {err} >= 1e-4")
-    log(f"[reference] reduced {cfg.name} (2 layers, f32): 8 teacher-forced decode steps, "
-        f"logits card vs CPU max |err| {err:.2e} (tol 1e-4)")
+        raise AssertionError(f"{cfg.name} window {cfg.sliding_window}: decode logits card "
+                             f"vs CPU max |err| {err} >= 1e-4")
+    return err
 
 
 def main() -> int:
@@ -380,17 +641,24 @@ def main() -> int:
         info = phase_device(torch)
         phase_build()
         rows = phase_kernels(torch)
-        launches = phase_slice(torch)
+        paged_launches = phase_slice(torch)
+        dense_launches = phase_dense(torch)
         phase_profile(torch)
         phase_reference(torch)
     except Exception:                                  # a failed phase fails the run
         traceback.print_exc()
         return 1
-    main_row = rows["bfloat16"]                        # the main path's dtype
-    kernels = [{"name": "paged_decode_attention", "route": "cuda",
-                "source": "src/repro_torch/kernels/csrc/paged_decode_attention.cu",
-                "replaces": "src/repro/kernels/decode_attention.py:112",
-                "launches": launches["paged_decode_attention"], **main_row}]
+    csrc = "src/repro_torch/kernels/csrc"
+    kernels = [                                        # the main paths' dtype: bf16
+        {"name": "paged_decode_attention", "route": "cuda",
+         "source": f"{csrc}/paged_decode_attention.cu",
+         "replaces": "src/repro/kernels/decode_attention.py:112",
+         "launches": paged_launches, **rows["paged_decode_attention"]["bfloat16"]},
+        {"name": "decode_attention", "route": "cuda",
+         "source": f"{csrc}/decode_attention.cu",
+         "replaces": "src/repro/kernels/decode_attention.py:159",
+         "launches": dense_launches, **rows["decode_attention"]["bfloat16"]},
+    ]
     log(f"[device] {info['smi']}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": info["kind"],

@@ -1,17 +1,25 @@
-"""Paged rollout worker: the port's data plane (counterpart of ``repro/engine/worker.py``).
+"""Rollout worker: the port's data plane (counterpart of ``repro/engine/worker.py``).
 
-The worker owns one **paged KV pool** (``model.init_paged_pool``): physical
-blocks of ``page_size`` token slots shared by every lane, a page table per
-lane, and a host-side ``PagePool`` that allocates, shares and frees blocks.
+The worker owns one KV pool, of one of two layouts:
 
-  * admission: the radix cache shares the matched prefix's full pages by
-    refcount and copies the boundary page, then the suffix is chunk-prefilled
-    straight into the lane's pages (``model.prefill_chunk_paged``);
+  * **paged** (``model.init_paged_pool``): physical blocks of ``page_size``
+    token slots shared by every lane, a page table per lane, and a host-side
+    ``PagePool`` that allocates, shares and frees blocks.  The radix cache
+    shares a matched prefix's full pages by refcount and copies the boundary
+    page; the decode kernel reads through the page table.
+  * **dense** (``model.init_cache``): a slot pool of ``max_slots`` lanes of
+    ``capacity`` slots each, a ring with a sliding window.  The radix cache
+    copies a matched prefix lane to lane; a full pool doubles.  The dense
+    decode kernel reads each lane directly.
+
+  * admission: chunked prefill of the suffix the radix cache cannot reuse,
+    or one full-sequence forward where chunked prefill does not apply;
   * decode: a masked step loop over the whole pool; every step of every
-    attention layer calls the paged decode attention kernel;
+    attention layer calls a decode attention kernel;
   * preemption: a mask flip -- the lane stays resident, nothing moves;
-  * migration: the lane's resident pages move device to device;
-  * tool absorption: chunked prefill at the lane's current offset.
+  * migration: the lane's KV moves device to device, between layouts too;
+  * tool absorption: chunked prefill at the lane's current offset, or one
+    masked decode step per token.
 
 Sampling is per lane: a sequence's key is ``fold_in(PRNGKey(seed + worker_id),
 seq_id)``, and each decode step draws with ``fold_in(key, pos)``
@@ -225,30 +233,34 @@ class Sequence:
 
 
 class RolloutWorker:
-    """One rollout worker holding model params and a paged KV pool.
+    """One rollout worker holding model params and a KV pool, paged or dense.
 
-    The paged data plane of ``repro.engine.worker.RolloutWorker``, with the
-    same host-side bookkeeping (block ids, radix cache, retired lanes,
-    counters), so both allocate the same blocks for the same calls.  Admission
-    chunk-prefills the suffix that the radix cache cannot share; decode runs
-    the masked full-pool step loop; preemption is a mask flip; migration
-    moves resident pages device to device.
+    The data plane of ``repro.engine.worker.RolloutWorker``, with the same
+    host-side bookkeeping (lanes, block ids, radix cache, retired lanes,
+    counters), so both make the same decisions for the same calls.
+
+    ``paged`` (default on) takes effect where ``model.supports_paged_kv``
+    allows it; otherwise (``paged=False``, or a sliding window) the worker
+    runs the dense plane.  ``use_chunked`` (default on) takes effect where
+    ``model.supports_chunked_prefill`` allows it; otherwise admission is one
+    full-sequence forward (``model.forward_full``), tool tokens are absorbed
+    one masked decode step each, and the radix cache reuses nothing.
 
     ``device=None`` means the card and raises where there is none; pass
-    ``device="cpu"`` to run on the CPU (the kernel's plain version then runs).
-    ``params`` is moved to ``device`` (a no-op for tensors already there, so
-    workers on one card share one copy).
+    ``device="cpu"`` to run on the CPU (the kernels' plain versions then
+    run).  ``params`` is moved to ``device`` (a no-op for tensors already
+    there, so workers on one card share one copy).
     """
 
     def __init__(self, cfg: ModelConfig, params, capacity: int = 256,
                  max_slots: int = 8, worker_id: int = 0,
                  sampler: SamplerConfig = SamplerConfig(), seed: int = 0,
                  chunk_size: int = 32, prefix_reuse: bool = True,
+                 use_chunked: bool | None = None,
                  retired_kv_bytes: int | None = None,
                  prefix_index_nodes: int = 65_536, mp: int = 1,
-                 page_size: int = 16, num_blocks: int | None = None, device=None):
-        if not M.supports_paged_kv(cfg):
-            raise NotImplementedError(f"{cfg.name}: the dense plane is not ported yet")
+                 paged: bool | None = None, page_size: int = 16,
+                 num_blocks: int | None = None, device=None):
         M.check_ported(cfg)
         self.device = resolve_device(device)
         self.cfg = cfg
@@ -259,30 +271,36 @@ class RolloutWorker:
         self.mp = max(int(mp), 1)
         self.base_key = prng.prng_key(seed + worker_id)
         self.params = M.tree_to(params, self.device)
-        ps = max(int(page_size), 1)
-        while capacity % ps:                       # page size must tile the lane
-            ps //= 2
-        self.page_size = ps
-        self.num_pages = capacity // ps
-        # default block budget: the dense pool's footprint (+ scratch)
-        self.num_blocks = (num_blocks if num_blocks is not None
-                           else max_slots * self.num_pages + 1)
-        self.pages = PagePool(self.num_blocks)
-        self.lane_pages: dict[int, list[int]] = {}   # slot -> ordered blocks
-        self.block_grows = 0
-        self.pool = M.init_paged_pool(cfg, max_slots, self.num_blocks, ps, self.num_pages,
-                                      self.device)
-        self.store: dict[int, Sequence] = {}       # resident sequences (incl. preempted)
-        self.chunk_size = chunk_size
-        self._reuse = prefix_reuse and M.supports_prefix_reuse(cfg)
-        # byte prices: a dense lane (pos + K/V at full capacity), one block
-        # across every paged layer, and the per-lane dense remainder (pos)
+        # byte prices: a lane's dense state (pos), a dense lane (state + K/V at
+        # full capacity) and, paged, one block across every paged layer
         itemsize = torch.empty((), dtype=M.torch_dtype(cfg)).element_size()
         n_attn = sum(1 for k in cfg.block_pattern if M._paged_kind(k))
         kv_per_token = 2 * cfg.n_periods * n_attn * cfg.n_kv_heads * cfg.hd * itemsize
         self._state_bytes = 4
         self._lane_bytes = self._state_bytes + kv_per_token * capacity
-        self._page_bytes = kv_per_token * self.page_size
+        self.lane_pages: dict[int, list[int]] = {}   # slot -> ordered blocks (paged)
+        self._paged = (paged if paged is not None else True) and M.supports_paged_kv(cfg)
+        if self._paged:
+            ps = max(int(page_size), 1)
+            while capacity % ps:                   # page size must tile the lane
+                ps //= 2
+            self.page_size = ps
+            self.num_pages = capacity // ps
+            # default block budget: the dense pool's footprint (+ scratch)
+            self.num_blocks = (num_blocks if num_blocks is not None
+                               else max_slots * self.num_pages + 1)
+            self.pages = PagePool(self.num_blocks)
+            self.block_grows = 0
+            self._page_bytes = kv_per_token * ps
+            self.pool = M.init_paged_pool(cfg, max_slots, self.num_blocks, ps,
+                                          self.num_pages, self.device)
+        else:
+            self.pool = M.init_cache(cfg, max_slots, capacity, self.device)
+        self.store: dict[int, Sequence] = {}       # resident sequences (incl. preempted)
+        self.chunk_size = chunk_size
+        self._chunked = ((use_chunked if use_chunked is not None else True)
+                         and M.supports_chunked_prefill(cfg))
+        self._reuse = prefix_reuse and self._chunked and M.supports_prefix_reuse(cfg)
         budget = (retired_kv_bytes if retired_kv_bytes is not None
                   else self._lane_bytes * max_slots)
         self._max_retired = budget // self._lane_bytes if self._lane_bytes else 0
@@ -302,47 +320,50 @@ class RolloutWorker:
         self.decode_calls = 0
 
     # ------------------------------------------------------------ slot bookkeeping
-    def _alloc_slot(self) -> int:
-        """Lowest free lane, else the LRU retired lane, else lane growth (doubling).
+    def _reclaim(self, slot: int) -> None:
+        """A lane about to be overwritten: drop its radix refs and free its
+        pages (shared blocks survive via their sharers' refcounts)."""
+        self.prefix_index.invalidate(slot)
+        self._free_lane_pages(slot)
 
-        The returned lane is about to be overwritten, so its radix refs are
-        invalidated and its pages freed (shared blocks survive via their
-        sharers' refcounts)."""
+    def _alloc_slot(self) -> int:
+        """Lowest free lane, else the LRU retired lane, else lane growth (doubling)."""
         used = {s.slot for s in self.store.values()}
         for slot in range(self.max_slots):
             if slot not in used and slot not in self.retired:
-                self.prefix_index.invalidate(slot)
-                self._free_lane_pages(slot)
+                self._reclaim(slot)
                 return slot
         if self.retired:
             slot, _ = self.retired.popitem(last=False)
-            self.prefix_index.invalidate(slot)
-            self._free_lane_pages(slot)
+            self._reclaim(slot)
             return slot
         slot = self.max_slots
-        # lane growth only: page-table rows and pos double, block pools stay
-        self.pool = M.grow_paged_lanes(self.cfg, self.pool, self.max_slots)
+        if self._paged:
+            # lane growth only: page-table rows and pos double, block pools stay
+            self.pool = M.grow_paged_lanes(self.cfg, self.pool, self.max_slots)
+        else:
+            fresh = M.init_cache(self.cfg, self.max_slots, self.capacity, self.device)
+            self.pool = M.concat_pools(self.pool, fresh)
         self.max_slots *= 2
         self.pool_grows += 1
         self.prefix_index.invalidate(slot)
         return slot
 
     def _retire_slot(self, slot: int, n_tokens: int) -> None:
-        """Hand a released lane to the radix cache (LRU, byte-budgeted); its
-        tail pages past ceil(n_tokens / page_size) are freed now."""
+        """Hand a released lane to the radix cache (LRU, byte-budgeted); a paged
+        lane's tail pages past ceil(n_tokens / page_size) are freed now."""
         if not (self._reuse and self._max_retired > 0 and n_tokens > 0):
-            self.prefix_index.invalidate(slot)
-            self._free_lane_pages(slot)
+            self._reclaim(slot)
             return
         self._trim_lane_pages(slot, n_tokens)
         self.retired[slot] = n_tokens
         self.retired.move_to_end(slot)
         while len(self.retired) > self._max_retired:
             old, _ = self.retired.popitem(last=False)
-            self.prefix_index.invalidate(old)
-            self._free_lane_pages(old)
+            self._reclaim(old)
 
     # ------------------------------------------------------------ page bookkeeping
+    # (the dense plane maps no pages: lane_pages stays empty and these no-op)
     def _row_of(self, blocks: list[int]) -> np.ndarray:
         """Fixed-shape (num_pages,) row; unmapped tail -> scratch block 0."""
         row = np.zeros((self.num_pages,), np.int32)
@@ -363,6 +384,8 @@ class RolloutWorker:
     def _trim_lane_pages(self, slot: int, n_tokens: int) -> None:
         """Free pages past ceil(n_tokens / page_size) (retire headroom trim)."""
         blocks = self.lane_pages.get(slot, [])
+        if not blocks:
+            return
         keep = -(-n_tokens // self.page_size)
         if len(blocks) > keep:
             self.pages.free(blocks[keep:])
@@ -378,8 +401,7 @@ class RolloutWorker:
             except PagePoolExhausted:
                 if self.retired:
                     old, _ = self.retired.popitem(last=False)
-                    self.prefix_index.invalidate(old)
-                    self._free_lane_pages(old)
+                    self._reclaim(old)
                     continue
                 self._grow_blocks(n)
 
@@ -402,24 +424,56 @@ class RolloutWorker:
 
     # ------------------------------------------------------------ lifecycle
     def prefill(self, seq_id: int, tokens: list[int]) -> None:
-        """Admit a sequence: share the radix-matched prefix's pages, then
-        chunk-prefill the suffix."""
+        """Admit a sequence: reuse the radix-matched prefix (shared pages, or a
+        lane-prefix copy on the dense plane), then chunk-prefill the suffix;
+        without chunked prefill, one full-sequence forward."""
         reuse_n, src = 0, None
         if self._reuse:
             reuse_n, src = self.prefix_index.match_lane(tokens)
         else:
             self.prefix_index.match_len(tokens)
         slot = self._alloc_slot()
-        self._prefill_paged(slot, tokens, reuse_n, src)
+        if self._paged:
+            self._prefill_paged(slot, tokens, reuse_n, src)
+        elif not self._chunked:
+            M.write_slot(self.pool, self._forward_lane(tokens, self.capacity), slot)
+            self.prefilled_tokens += len(tokens)
+        else:
+            self._prefill_dense(slot, tokens, reuse_n, src)
         key = prng.fold_in(self.base_key, seq_id).numpy().astype(np.uint32)
         self.store[seq_id] = Sequence(seq_id, list(tokens), slot, key)
         self.prefix_index.insert(tokens, slot=slot)
+
+    def _forward_lane(self, tokens: list[int], capacity: int) -> dict:
+        """A batch-1 dense lane of ``capacity`` slots from one full forward."""
+        arr = torch.as_tensor([tokens], dtype=torch.int64, device=self.device)
+        _, _, lane = M.forward_full(self.cfg, self.params, {"tokens": arr},
+                                    capacity=capacity)
+        return lane
+
+    def _prefill_dense(self, slot: int, tokens: list[int], reuse_n: int,
+                       src: int | None) -> None:
+        """Copy the matched prefix of lane ``src`` into a fresh lane on the
+        device, chunk-prefill the suffix into it, and write it into ``slot``.
+        (``src`` may be the lane ``slot`` reclaimed: its old contents are read
+        before the write.)"""
+        lane = M.init_cache(self.cfg, 1, self.capacity, self.device)
+        if src is not None and reuse_n > 0:
+            if src in self.retired:
+                self.retired.move_to_end(src)             # LRU touch
+            M.copy_prefix(self.pool, src, lane, reuse_n)
+            self.reused_tokens += reuse_n
+        for buf, n in self._chunks(tokens, reuse_n):
+            M.prefill_chunk(self.cfg, self.params, lane, buf, n)
+        M.write_slot(self.pool, lane, slot)
+        self.prefilled_tokens += len(tokens) - reuse_n
 
     def _prefill_paged(self, slot: int, tokens: list[int], reuse_n: int,
                        src: int | None) -> None:
         """Share the matched prefix's full pages by refcount (no KV copy),
         copy its boundary partial page device to device, then chunk-prefill
-        the suffix straight into freshly mapped pages."""
+        the suffix straight into freshly mapped pages (or, without chunked
+        prefill, scatter one full forward's lane into them)."""
         S, ps = len(tokens), self.page_size
         blocks: list[int] = []
         boundary: tuple[int, int] | None = None
@@ -445,31 +499,62 @@ class RolloutWorker:
         M.paged_set_lane(self.pool, slot, self._row_of(blocks), reuse_eff)
         if boundary is not None:
             M.paged_copy_block(self.pool, boundary[0], boundary[1])
-        self._chunk_into_paged(slot, tokens, reuse_eff)
+        if not self._chunked:
+            M.paged_write_lane(self.pool, self._forward_lane(tokens, S), slot,
+                               self._row_of(blocks), S)
+            self.prefilled_tokens += S
+            return
+        for buf, n in self._chunks(tokens, reuse_eff):
+            M.prefill_chunk_paged(self.cfg, self.params, self.pool, slot, buf, n)
         self.prefilled_tokens += S - reuse_eff
 
-    def _chunk_into_paged(self, slot: int, tokens: list[int], start: int) -> None:
-        """Feed ``tokens[start:]`` into lane ``slot``'s pages, one fixed-shape
-        (1, chunk_size) chunk at a time."""
+    def _chunks(self, tokens: list[int], start: int):
+        """``tokens[start:]`` as fixed-shape (1, chunk_size) buffers on the
+        device, each with its count of valid tokens; counts the dispatches."""
         C = self.chunk_size
-        off, S = start, len(tokens)
-        while off < S:
-            step = min(C, S - off)
+        for off in range(start, len(tokens), C):
+            step = min(C, len(tokens) - off)
             buf = np.zeros((1, C), np.int64)
             buf[0, :step] = tokens[off:off + step]
-            M.prefill_chunk_paged(self.cfg, self.params, self.pool, slot,
-                                  torch.from_numpy(buf).to(self.device), step)
-            off += step
             self.prefill_dispatches += 1
+            yield torch.from_numpy(buf).to(self.device), step
 
     def extend(self, seq_id: int, tool_tokens: list[int]) -> None:
-        """Absorb tool output: chunked prefill into the lane at its current offset."""
+        """Absorb tool output: chunked prefill into the lane at its current
+        offset (one masked decode step per token without chunked prefill)."""
+        if not self._chunked:
+            self.extend_per_token(seq_id, tool_tokens)
+            return
         seq = self.store[seq_id]
         ext = list(seq.tokens) + [int(t) for t in tool_tokens]
-        self._ensure_coverage(seq.slot, len(ext))
-        self._chunk_into_paged(seq.slot, ext, len(seq.tokens))
+        if self._paged:
+            self._ensure_coverage(seq.slot, len(ext))
+            for buf, n in self._chunks(ext, len(seq.tokens)):
+                M.prefill_chunk_paged(self.cfg, self.params, self.pool, seq.slot, buf, n)
+        else:
+            lane = M.gather_slots(self.pool, [seq.slot])
+            for buf, n in self._chunks(ext, len(seq.tokens)):
+                M.prefill_chunk(self.cfg, self.params, lane, buf, n)
+            M.write_slot(self.pool, lane, seq.slot)
         self.absorbed_tokens += len(tool_tokens)
         seq.tokens = ext
+        self.prefix_index.insert(seq.tokens, slot=seq.slot)
+
+    def extend_per_token(self, seq_id: int, tool_tokens: list[int]) -> None:
+        """Tool absorption one masked full-pool decode step per token (the path
+        of configs without chunked prefill)."""
+        seq = self.store[seq_id]
+        if self._paged:
+            self._ensure_coverage(seq.slot, len(seq.tokens) + len(tool_tokens))
+        B = self.max_slots
+        active = torch.arange(B, device=self.device) == seq.slot
+        toks = torch.as_tensor([int(t) for t in tool_tokens], dtype=torch.int64,
+                               device=self.device)
+        for i in range(len(tool_tokens)):
+            M.decode_step(self.cfg, self.params, self.pool, toks[i].expand(B, 1),
+                          active=active)
+        self.absorbed_tokens += len(tool_tokens)
+        seq.tokens.extend(int(t) for t in tool_tokens)
         self.prefix_index.insert(seq.tokens, slot=seq.slot)
 
     def decode(self, seq_ids: list[int], n_tokens: int, stop_token: int | None = None
@@ -496,9 +581,10 @@ class RolloutWorker:
             seq = self.store[sid]
             seq.preempted = False
             live[seq.slot] = True
-            # map decode headroom up front: the loop writes positions
-            # [len(tokens), len(tokens) + n_tokens) with no host check inside
-            self._ensure_coverage(seq.slot, len(seq.tokens) + n_tokens)
+            if self._paged:
+                # map decode headroom up front: the loop writes positions
+                # [len(tokens), len(tokens) + n_tokens) with no host check inside
+                self._ensure_coverage(seq.slot, len(seq.tokens) + n_tokens)
         last_t = torch.from_numpy(last).to(self.device)
         live_t = torch.from_numpy(live).to(self.device)
         keys_t = torch.from_numpy(keys).to(self.device)
@@ -563,26 +649,29 @@ class RolloutWorker:
             "finished": finished,
         }
 
-    def _gather_resident(self, seq: Sequence) -> tuple[dict, dict, list[int], int]:
-        """Pages + dense state of one lane, trimmed to resident tokens."""
+    def _lane_payload(self, seq: Sequence) -> dict:
+        """One lane's KV on the device, with its byte price: the resident pages
+        and dense state (paged) or the whole lane (dense)."""
+        if not self._paged:
+            return {"cache": M.gather_slots(self.pool, [seq.slot]),
+                    "logical_bytes": self._lane_bytes}
         keep = -(-len(seq.tokens) // self.page_size)
         blocks = self.lane_pages.get(seq.slot, [])[:keep]
-        pages = M.paged_gather_pages(self.pool, blocks)
-        state = M.paged_gather_state(self.pool, seq.slot)
-        logical = len(blocks) * self._page_bytes + self._state_bytes
-        return pages, state, blocks, logical
+        return {"pages": M.paged_gather_pages(self.pool, blocks),
+                "state": M.paged_gather_state(self.pool, seq.slot),
+                "page_size": self.page_size, "capacity": self.capacity,
+                "logical_bytes": len(blocks) * self._page_bytes + self._state_bytes}
 
     def migrate_out(self, seq_id: int) -> dict:
-        """Package one lane's context and resident pages for transfer.
+        """Package one lane's context and KV for transfer.
 
-        The page stacks stay on the device (a move between workers on one card
-        is a device-to-device copy); ``logical_bytes`` prices the resident
-        pages + dense state.  The local copy retires into the radix cache."""
+        The KV stays on the device (a move between workers on one card is a
+        device-to-device copy); ``logical_bytes`` prices the resident pages +
+        dense state, or the whole dense lane.  The local copy retires into the
+        radix cache."""
         seq = self.store.pop(seq_id)
-        pages, state, _, logical = self._gather_resident(seq)
         pkg = self._package_meta(seq, seq.preempted, seq.finished)
-        pkg.update(pages=pages, state=state, page_size=self.page_size,
-                   capacity=self.capacity, logical_bytes=logical)
+        pkg.update(self._lane_payload(seq))
         self._retire_slot(seq.slot, len(seq.tokens))
         return pkg
 
@@ -592,11 +681,11 @@ class RolloutWorker:
         Same package format as :meth:`migrate_out`, copied to host memory so it
         outlives this worker's device; lifecycle flags are snapshotted clean."""
         seq = self.store[seq_id]
-        pages, state, _, logical = self._gather_resident(seq)
         pkg = self._package_meta(seq, False, False)
-        pkg.update(pages=M.tree_to(pages, "cpu"), state=M.tree_to(state, "cpu"),
-                   page_size=self.page_size, capacity=self.capacity,
-                   logical_bytes=logical)
+        pkg.update(self._lane_payload(seq))
+        for name in ("cache", "pages", "state"):
+            if name in pkg:
+                pkg[name] = M.tree_to(pkg[name], "cpu")
         return pkg
 
     def _ingest_pages(self, package: dict, slot: int) -> None:
@@ -609,17 +698,37 @@ class RolloutWorker:
         M.paged_write_state(self.pool, state, slot, self._row_of(blocks))
 
     def migrate_in(self, package: dict) -> None:
-        """Implant a migrated lane into a free slot.
+        """Implant a migrated lane into a free slot (capacities must match).
 
-        Only a paged package with this worker's page size and capacity lands
-        here; the cross-layout paths need the dense plane, not ported yet."""
-        if ("pages" not in package or package.get("page_size") != self.page_size
-                or package.get("capacity") != self.capacity):
-            raise NotImplementedError(
-                "migrate_in: only same-layout paged packages are ported (the dense "
-                "plane is not)")
+        Four layouts meet here: a paged package on a paged worker with the same
+        page size and capacity scatters its pages; a paged package on any
+        other worker is flattened back to a dense lane (``pages_to_lane``); a
+        dense lane lands on a paged worker through ``paged_write_lane`` and on
+        a dense worker through ``write_slot``."""
         slot = self._alloc_slot()
-        self._ingest_pages(package, slot)
+        if "pages" in package:
+            if (self._paged and package.get("page_size") == self.page_size
+                    and package.get("capacity") == self.capacity):
+                self._ingest_pages(package, slot)
+                self._register_seq(package, slot)
+                return
+            lane = M.pages_to_lane(package["pages"], package["state"], self.capacity)
+        else:
+            lane = package["cache"]
+        if self._paged:
+            need = min(-(-len(package["tokens"]) // self.page_size), self.num_pages)
+            blocks = self._alloc_blocks(need)
+            self.lane_pages[slot] = blocks
+            M.paged_write_lane(self.pool, lane, slot, self._row_of(blocks),
+                               len(package["tokens"]))
+        else:
+            for dst, src in M._lane_leaves(self.pool, lane):
+                if (dst.shape[0],) + dst.shape[2:] != (src.shape[0],) + src.shape[2:]:
+                    raise ValueError(
+                        f"migrate_in: lane shape {tuple(src.shape)} does not fit pool lane "
+                        f"{tuple(dst.shape)}: source and destination workers must share "
+                        "capacity and architecture")
+            M.write_slot(self.pool, lane, slot)
         self._register_seq(package, slot)
 
     def _register_seq(self, package: dict, slot: int) -> None:
@@ -635,9 +744,12 @@ class RolloutWorker:
 
     # ------------------------------------------------------------ accounting
     def kv_bytes(self, seq_id: int) -> int:
-        """Resident pages + dense state of one lane."""
+        """One lane's footprint: resident pages + dense state (paged), or the
+        fixed lane size (dense)."""
         if seq_id not in self.store:
             raise KeyError(seq_id)
+        if not self._paged:
+            return self._lane_bytes
         slot = self.store[seq_id].slot
         return len(self.lane_pages.get(slot, [])) * self._page_bytes + self._state_bytes
 
@@ -650,14 +762,16 @@ class RolloutWorker:
         self.prefix_index = PrefixCacheIndex(max_nodes=self.prefix_index.max_nodes)
 
     def dispatch_stats(self) -> dict:
-        """Admission, reuse, block-pool and decode counters (same keys as the
-        JAX worker's)."""
+        """Admission, reuse, block-pool (paged) and decode counters (same keys
+        as the JAX worker's)."""
         idx = self.prefix_index
-        stats = {"blocks_" + k: v for k, v in self.pages.stats().items()}
+        stats = {}
+        if self._paged:
+            stats = {"blocks_" + k: v for k, v in self.pages.stats().items()}
+            stats["page_size"] = self.page_size
+            stats["block_grows"] = self.block_grows
         return {
             **stats,
-            "page_size": self.page_size,
-            "block_grows": self.block_grows,
             "reused_tokens": self.reused_tokens,
             "prefilled_tokens": self.prefilled_tokens,
             "absorbed_tokens": self.absorbed_tokens,

@@ -1,10 +1,12 @@
-"""Build the port's CUDA kernels with ``nvcc`` into a shared library, on first use.
+"""Build the port's CUDA kernels with ``nvcc`` into one shared library, on first use.
 
-Each library is compiled from the sources under ``csrc/`` for ``sm_90a`` with a
+The library is compiled from the sources under ``csrc/`` for ``sm_90a`` with a
 plain C interface and loaded with ``ctypes`` (no PyTorch headers, so a build
-takes seconds).  The output lands in ``build/kernels/<hash>/`` at the root of
-the checkout, keyed by a hash of the sources and flags, so an edited source
-rebuilds and an unchanged one loads the library already there.
+takes seconds).  Every source gets its own ``nvcc``, all started together,
+and one more links the objects.  The output lands in ``build/kernels/<hash>/``
+at the root of the checkout, keyed by a hash of the sources, the shared
+headers and the flags, so an edited source rebuilds and an unchanged one
+loads the library already there.
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
 class KernelBuildError(RuntimeError):
@@ -55,26 +57,34 @@ class Library:
         if self.handle is not None:
             return self.handle
         digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-        for src in self.sources:
+        for src in (*self.sources, *sorted(p.name for p in CSRC.glob("*.cuh"))):
             digest.update(src.encode())
             digest.update((CSRC / src).read_bytes())
         out_dir = BUILD_ROOT / digest.hexdigest()[:16]
         self.path = out_dir / f"lib{self.name}.so"
         if not self.path.exists():
             out_dir.mkdir(parents=True, exist_ok=True)
-            fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-            os.close(fd)
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *(str(CSRC / s) for s in self.sources)]
             t0 = time.perf_counter()
-            proc = subprocess.run(cmd, capture_output=True, text=True)
+            with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+                objs = [f"{tmp}/{Path(s).stem}.o" for s in self.sources]
+                procs = [subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-c", "-o", o, str(CSRC / s)],
+                                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                          text=True)
+                         for s, o in zip(self.sources, objs)]
+                self.log = "".join(p.communicate()[0] for p in procs)
+                so = f"{tmp}/lib.so"
+                ok = all(p.returncode == 0 for p in procs)
+                if ok:
+                    link = subprocess.run([_nvcc(), *NVCC_FLAGS[:2], "-shared", "-o", so, *objs],
+                                          capture_output=True, text=True)
+                    self.log += link.stdout + link.stderr
+                    ok = link.returncode == 0
+                if not ok:
+                    raise KernelBuildError(f"nvcc failed:\n{self.log}")
+                os.replace(so, self.path)        # atomic: a concurrent build is safe
             self.build_seconds = time.perf_counter() - t0
-            self.log = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                os.unlink(tmp)
-                raise KernelBuildError(f"nvcc failed ({proc.returncode}):\n{self.log}")
-            os.replace(tmp, self.path)           # atomic: a concurrent build is safe
         self.handle = ctypes.CDLL(str(self.path))
         return self.handle
 
 
-PAGED_DECODE = Library("paged_decode_attention", ("paged_decode_attention.cu",))
+DECODE = Library("decode_attention", ("paged_decode_attention.cu", "decode_attention.cu"))

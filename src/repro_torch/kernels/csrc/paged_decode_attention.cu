@@ -3,9 +3,8 @@
 //
 // Replaces the TPU kernel src/repro/kernels/decode_attention.py
 // (paged_decode_attention_pallas, body _paged_decode_attn_kernel) and
-// computes what it computes: scores q.k^T / sqrt(hd) in f32, an online softmax
-// (running max m, denominator l, accumulator acc, all f32) across the lane's
-// pages, output acc / max(l, 1e-30) cast to the input type.
+// computes what it computes; the device body, its design and its contract are
+// in decode_attention.cuh, shared with the dense kernel.
 //
 // Shapes (all contiguous, row-major):
 //   q          (B, KV, G, hd)           bf16 or f32
@@ -20,16 +19,8 @@
 // masks positions >= valid_len to -1e30; this kernel stops after
 // ceil(valid_len / page_size) pages.  For valid_len >= 1 the two agree: a
 // masked score adds exp(-1e30 - m) = 0 to l and acc.  valid_len above
-// num_pages * page_size is clamped to it, as the Pallas mask does.
-//
-// Design (simple and right first): one thread block per (b, kv head), 8 warps.
-// The block loads its G query rows into shared memory in f32.  Warp w takes
-// tokens [4w, 4w + 4), then [4w + 32, 4w + 36), ... of the lane; lane i of
-// a warp holds elements i, i + 32, ... of each head vector, so every load of
-// a K or V row is one coalesced 32-wide access.  Each warp keeps its own
-// online softmax per query row; at the end the warps' (m, l, acc) are merged
-// through shared memory.  The page table is read by the block itself (there
-// is no scalar prefetch on this card).
+// num_pages * page_size is clamped to it, as the Pallas mask does.  The block
+// reads the page table itself (there is no scalar prefetch on this card).
 //
 // Bound: memory.  The work reads K and V of sum_b valid_len_b tokens
 // (KV * hd * itemsize bytes each) once, plus q and out.  At the main path's
@@ -42,35 +33,23 @@
 // cp.async / TMA pipeline; the G x hd by hd x tokens products run on CUDA
 // cores, not wgmma.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "decode_attention.cuh"
 
 namespace {
 
-constexpr int kWarps = 8;
-constexpr int kUnroll = 4;  // tokens a warp loads before it computes
+using namespace repro_decode;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+struct PagedRows {
+  const int32_t* pt;  // this lane's page-table row
+  int page_size;
+  size_t tok_stride;  // elements between a block's token rows (KV * hd)
+  size_t head_off;    // h * hd
+  __device__ __forceinline__ size_t operator()(int j) const {
+    const size_t blk = (size_t)pt[j / page_size];
+    return (blk * page_size + j % page_size) * tok_stride + head_off;
+  }
+};
 
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-// G query rows per KV head; EPT head elements per thread (hd = 32 * EPT).
 template <typename T, int G, int EPT>
 __global__ void __launch_bounds__(kWarps * 32)
 paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
@@ -79,103 +58,14 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
                     const int32_t* __restrict__ valid_len, T* __restrict__ out,
                     int KV, int num_pages, int page_size, float scale) {
   constexpr int HD = 32 * EPT;
-  __shared__ float s_q[G][HD];
-  __shared__ float s_m[kWarps][G];
-  __shared__ float s_l[kWarps][G];
-  __shared__ float s_acc[kWarps][G][HD];
-
   const int b = blockIdx.x / KV;
   const int h = blockIdx.x % KV;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-
   const size_t head = (size_t)b * KV + h;
-  const T* qb = q + head * G * HD;
-  for (int i = threadIdx.x; i < G * HD; i += blockDim.x) s_q[i / HD][i % HD] = to_f32(qb[i]);
-  __syncthreads();
-
-  float qr[G][EPT];
-#pragma unroll
-  for (int g = 0; g < G; ++g)
-#pragma unroll
-    for (int e = 0; e < EPT; ++e) qr[g][e] = s_q[g][lane + 32 * e];
-
-  float m[G], l[G], acc[G][EPT];
-#pragma unroll
-  for (int g = 0; g < G; ++g) {
-    m[g] = -INFINITY;
-    l[g] = 0.f;
-#pragma unroll
-    for (int e = 0; e < EPT; ++e) acc[g][e] = 0.f;
-  }
-
+  const PagedRows rows{page_table + (size_t)b * num_pages, page_size, (size_t)KV * HD,
+                       (size_t)h * HD};
   const int vlen = min(valid_len[b], num_pages * page_size);
-  const int32_t* pt = page_table + (size_t)b * num_pages;
-  const size_t tok_stride = (size_t)KV * HD;  // elements between a block's rows
-
-  for (int base = warp * kUnroll; base < vlen; base += kWarps * kUnroll) {
-    float kr[kUnroll][EPT], vr[kUnroll][EPT];
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int j = base + u;
-      if (j < vlen) {
-        const size_t blk = (size_t)pt[j / page_size];
-        const size_t row = (blk * page_size + j % page_size) * tok_stride + (size_t)h * HD;
-#pragma unroll
-        for (int e = 0; e < EPT; ++e) {
-          kr[u][e] = to_f32(k_pool[row + lane + 32 * e]);
-          vr[u][e] = to_f32(v_pool[row + lane + 32 * e]);
-        }
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      if (base + u < vlen) {  // the same on every lane of the warp
-#pragma unroll
-        for (int g = 0; g < G; ++g) {
-          float d = 0.f;
-#pragma unroll
-          for (int e = 0; e < EPT; ++e) d += qr[g][e] * kr[u][e];
-          const float s = warp_sum(d) * scale;
-          const float m_new = fmaxf(m[g], s);
-          const float corr = expf(m[g] - m_new);
-          const float p = expf(s - m_new);
-          l[g] = l[g] * corr + p;
-#pragma unroll
-          for (int e = 0; e < EPT; ++e) acc[g][e] = acc[g][e] * corr + p * vr[u][e];
-          m[g] = m_new;
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int g = 0; g < G; ++g) {
-    if (lane == 0) {
-      s_m[warp][g] = m[g];
-      s_l[warp][g] = l[g];
-    }
-#pragma unroll
-    for (int e = 0; e < EPT; ++e) s_acc[warp][g][lane + 32 * e] = acc[g][e];
-  }
-  __syncthreads();
-
-  T* ob = out + head * G * HD;
-  for (int i = threadIdx.x; i < G * HD; i += blockDim.x) {
-    const int g = i / HD, d = i % HD;
-    float mx = -INFINITY;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, s_m[w][g]);
-    float den = 0.f, num = 0.f;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) {
-      if (s_m[w][g] == -INFINITY) continue;  // warp saw no token
-      const float c = expf(s_m[w][g] - mx);
-      den += s_l[w][g] * c;
-      num += s_acc[w][g][d] * c;
-    }
-    ob[i] = from_f32<T>(num / fmaxf(den, 1e-30f));
-  }
+  decode_block<T, G, EPT>(q + head * G * HD, k_pool, v_pool, out + head * G * HD, vlen, rows,
+                          scale);
 }
 
 template <typename T>
@@ -198,11 +88,7 @@ int launch(const void* q, const void* k_pool, const void* v_pool, const void* pa
         <<<grid, block, 0, s>>>(qp, kp, vp, pt, vl, op, KV, num_pages, page_size, scale); \
     return (int)cudaGetLastError();                                                   \
   }
-  // G * hd <= 1024 keeps the static shared memory under 48 KB.
-  REPRO_PAGED_CASE(1, 2) REPRO_PAGED_CASE(1, 4) REPRO_PAGED_CASE(1, 8)
-  REPRO_PAGED_CASE(2, 2) REPRO_PAGED_CASE(2, 4) REPRO_PAGED_CASE(2, 8)
-  REPRO_PAGED_CASE(4, 2) REPRO_PAGED_CASE(4, 4) REPRO_PAGED_CASE(4, 8)
-  REPRO_PAGED_CASE(8, 2) REPRO_PAGED_CASE(8, 4)
+  REPRO_DECODE_SHAPES(REPRO_PAGED_CASE)
 #undef REPRO_PAGED_CASE
   return (int)cudaErrorInvalidValue;
 }

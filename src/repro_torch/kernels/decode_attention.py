@@ -1,13 +1,16 @@
-"""Paged decode attention: the hand-written Hopper kernel and its wrapper.
+"""Decode attention, paged and dense: the hand-written Hopper kernels and their wrappers.
 
-The kernel (``csrc/paged_decode_attention.cu``) replaces the TPU kernel
-``repro/kernels/decode_attention.py::paged_decode_attention_pallas``.  It is
-compiled by ``nvcc`` on first use (``build.py``) and called through ``ctypes``
-on PyTorch's current stream.
+``paged_decode_attention`` (``csrc/paged_decode_attention.cu``) replaces the
+TPU kernel ``repro/kernels/decode_attention.py::paged_decode_attention_pallas``;
+``decode_attention`` (``csrc/decode_attention.cu``) replaces
+``decode_attention_pallas``.  Both share one device body
+(``csrc/decode_attention.cuh``), are compiled by ``nvcc`` on first use into
+one library (``build.py``) and are called through ``ctypes`` on PyTorch's
+current stream.
 
-On CPU tensors the wrapper returns the plain version
-(``ref.paged_decode_attention_ref``); on CUDA tensors it launches the kernel or
-raises.  ``launches`` counts kernel launches, and nothing else.
+On CPU tensors a wrapper returns the plain version (``ref.py``); on CUDA
+tensors it launches its kernel or raises.  ``launches[name]`` counts each
+kernel's launches, and nothing else.
 """
 
 from __future__ import annotations
@@ -17,57 +20,73 @@ import ctypes
 import torch
 
 from repro_torch.kernels import ref
-from repro_torch.kernels.build import PAGED_DECODE
+from repro_torch.kernels.build import DECODE
 
-launches = 0
+launches = {"paged_decode_attention": 0, "decode_attention": 0}
 
-_ENTRY = {torch.bfloat16: "paged_decode_attention_bf16",
-          torch.float32: "paged_decode_attention_f32"}
-_SUPPORTED = {(1, 64), (1, 128), (1, 256), (2, 64), (2, 128), (2, 256),
-              (4, 64), (4, 128), (4, 256), (8, 64), (8, 128)}   # (G, hd), as built
-
+_SUFFIX = {torch.bfloat16: "bf16", torch.float32: "f32"}
+# (G, hd) as built: REPRO_DECODE_SHAPES in csrc/decode_attention.cuh
+_SUPPORTED = {(g, hd) for g in range(1, 9) for hd in (64, 128, 256) if g * hd <= 1024}
 
 _FUNCTIONS: dict = {}
 
 
-def _function(dtype: torch.dtype):
-    fn = _FUNCTIONS.get(dtype)
+def _function(name: str, dtype: torch.dtype, n_ptr: int, n_int: int):
+    key = f"{name}_{_SUFFIX[dtype]}"
+    fn = _FUNCTIONS.get(key)
     if fn is None:
-        fn = getattr(PAGED_DECODE.load(), _ENTRY[dtype])
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        fn = getattr(DECODE.load(), key)
+        fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        _FUNCTIONS[dtype] = fn
+        _FUNCTIONS[key] = fn
     return fn
 
 
-def _check(q, k_pool, v_pool, page_table, valid_len) -> None:
+def _check(name: str, q, kv: tuple, ints: dict) -> None:
+    """Device, type, layout and (G, hd) checks shared by both wrappers: ``kv``
+    are the K/V tensors (q's dtype), ``ints`` the int32 tensors by name."""
     dev = q.device
-    for name, t in (("k_pool", k_pool), ("v_pool", v_pool), ("page_table", page_table),
-                    ("valid_len", valid_len)):
+    tensors = {"k": kv[0], "v": kv[1], **ints}
+    for n, t in tensors.items():
         if t.device != dev:
-            raise ValueError(f"{name} is on {t.device}, q on {dev}")
-    if q.dtype not in _ENTRY:
-        raise TypeError(f"paged_decode_attention: dtype {q.dtype} not supported "
-                        "(bfloat16 or float32)")
-    if k_pool.dtype != q.dtype or v_pool.dtype != q.dtype:
-        raise TypeError("paged_decode_attention: q, k_pool and v_pool differ in dtype")
-    if page_table.dtype != torch.int32 or valid_len.dtype != torch.int32:
-        raise TypeError("paged_decode_attention: page_table and valid_len must be int32")
-    if q.dim() != 4 or k_pool.dim() != 4 or page_table.dim() != 2:
-        raise ValueError("paged_decode_attention: want q (B,KV,G,hd), pools "
-                         "(NB,ps,KV,hd), page_table (B,num_pages)")
+            raise ValueError(f"{name}: {n} is on {t.device}, q on {dev}")
+    if q.dtype not in _SUFFIX:
+        raise TypeError(f"{name}: dtype {q.dtype} not supported (bfloat16 or float32)")
+    if any(t.dtype != q.dtype for t in kv):
+        raise TypeError(f"{name}: q, k and v differ in dtype")
+    if any(t.dtype != torch.int32 for t in ints.values()):
+        raise TypeError(f"{name}: {' and '.join(ints)} must be int32")
+    if q.dim() != 4 or any(t.dim() != 4 for t in kv):
+        raise ValueError(f"{name}: want q (B,KV,G,hd) and 4-d K/V")
     B, KV, G, hd = q.shape
-    if k_pool.shape != v_pool.shape or k_pool.shape[2:] != (KV, hd):
-        raise ValueError(f"pool shape {tuple(k_pool.shape)} does not fit q {tuple(q.shape)}")
-    if page_table.shape[0] != B or valid_len.shape != (B,):
-        raise ValueError("page_table / valid_len batch does not match q")
+    if kv[0].shape != kv[1].shape or kv[0].shape[2:] != (KV, hd):
+        raise ValueError(f"{name}: K/V shape {tuple(kv[0].shape)} does not fit q "
+                         f"{tuple(q.shape)}")
     if (G, hd) not in _SUPPORTED:
-        raise ValueError(f"paged_decode_attention: (G, hd) = ({G}, {hd}) not built")
-    for name, t in (("q", q), ("k_pool", k_pool), ("v_pool", v_pool),
-                    ("page_table", page_table), ("valid_len", valid_len)):
+        raise ValueError(f"{name}: (G, hd) = ({G}, {hd}) not built")
+    for n, t in {"q": q, **tensors}.items():
         if not t.is_contiguous():
-            raise ValueError(f"paged_decode_attention: {name} must be contiguous "
-                             f"(strides {t.stride()})")
+            raise ValueError(f"{name}: {n} must be contiguous (strides {t.stride()})")
+
+
+def _launch(name: str, q: torch.Tensor, ptrs: list, ints: list) -> torch.Tensor:
+    out = torch.empty_like(q)
+    fn = _function(name, q.dtype, len(ptrs) + 1, len(ints))
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(*(t.data_ptr() for t in ptrs), out.data_ptr(), *ints, stream)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
+    launches[name] += 1
+    return out
+
+
+def _on_cuda(name: str, q: torch.Tensor) -> bool:
+    if q.device.type == "cpu":
+        return False
+    if q.device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {q.device}")
+    return True
 
 
 def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
@@ -76,21 +95,27 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.
     """q (B,KV,G,hd) against one period's block pools (NB,ps,KV,hd), read
     through page_table (B,num_pages) int32; valid_len (B,) int32, each >= 1.
     Returns (B,KV,G,hd) in q's dtype."""
-    global launches
-    if q.device.type == "cpu":
+    name = "paged_decode_attention"
+    if not _on_cuda(name, q):
         return ref.paged_decode_attention_ref(q, k_pool, v_pool, page_table, valid_len)
-    if q.device.type != "cuda":
-        raise ValueError(f"paged_decode_attention: no kernel for device {q.device}")
-    _check(q, k_pool, v_pool, page_table, valid_len)
+    _check(name, q, (k_pool, v_pool), {"page_table": page_table, "valid_len": valid_len})
     B, KV, G, hd = q.shape
-    out = torch.empty_like(q)
-    fn = _function(q.dtype)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-                 page_table.data_ptr(), valid_len.data_ptr(), out.data_ptr(),
-                 B, KV, G, hd, page_table.shape[1], k_pool.shape[1], stream)
-    if err != 0:
-        raise RuntimeError(f"paged_decode_attention kernel launch failed: cudaError {err}")
-    launches += 1
-    return out
+    if page_table.dim() != 2 or page_table.shape[0] != B or valid_len.shape != (B,):
+        raise ValueError(f"{name}: page_table (B,num_pages) / valid_len (B,) do not match q")
+    return _launch(name, q, [q, k_pool, v_pool, page_table, valid_len],
+                   [B, KV, G, hd, page_table.shape[1], k_pool.shape[1]])
+
+
+def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     valid_len: torch.Tensor) -> torch.Tensor:
+    """q (B,KV,G,hd) against one period's dense cache k, v (B,C,KV,hd);
+    valid_len (B,) int32, each >= 1 (values above C count as C).  Returns
+    (B,KV,G,hd) in q's dtype."""
+    name = "decode_attention"
+    if not _on_cuda(name, q):
+        return ref.decode_attention_ref(q, k, v, valid_len)
+    _check(name, q, (k, v), {"valid_len": valid_len})
+    B, KV, G, hd = q.shape
+    if k.shape[0] != B or valid_len.shape != (B,):
+        raise ValueError(f"{name}: k (B,C,KV,hd) / valid_len (B,) do not match q")
+    return _launch(name, q, [q, k, v, valid_len], [B, KV, G, hd, k.shape[1]])

@@ -8,14 +8,26 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import decode_attention
+from repro_torch.kernels import decode_attention as kernels
+
+
+def _valid_len(q: torch.Tensor, valid_len) -> torch.Tensor:
+    """An int or any tensor broadcastable to (B,) -> a contiguous (B,) int32
+    tensor on q's device."""
+    vl = torch.as_tensor(valid_len, dtype=torch.int32, device=q.device)
+    return vl.reshape(-1).expand(q.shape[0]).contiguous()
 
 
 def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
                            page_table: torch.Tensor, valid_len) -> torch.Tensor:
     """Paged decode: q (B,KV,G,hd) vs block pools (NB,ps,KV,hd) read through a
     (B,num_pages) page table; ``valid_len`` is an int or (B,) int32 tensor."""
-    B = q.shape[0]
-    vl = torch.as_tensor(valid_len, dtype=torch.int32, device=q.device)
-    vl = vl.reshape(-1).expand(B).contiguous()
-    return decode_attention.paged_decode_attention(q, k_pool, v_pool, page_table, vl)
+    return kernels.paged_decode_attention(q, k_pool, v_pool, page_table,
+                                         _valid_len(q, valid_len))
+
+
+def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     valid_len) -> torch.Tensor:
+    """Dense decode: q (B,KV,G,hd) vs one period's cache (B,C,KV,hd);
+    ``valid_len`` is an int or (B,) int32 tensor."""
+    return kernels.decode_attention(q, k, v, _valid_len(q, valid_len))

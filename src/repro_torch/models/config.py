@@ -71,6 +71,9 @@ class ModelConfig:
     def q_groups(self) -> int:
         return self.n_heads // self.n_kv_heads
 
+    def with_sliding_window(self, window: int) -> "ModelConfig":
+        return replace(self, sliding_window=window)
+
     def reduced(self, n_periods: int | None = None, **kw) -> "ModelConfig":
         """Smoke-test variant: same family, tiny dims (<=2 layers, d<=512, <=4 experts)."""
         d = min(self.d_model, 256)
@@ -98,3 +101,8 @@ class ModelConfig:
         )
         defaults.update(kw)
         return replace(self, **defaults)
+
+
+# Sliding window the full-attention configs take for long-context decode
+# (the JAX package's long_500k variant).
+LONG_CONTEXT_WINDOW = 8_192

@@ -1,4 +1,4 @@
-"""Layer primitives of the paged decode path (counterpart of ``repro/models/layers.py``).
+"""Layer primitives of the dense and paged planes (counterpart of ``repro/models/layers.py``).
 
 The casts sit where the JAX package puts them, so the two agree in f32 to
 rounding and round bf16 at the same places:
@@ -8,8 +8,9 @@ rounding and round bf16 at the same places:
   * ``_plain_attention`` forms scores in the input dtype, softmaxes in f32 and
     casts the probabilities to ``v``'s dtype.
 
-The paged attention layers update the block pools **in place** (the JAX
-versions return new pools); they return the same tensors for symmetry.
+The attention layers that write a cache (dense or paged) update it **in
+place** (the JAX versions return new caches); they return the same tensors
+for symmetry.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ops as kops
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.flash import flash_attention
 
 F32 = torch.float32
 
@@ -72,7 +74,11 @@ def activate(h: torch.Tensor, g: torch.Tensor | None, kind: str) -> torch.Tensor
     raise ValueError(f"unknown activation {kind!r}")
 
 
-# ----------------------------------------------------------------- attention
+# ----------------------------------------------------------------- full attention
+
+FLASH_THRESHOLD = 2048
+_QBLK, _KBLK = 512, 1024
+
 
 def _plain_attention(q, k, v, mask, scale):
     # q: (B,S,KV,G,hd)  k,v: (B,T,KV,hd)  mask: broadcastable to (B,KV,G,S,T) or None
@@ -92,6 +98,122 @@ def _qkv(p: dict, x: torch.Tensor, cfg: ModelConfig):
         k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
     return q, k, v
 
+
+def attention_full(p: dict, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor,
+                   *, window: int = 0) -> torch.Tensor:
+    """Full-sequence causal self-attention (GQA), optionally windowed.
+    x: (B, S, d); positions: (S,).
+
+    At ``S >= FLASH_THRESHOLD`` the blocked flash forward runs (no S x S
+    score tensor), below it the plain masked softmax.  Returns (B, S, d_model).
+    """
+    B, S, _ = x.shape
+    KV, hd, H = cfg.n_kv_heads, cfg.hd, cfg.n_heads
+    G = H // KV
+    q, k, v = _qkv(p, x, cfg)
+    q = rope(q, positions, cfg.rope_theta)
+    k = rope(k, positions, cfg.rope_theta)
+    scale = 1.0 / math.sqrt(hd)
+    qg = q.reshape(B, S, KV, G, hd)
+    if S >= FLASH_THRESHOLD:
+        out = flash_attention(qg.permute(0, 2, 3, 1, 4), k, v, positions, positions, scale,
+                              True, window, _QBLK, _KBLK).permute(0, 3, 1, 2, 4)
+    else:
+        mask = positions[:, None] >= positions[None, :]
+        if window:
+            mask &= positions[:, None] - positions[None, :] < window
+        out = _plain_attention(qg, k, v, mask[None, None, None], scale)
+    out = out.reshape(B, S, H, hd)
+    return torch.einsum("bshk,hkd->bsd", out, p["wo"])
+
+
+# ----------------------------------------------------------------- dense decode / chunk
+
+def attention_decode(
+    p: dict,
+    x: torch.Tensor,
+    cfg: ModelConfig,
+    cache_k: torch.Tensor,
+    cache_v: torch.Tensor,
+    pos: torch.Tensor,
+    *,
+    window: int = 0,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One-token dense decode: write the new KV at ``pos``'s slot, attend (the
+    hand-written dense kernel on CUDA tensors).
+
+    cache_k/v: (B, C, KV, hd), updated in place; pos: (B,) int32 per-lane
+    positions.  The slot is ``pos % C`` with a sliding window (a ring) and
+    ``min(pos, C - 1)`` without one (a full linear lane overwrites its last
+    slot).  Each lane writes only its own row, so no two writes collide.
+    Returns (out (B,1,d_model), cache_k, cache_v).
+    """
+    B = x.shape[0]
+    KV, hd, H = cfg.n_kv_heads, cfg.hd, cfg.n_heads
+    q, k, v = _qkv(p, x, cfg)
+    pos = pos.expand(B)
+    q = rope(q, pos[:, None], cfg.rope_theta)
+    k = rope(k, pos[:, None], cfg.rope_theta)
+    C = cache_k.shape[1]
+    slot = (pos % C if window else torch.clamp(pos, max=C - 1)).long()
+    bidx = torch.arange(B, device=x.device)
+    cache_k[bidx, slot] = k[:, 0].to(cache_k.dtype)
+    cache_v[bidx, slot] = v[:, 0].to(cache_v.dtype)
+    valid_len = torch.clamp(pos + 1, max=C).to(torch.int32)
+    out = kops.decode_attention(q.reshape(B, KV, H // KV, hd), cache_k, cache_v, valid_len)
+    out = out.reshape(B, 1, H, hd)
+    return torch.einsum("bshk,hkd->bsd", out, p["wo"]), cache_k, cache_v
+
+
+def attention_prefill_chunk(
+    p: dict,
+    x: torch.Tensor,
+    cfg: ModelConfig,
+    cache_k: torch.Tensor,
+    cache_v: torch.Tensor,
+    off: torch.Tensor,
+    length: int,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Fixed-shape chunk prefill for one lane: ``C`` tokens at offset ``off``.
+
+    x: (1, C, d) normed hidden states (rows >= ``length`` are padding);
+    cache_k/v: (1, cap, KV, hd) with positions ``[0, off)`` resident, updated
+    in place; ``off``: a 0-d tensor (read on the device, no host sync).
+    Every valid row ``j < length`` with ``off + j < cap`` lands at its
+    absolute slot ``off + j``; every other slot keeps its old contents.  The
+    write goes through a window of ``min(C, cap)`` distinct slots inside the
+    lane that covers every valid row, so no two writes hit one slot.  (The
+    JAX version scatters every row, clipped to ``cap - 1``; when a chunk
+    fills the lane exactly while its window runs past capacity, a padding
+    row's write-back of the old contents lands on ``cap - 1`` after the valid
+    row's and the new key is lost.  The port keeps the documented semantics.)
+    Then each query ``i`` attends to slots ``t <= off + i``.  Linear caches
+    only.  Returns (out (1, C, d_model), cache_k, cache_v).
+    """
+    B, Cn, _ = x.shape
+    KV, hd, H = cfg.n_kv_heads, cfg.hd, cfg.n_heads
+    G = H // KV
+    q, k, v = _qkv(p, x, cfg)
+    rows = off + torch.arange(Cn, device=x.device)            # (C,) absolute
+    q = rope(q, rows[None], cfg.rope_theta)
+    k = rope(k, rows[None], cfg.rope_theta)
+    cap = cache_k.shape[1]
+    W = min(Cn, cap)
+    slots = torch.clamp(off, 0, cap - W) + torch.arange(W, device=x.device)
+    src = slots - off                                         # chunk row at each slot
+    take = ((src >= 0) & (src < length))[:, None, None]
+    src = torch.clamp(src, 0, Cn - 1).long()
+    slots = slots.long()
+    for cache, new in ((cache_k, k), (cache_v, v)):
+        cache[0, slots] = torch.where(take, new[0, src].to(cache.dtype), cache[0, slots])
+    mask = torch.arange(cap, device=x.device)[None, :] <= rows[:, None]   # (C, cap)
+    qg = q.reshape(B, Cn, KV, G, hd)
+    out = _plain_attention(qg, cache_k, cache_v, mask[None, None, None], 1.0 / math.sqrt(hd))
+    out = out.reshape(B, Cn, H, hd)
+    return torch.einsum("bshk,hkd->bsd", out, p["wo"]), cache_k, cache_v
+
+
+# ----------------------------------------------------------------- paged decode / chunk
 
 def attention_decode_paged(
     p: dict,

@@ -1,15 +1,19 @@
-"""Model assembly for the paged decode path (counterpart of ``repro/models/model.py``).
+"""Model assembly for the dense and paged planes (counterpart of ``repro/models/model.py``).
 
 Parameters and caches keep the JAX package's layout: nested dicts keyed
 ``blocks/<ii>_<kind>/...`` with a leading ``n_periods`` axis on every stacked
 leaf.  JAX's ``lax.scan`` over periods becomes a Python loop that indexes that
 axis.  Only the ``attn+mlp`` kind is ported; the other kinds raise.
 
-The paged pool is ``{"pos": (B,) int32, "page_table": (B, num_pages) int32,
-"blocks": {key: {"k", "v": (P, NB, page_size, KV, hd)}}}``.  Functions that
-the JAX package writes as pure (returning a new pool) update the pool's
-tensors **in place** here and return the same dict; functions that must
-enlarge a tensor (``grow_*``) put the new tensor into the dict.
+A dense cache (a "slot pool" when its batch axis holds a worker's lanes) is
+``{"pos": (B,) int32, "blocks": {key: {"k", "v": (P, B, C, KV, hd)}}}``; with a
+sliding window it is a ring (token ``t`` at slot ``t % C``).  The paged pool
+is ``{"pos": (B,) int32, "page_table": (B, num_pages) int32, "blocks": {key:
+{"k", "v": (P, NB, page_size, KV, hd)}}}``.  Functions that the JAX package
+writes as pure (returning a new cache) update the cache's tensors **in
+place** here and return the same dict; functions that must enlarge a tensor
+(``grow_*``, ``concat_pools``) put new tensors into the dict or return a new
+one, and the gathers (``gather_slots``, ``paged_gather_*``) return copies.
 """
 
 from __future__ import annotations
@@ -154,12 +158,71 @@ def _paged_kind(kind: str) -> bool:
     return kind.partition("+")[0] == "attn"
 
 
+# ------------------------------------------------------------------ full forward
+
+def _kv_from_full(cfg: ModelConfig, p: dict, h: torch.Tensor, positions: torch.Tensor,
+                  lane: dict) -> None:
+    """Write the K/V of a full forward into ``lane`` ({"k", "v": (B, C, KV, hd)},
+    in place): positions ``[0, S)`` when ``C >= S``, else the last ``C``
+    tokens at ring slots ``t % C`` (with or without a window)."""
+    S = h.shape[1]
+    k = torch.einsum("btd,dnk->btnk", h, p["wk"])
+    v = torch.einsum("btd,dnk->btnk", h, p["wv"])
+    if cfg.qk_norm:
+        k = L.rmsnorm(k, p["k_norm"], cfg.norm_eps)
+    k = L.rope(k, positions, cfg.rope_theta)
+    C = lane["k"].shape[1]
+    if C >= S:
+        lane["k"][:, :S] = k
+        lane["v"][:, :S] = v
+    else:
+        keep = torch.arange(S - C, S, device=h.device)
+        lane["k"][:, keep % C] = k[:, keep]
+        lane["v"][:, keep % C] = v[:, keep]
+
+
+def _layer_full(cfg, kind, p, x, positions, lane):
+    h = L.block_norm(cfg, p["norm1"], x)
+    x = x + L.attention_full(p["mixer"], h, cfg, positions, window=cfg.sliding_window)
+    if lane is not None:
+        _kv_from_full(cfg, p["mixer"], h, positions, lane)
+    h = L.block_norm(cfg, p["norm2"], x)
+    return x + L.mlp(p["mlp"], h, cfg.activation)
+
+
+def forward_full(cfg: ModelConfig, params, batch: dict, capacity: int | None = None):
+    """Full-sequence forward.  batch["tokens"]: (B, S).
+
+    Returns (logits (B, S, V), aux_loss) or, with ``capacity``, (logits,
+    aux_loss, cache), where the dense cache of ``capacity`` slots decodes from
+    position S onward.  ``aux_loss`` is 0: the ported kinds have no router.
+    """
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    dev = tokens.device
+    positions = torch.arange(S, device=dev)
+    cache = None if capacity is None else init_cache(cfg, B, capacity, dev, start_pos=S)
+    x = params["tok_embed"][tokens.long()]
+    for pi in range(cfg.n_periods):
+        for i, kind in enumerate(cfg.block_pattern):
+            key = f"{i:02d}_{kind}"
+            lane = None if cache is None else _period(cache["blocks"][key], pi)
+            x = _layer_full(cfg, kind, _period(params["blocks"][key], pi), x, positions, lane)
+    logits = _logits(cfg, params, x)
+    aux = torch.zeros((), dtype=torch.float32, device=dev)
+    return (logits, aux) if cache is None else (logits, aux, cache)
+
+
 # ------------------------------------------------------------------ decode
 
 def _layer_step(cfg, kind, p, x, cache, pos, page_table):
     h = L.block_norm(cfg, p["norm1"], x)
-    out, _, _ = L.attention_decode_paged(p["mixer"], h, cfg, cache["k"], cache["v"],
-                                         page_table, pos)
+    if page_table is None:
+        out, _, _ = L.attention_decode(p["mixer"], h, cfg, cache["k"], cache["v"], pos,
+                                       window=cfg.sliding_window)
+    else:
+        out, _, _ = L.attention_decode_paged(p["mixer"], h, cfg, cache["k"], cache["v"],
+                                             page_table, pos)
     x = x + out
     h = L.block_norm(cfg, p["norm2"], x)
     return x + L.mlp(p["mlp"], h, cfg.activation)
@@ -167,16 +230,17 @@ def _layer_step(cfg, kind, p, x, cache, pos, page_table):
 
 def decode_step(cfg: ModelConfig, params, cache: dict, tokens: torch.Tensor,
                 active: torch.Tensor | None = None):
-    """One paged decode step.  tokens: (B, 1) int; cache: a paged pool.
-    Returns (logits (B, V), cache), the cache updated in place.
+    """One decode step.  tokens: (B, 1) int; cache: a dense cache or a paged
+    pool (it has a ``page_table``).  Returns (logits (B, V), cache), the cache
+    updated in place.
 
     ``active``: optional (B,) bool lane mask.  Inactive lanes do not advance
-    ``pos``; their KV write lands at the frozen ``pos`` slot (their own page,
-    or scratch) and is overwritten when the lane resumes.  Their logits are
-    garbage and the caller masks them.
+    ``pos``; their KV write lands at the frozen ``pos`` slot (their own slot
+    or page, or scratch) and is overwritten when the lane resumes.  Their
+    logits are garbage and the caller masks them.
     """
     pos = cache["pos"]
-    page_table = cache["page_table"]
+    page_table = cache.get("page_table")
     x = params["tok_embed"][tokens.long()]
     for pi in range(cfg.n_periods):
         for i, kind in enumerate(cfg.block_pattern):
@@ -186,6 +250,96 @@ def decode_step(cfg: ModelConfig, params, cache: dict, tokens: torch.Tensor,
     logits = _logits(cfg, params, x)
     cache["pos"] = pos + 1 if active is None else pos + active.to(torch.int32)
     return logits[:, 0], cache
+
+
+# ------------------------------------------------------------------ dense cache
+
+def init_cache(cfg: ModelConfig, batch_size: int, capacity: int, device,
+               start_pos: int = 0) -> dict:
+    """Empty dense cache: ``capacity`` zeroed KV slots per lane and layer
+    (with a sliding window, the ring's size)."""
+    check_ported(cfg)
+    dtype = torch_dtype(cfg)
+    shape = (cfg.n_periods, batch_size, capacity, cfg.n_kv_heads, cfg.hd)
+    blocks = {f"{i:02d}_{kind}": {"k": torch.zeros(shape, dtype=dtype, device=device),
+                                  "v": torch.zeros(shape, dtype=dtype, device=device)}
+              for i, kind in enumerate(cfg.block_pattern)}
+    return {"pos": torch.full((batch_size,), start_pos, dtype=torch.int32, device=device),
+            "blocks": blocks}
+
+
+def _layer_chunk(cfg, kind, p, x, cache, off, length):
+    h = L.block_norm(cfg, p["norm1"], x)
+    out, _, _ = L.attention_prefill_chunk(p["mixer"], h, cfg, cache["k"], cache["v"], off,
+                                          length)
+    x = x + out
+    h = L.block_norm(cfg, p["norm2"], x)
+    return x + L.mlp(p["mlp"], h, cfg.activation)
+
+
+def prefill_chunk(cfg: ModelConfig, params, cache: dict, tokens: torch.Tensor,
+                  length: int) -> dict:
+    """Teacher-force a fixed-shape (1, C) chunk into a batch-1 dense lane.
+
+    Rows >= ``length`` of ``tokens`` are padding.  The chunk lands at positions
+    ``pos .. pos + length`` where ``pos = cache["pos"][0]`` (read on the
+    device).  Updates the lane in place, advances ``pos`` by ``length`` and
+    returns it.  Linear (non-ring) lanes only (``supports_chunked_prefill``).
+    """
+    if tokens.shape[0] != 1:
+        raise ValueError("prefill_chunk operates on one lane (batch 1)")
+    off = cache["pos"][0].clone()
+    x = params["tok_embed"][tokens.long()]
+    for pi in range(cfg.n_periods):
+        for i, kind in enumerate(cfg.block_pattern):
+            key = f"{i:02d}_{kind}"
+            x = _layer_chunk(cfg, kind, _period(params["blocks"][key], pi), x,
+                             _period(cache["blocks"][key], pi), off, length)
+    cache["pos"] += length
+    return cache
+
+
+def _lane_leaves(pool: dict, lane: dict):
+    """(pool leaf, lane leaf) pairs of two caches with the same layer keys."""
+    for key, c in pool["blocks"].items():
+        for name, leaf in c.items():
+            yield leaf, lane["blocks"][key][name]
+
+
+def copy_prefix(pool: dict, src_slot: int, lane: dict, n: int) -> dict:
+    """Implant the first ``n`` positions of pool lane ``src_slot`` into the
+    batch-1 ``lane`` (radix-cache prefix reuse), in place; positions from
+    ``n`` on keep the lane's contents.  Sets ``lane["pos"] = n``."""
+    for src, dst in _lane_leaves(pool, lane):
+        dst[:, 0, :n] = src[:, src_slot, :n]
+    lane["pos"].fill_(n)
+    return lane
+
+
+def write_slot(pool: dict, lane: dict, slot: int) -> dict:
+    """Write a batch-1 cache ``lane`` (from any device) into lane ``slot`` of a
+    slot pool, in place."""
+    for dst, src in _lane_leaves(pool, lane):
+        dst[:, slot] = src[:, 0].to(device=dst.device, dtype=dst.dtype)
+    pool["pos"][slot] = lane["pos"][0].to(pool["pos"].device)
+    return pool
+
+
+def gather_slots(pool: dict, idx) -> dict:
+    """Copy lanes ``idx`` out of a slot pool as a standalone batch-len(idx)
+    cache on the pool's device."""
+    idx = torch.as_tensor(idx, dtype=torch.long).to(pool["pos"].device)
+    return {"pos": pool["pos"][idx],
+            "blocks": {key: {name: leaf[:, idx] for name, leaf in c.items()}
+                       for key, c in pool["blocks"].items()}}
+
+
+def concat_pools(a: dict, b: dict) -> dict:
+    """A new slot pool: ``a``'s lanes then ``b``'s (pool growth)."""
+    return {"pos": torch.cat([a["pos"], b["pos"]]),
+            "blocks": {key: {name: torch.cat([leaf, b["blocks"][key][name]], dim=1)
+                             for name, leaf in c.items()}
+                       for key, c in a["blocks"].items()}}
 
 
 # ------------------------------------------------------------------ paged pool
@@ -295,6 +449,46 @@ def paged_write_state(pool: dict, state: dict, slot: int, row) -> dict:
     pool["pos"][slot] = torch.as_tensor(state["pos"]).to(pool["pos"].device)[0]
     pool["page_table"][slot] = _row(pool, row)
     return pool
+
+
+def paged_write_lane(pool: dict, lane: dict, slot: int, row, n: int) -> dict:
+    """Implant a dense batch-1 ``lane`` (from any device) into the paged pool,
+    in place: its first ``n`` KV positions scatter into the blocks mapped by
+    ``row`` (num_pages,), and lane ``slot`` takes its ``pos`` and ``row``.
+    Positions past ``n`` (and past the row's pages) are not written.  Serves
+    full-sequence admission and the cross-layout migration ingress."""
+    row_t = _row(pool, row)
+    num_pages = row_t.shape[0]
+    dev = pool["pos"].device
+    for key, c in pool["blocks"].items():
+        ps = c["k"].shape[2]
+        j = torch.arange(min(n, lane["blocks"][key]["k"].shape[2], num_pages * ps), device=dev)
+        blk, off = row_t[j // ps].long(), j % ps
+        for name, leaf in c.items():
+            src = lane["blocks"][key][name][:, 0].to(device=dev, dtype=leaf.dtype)
+            leaf[:, blk, off] = src[:, j]
+    pool["pos"][slot] = lane["pos"][0].to(dev)
+    pool["page_table"][slot] = row_t
+    return pool
+
+
+def pages_to_lane(pages: dict, state: dict, capacity: int) -> dict:
+    """Reassemble a dense batch-1 lane from gathered pages and lane state
+    (cross-layout migration and restore): the page stacks flatten back to a
+    contiguous (P, 1, capacity, KV, hd) lane, zero-padded past the resident
+    span, on the pages' device."""
+    blocks = {}
+    for key, pg in pages.items():
+        out = {}
+        for name, x in pg.items():
+            P, n, ps = x.shape[:3]
+            flat = x.reshape((P, n * ps) + tuple(x.shape[3:]))
+            if capacity > n * ps:
+                pad = flat.new_zeros((P, capacity - n * ps) + tuple(x.shape[3:]))
+                flat = torch.cat([flat, pad], dim=1)
+            out[name] = flat[:, None, :capacity]             # add the lane axis
+        blocks[key] = out
+    return {"pos": torch.as_tensor(state["pos"]), "blocks": blocks}
 
 
 def grow_paged_blocks(pool: dict, extra: int) -> dict:

@@ -1,7 +1,7 @@
-"""Tests of the hand-written CUDA kernel and of the port on the card.
+"""Tests of the hand-written CUDA kernels and of the port on the card.
 
-Every test here is marked ``gpu`` and skips without a CUDA device (the kernel
-has no CPU mode).  This file imports no JAX, so it also runs where only
+Every test here is marked ``gpu`` and skips without a CUDA device (the
+kernels have no CPU mode).  This file imports no JAX, so it also runs where only
 PyTorch is installed:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
@@ -28,7 +28,24 @@ SHAPES = [
     (2, 2, 2, 64, 16, 4),
     (1, 1, 4, 64, 8, 7),
     (3, 4, 1, 128, 32, 2),
+    (2, 3, 6, 128, 16, 5),     # G = 6 and 7 (nemotron 48/8, arctic 56/8)
+    (1, 2, 7, 64, 16, 3),
+    (2, 1, 4, 256, 8, 3),      # hd 256
     (8, 8, 2, 128, 16, 128),   # the main path's: qwen3-1.7b, capacity 2048
+]
+# tests/test_kernels.py's dense sweep, (B, KV, G, hd, C), plus the main path's
+# shapes: qwen3-1.7b at capacity 2048 and at the sliding-window ring's 8192
+DENSE_SHAPES = [
+    (1, 1, 1, 64, 64),
+    (2, 2, 4, 64, 128),
+    (1, 8, 6, 128, 1024),
+    (4, 1, 1, 64, 300),
+    (2, 3, 2, 128, 512),
+    (1, 16, 1, 64, 700),
+    (3, 4, 7, 128, 257),
+    (2, 2, 3, 256, 100),
+    (8, 8, 2, 128, 2048),
+    (4, 8, 2, 128, 8192),
 ]
 
 
@@ -69,10 +86,10 @@ def _inputs(shape, dtype, seed=0, poison=False):
 def test_cuda_kernel_matches_plain(shape, dtype):
     _need_cuda()
     args = _inputs(shape, dtype)
-    launches = kernel.launches
+    launches = kernel.launches["paged_decode_attention"]
     out = kernel.paged_decode_attention(*args)
     torch.cuda.synchronize()
-    assert kernel.launches == launches + 1
+    assert kernel.launches["paged_decode_attention"] == launches + 1
     err = float((out.float() - ref.paged_decode_attention_ref(*args).float()).abs().max())
     assert err < TOL[dtype], (shape, dtype, err)
 
@@ -89,7 +106,7 @@ def test_cuda_kernel_ignores_poisoned_scratch_and_tail(shape):
 def test_cuda_wrapper_raises_on_unsupported_input():
     _need_cuda()
     q, k, v, pt, vl = _inputs(SHAPES[0], "float32")
-    launches = kernel.launches
+    launches = dict(kernel.launches)
     with pytest.raises(TypeError):
         kernel.paged_decode_attention(q.half(), k.half(), v.half(), pt, vl)
     with pytest.raises(ValueError):                # a pool view that is not contiguous
@@ -103,8 +120,67 @@ def test_cuda_wrapper_raises_on_unsupported_input():
     assert kernel.launches == launches
 
 
-def _scenario(device, cfg, params):
+def _dense_inputs(shape, dtype, seed=0, poison=False):
+    B, KV, G, hd, C = shape
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((B, KV, G, hd), np.float32)
+    k = rng.standard_normal((B, C, KV, hd), np.float32)
+    v = rng.standard_normal((B, C, KV, hd), np.float32)
+    vl = rng.integers(1, C + 1, B).astype(np.int32)
+    if poison:                                     # slots past valid_len: ±99
+        for b in range(B):
+            k[b, vl[b]:], v[b, vl[b]:] = 99.0, -99.0
+    dt = getattr(torch, dtype)
+    return (torch.tensor(q).to("cuda", dt), torch.tensor(k).to("cuda", dt),
+            torch.tensor(v).to("cuda", dt), torch.tensor(vl).cuda())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", DENSE_SHAPES)
+def test_cuda_dense_kernel_matches_plain(shape, dtype):
+    _need_cuda()
+    args = _dense_inputs(shape, dtype)
+    launches = kernel.launches["decode_attention"]
+    out = kernel.decode_attention(*args)
+    torch.cuda.synchronize()
+    assert kernel.launches["decode_attention"] == launches + 1
+    err = float((out.float() - ref.decode_attention_ref(*args).float()).abs().max())
+    assert err < TOL[dtype], (shape, dtype, err)
+
+
+@pytest.mark.parametrize("shape", DENSE_SHAPES)
+def test_cuda_dense_kernel_ignores_poisoned_tail(shape):
+    _need_cuda()
+    clean = kernel.decode_attention(*_dense_inputs(shape, "float32", seed=4))
+    dirty = kernel.decode_attention(*_dense_inputs(shape, "float32", seed=4, poison=True))
+    torch.cuda.synchronize()
+    assert float((clean - dirty).abs().max()) < 1e-5
+
+
+def test_cuda_dense_wrapper_raises_on_unsupported_input():
+    _need_cuda()
+    q, k, v, vl = _dense_inputs(DENSE_SHAPES[1], "float32")
+    launches = dict(kernel.launches)
+    with pytest.raises(TypeError):
+        kernel.decode_attention(q.half(), k.half(), v.half(), vl)
+    with pytest.raises(TypeError):                 # valid_len must be int32
+        kernel.decode_attention(q, k, v, vl.long())
+    with pytest.raises(ValueError):                # a cache view that is not contiguous
+        kernel.decode_attention(q, k.transpose(0, 1).contiguous().transpose(0, 1), v, vl)
+    with pytest.raises(ValueError):
+        kernel.decode_attention(q, k, v, vl.cpu())
+    with pytest.raises(ValueError):                # batch of the cache does not match q
+        kernel.decode_attention(q, k[:1].contiguous(), v[:1].contiguous(), vl)
+    with pytest.raises(ValueError):                # (G, hd) not built: G * hd > 1024
+        kernel.decode_attention(torch.zeros((1, 1, 5, 256), device="cuda"),
+                                torch.zeros((1, 8, 1, 256), device="cuda"),
+                                torch.zeros((1, 8, 1, 256), device="cuda"), vl[:1])
+    assert kernel.launches == launches
+
+
+def _scenario(device, cfg, params, **plane):
     kw = dict(capacity=64, max_slots=4, page_size=8, chunk_size=8, device=device)
+    kw.update(plane)
     w0, w1 = (RolloutWorker(cfg, params, worker_id=i, **kw) for i in (0, 1))
     prompt = [3 + i for i in range(20)]
     out = []
@@ -133,9 +209,9 @@ def test_cuda_worker_matches_cpu_worker():
     cfg = get_config("qwen3_1_7b").reduced(n_periods=2)
     params = init_params(cfg, seed=0, device="cpu")
     cpu_out, cpu_stats, cpu_pages = _scenario("cpu", cfg, params)
-    launches = kernel.launches
+    launches = kernel.launches["paged_decode_attention"]
     gpu_out, gpu_stats, gpu_pages = _scenario("cuda", cfg, params)
-    assert kernel.launches - launches == \
+    assert kernel.launches["paged_decode_attention"] - launches == \
         cfg.n_layers * sum(s["decode_steps"] for s in gpu_stats)
     timing = {"decode_wall_s"}
     for c, g in zip(cpu_stats, gpu_stats):
@@ -143,5 +219,33 @@ def test_cuda_worker_matches_cpu_worker():
             {k: v for k, v in c.items() if k not in timing}
         assert check_block_conservation(g) == []
     assert gpu_pages == cpu_pages
+    assert gpu_out[-1][0] == gpu_out[-1][1]        # restored lane == its source
+    assert gpu_out == cpu_out
+
+
+@pytest.mark.parametrize("window", [0, 16], ids=["dense", "sliding-window"])
+def test_cuda_dense_worker_matches_cpu_worker(window):
+    """The same script on the dense plane, card against CPU: a linear dense
+    pool (``paged=False``; chunked admission and extend, lane reuse) and a
+    sliding-window ring (full-sequence admission that wraps the ring,
+    per-token extend).  Every decode step and every per-token extend step
+    runs the dense kernel once per layer; tokens and counters agree."""
+    _need_cuda()
+    cfg = get_config("qwen3_1_7b").reduced(n_periods=2).with_sliding_window(window)
+    params = init_params(cfg, seed=0, device="cpu")
+    plane = dict(paged=False, capacity=window or 64)   # a ring of the window's size
+    cpu_out, cpu_stats, _ = _scenario("cpu", cfg, params, **plane)
+    launches = dict(kernel.launches)
+    gpu_out, gpu_stats, _ = _scenario("cuda", cfg, params, **plane)
+    steps = sum(s["decode_steps"] for s in gpu_stats)
+    if window:                                     # extend is per token there
+        steps += sum(s["absorbed_tokens"] for s in gpu_stats)
+    assert kernel.launches["decode_attention"] - launches["decode_attention"] == \
+        cfg.n_layers * steps
+    assert kernel.launches["paged_decode_attention"] == launches["paged_decode_attention"]
+    timing = {"decode_wall_s"}
+    for c, g in zip(cpu_stats, gpu_stats):
+        assert {k: v for k, v in g.items() if k not in timing} == \
+            {k: v for k, v in c.items() if k not in timing}
     assert gpu_out[-1][0] == gpu_out[-1][1]        # restored lane == its source
     assert gpu_out == cpu_out

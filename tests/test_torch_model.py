@@ -182,3 +182,126 @@ def test_init_params_shapes_match_jax(setup):
         assert tuple(t.shape) == leaf.shape and t.dtype == torch.float32
     std = float(params["blocks"]["00_attn+mlp"]["mixer"]["wq"].std())
     assert abs(std - 0.02) < 0.002                 # model.init_params' scale
+
+
+# ------------------------------------------------------------------ dense plane
+
+def _assert_caches_match(cache, jcache, atol=POOL_TOL):
+    np.testing.assert_array_equal(cache["pos"].numpy(), np.asarray(jcache["pos"]))
+    assert cache["blocks"].keys() == jcache["blocks"].keys()
+    for key, c in jcache["blocks"].items():
+        for name, leaf in c.items():
+            assert tuple(cache["blocks"][key][name].shape) == leaf.shape
+            np.testing.assert_allclose(cache["blocks"][key][name].numpy(), np.asarray(leaf),
+                                       atol=atol, rtol=0)
+
+
+@pytest.mark.parametrize("S,capacity,window", [(20, 32, 0), (40, 16, 0), (40, 16, 16)],
+                         ids=["linear", "ring-past-capacity", "ring-window"])
+def test_forward_full_with_capacity_matches(setup, S, capacity, window):
+    """Logits and the cache it leaves: linear (capacity >= S), and the last
+    ``capacity`` tokens at ring slots when S > capacity, with and without a
+    sliding window."""
+    jcfg, cfg, jparams, params = setup
+    jcfg, cfg = jcfg.with_sliding_window(window), cfg.with_sliding_window(window)
+    tokens = np.random.default_rng(S).integers(0, cfg.vocab, (2, S)).astype(np.int32)
+    jlogits, _, jcache = JM.forward_full(jcfg, jparams, {"tokens": jnp.asarray(tokens)},
+                                         capacity=capacity)
+    logits, aux, cache = M.forward_full(cfg, params, {"tokens": torch.tensor(tokens)},
+                                        capacity=capacity)
+    assert float(aux) == 0.0
+    np.testing.assert_allclose(logits.numpy(), np.asarray(jlogits), atol=LOGIT_TOL, rtol=0)
+    _assert_caches_match(cache, jcache)
+    jlogits2, _ = JM.forward_full(jcfg, jparams, {"tokens": jnp.asarray(tokens)})
+    logits2, _ = M.forward_full(cfg, params, {"tokens": torch.tensor(tokens)})
+    np.testing.assert_allclose(logits2.numpy(), np.asarray(jlogits2), atol=LOGIT_TOL, rtol=0)
+
+
+def _dense_chunk(jcfg, cfg, jparams, params, jlane, lane, tokens, C=8):
+    for off in range(0, len(tokens), C):
+        part = tokens[off:off + C]
+        buf = np.zeros((1, C), np.int32)
+        buf[0, :len(part)] = part
+        jlane = JM.prefill_chunk(jcfg, jparams, jlane, jnp.asarray(buf), len(part))
+        M.prefill_chunk(cfg, params, lane, torch.tensor(buf), len(part))
+    return jlane
+
+
+@pytest.mark.parametrize("window", [0, 16], ids=["linear", "ring"])
+def test_dense_prefill_chunk_and_decode_step_match(setup, window):
+    """A lane chunk-prefilled (linear) or admitted by a full forward (ring),
+    written into a 3-lane pool, then masked decode steps past the ring's
+    capacity: logits and the pool match JAX after every step."""
+    jcfg, cfg, jparams, params = setup
+    jcfg, cfg = jcfg.with_sliding_window(window), cfg.with_sliding_window(window)
+    cap = 16
+    jpool, pool = JM.init_cache(jcfg, None, 3, cap), M.init_cache(cfg, 3, cap, "cpu")
+    _assert_caches_match(pool, jpool)
+    prompt = [5, 7, 9, 11, 13, 17, 19, 23, 29, 31, 37]
+    if window:
+        arr = np.asarray([prompt], np.int32)
+        _, _, jlane = JM.forward_full(jcfg, jparams, {"tokens": jnp.asarray(arr)}, capacity=cap)
+        _, _, lane = M.forward_full(cfg, params, {"tokens": torch.tensor(arr)}, capacity=cap)
+    else:
+        jlane, lane = JM.init_cache(jcfg, None, 1, cap), M.init_cache(cfg, 1, cap, "cpu")
+        jlane = _dense_chunk(jcfg, cfg, jparams, params, jlane, lane, prompt)
+    _assert_caches_match(lane, jlane)
+    jpool = JM.write_slot(jpool, jlane, 1)
+    assert M.write_slot(pool, lane, 1) is pool
+    _assert_caches_match(pool, jpool)
+    tokens = np.asarray([[0], [37], [0]], np.int32)
+    active = np.asarray([False, True, False])
+    for _ in range(8):                                     # to pos 19: past cap 16
+        jlogits, jpool = JM.decode_step(jcfg, jparams, jpool, jnp.asarray(tokens),
+                                        active=jnp.asarray(active))
+        logits, _ = M.decode_step(cfg, params, pool, torch.tensor(tokens),
+                                  active=torch.tensor(active))
+        np.testing.assert_allclose(logits.numpy(), np.asarray(jlogits), atol=LOGIT_TOL,
+                                   rtol=0)
+        _assert_caches_match(pool, jpool)
+        tokens = np.asarray(jnp.argmax(jlogits, -1), np.int32)[:, None]
+    assert int(pool["pos"][1]) == len(prompt) + 8
+
+
+def test_dense_pool_helpers_match(setup):
+    """copy_prefix (radix lane reuse), gather_slots, write_slot and
+    concat_pools, on a pool whose lanes hold different prefixes."""
+    jcfg, cfg, jparams, params = setup
+    cap = 16
+    jpool, pool = JM.init_cache(jcfg, None, 2, cap), M.init_cache(cfg, 2, cap, "cpu")
+    for slot, prompt in ((0, list(range(3, 15))), (1, list(range(40, 49)))):
+        jlane, lane = JM.init_cache(jcfg, None, 1, cap), M.init_cache(cfg, 1, cap, "cpu")
+        jlane = _dense_chunk(jcfg, cfg, jparams, params, jlane, lane, prompt)
+        jpool = JM.write_slot(jpool, jlane, slot)
+        M.write_slot(pool, lane, slot)
+    lane = M.init_cache(cfg, 1, cap, "cpu")
+    jlane = _dense_chunk(jcfg, cfg, jparams, params, JM.init_cache(jcfg, None, 1, cap), lane,
+                         [1, 2, 3])
+    jlane = JM.copy_prefix(jpool, 1, jlane, 5)            # 5 of lane 1's 9 over 3 own
+    assert M.copy_prefix(pool, 1, lane, 5) is lane
+    _assert_caches_match(lane, jlane)
+    jgot, got = JM.gather_slots(jpool, np.asarray([1, 0])), M.gather_slots(pool, [1, 0])
+    _assert_caches_match(got, jgot)
+    jbig = JM.concat_pools(jpool, JM.init_cache(jcfg, None, 2, cap))
+    big = M.concat_pools(pool, M.init_cache(cfg, 2, cap, "cpu"))
+    _assert_caches_match(big, jbig)
+    _assert_caches_match(M.write_slot(big, lane, 3), JM.write_slot(jbig, jlane, 3))
+
+
+def test_pages_to_lane_and_paged_write_lane_match(setup):
+    """The cross-layout pair: pages of a paged lane flattened into a dense lane
+    (zero-padded to capacity), and a dense lane scattered into mapped pages."""
+    jcfg, cfg, jparams, params = setup
+    ps, num_pages = 4, 4
+    jpool, pool = _pools(jcfg, cfg, lanes=2, num_blocks=10, ps=ps, num_pages=num_pages)
+    jpool = _map_lane(jpool, pool, 0, np.asarray([7, 2, 5, 0], np.int32))
+    jpool = _chunk(jcfg, cfg, jparams, params, jpool, pool, 0, list(range(3, 13)), C=4)
+    jpages, pages = JM.paged_gather_pages(jpool, [7, 2, 5]), M.paged_gather_pages(pool, [7, 2, 5])
+    jstate, state = JM.paged_gather_state(jpool, 0), M.paged_gather_state(pool, 0)
+    jlane = JM.pages_to_lane(jpages, jstate, 16)
+    lane = M.pages_to_lane(pages, state, 16)
+    _assert_caches_match(lane, jlane)
+    row = np.asarray([9, 1, 3, 0], np.int32)
+    jpool = JM.paged_write_lane(jpool, jlane, jnp.int32(1), jnp.asarray(row), jnp.int32(10))
+    assert M.paged_write_lane(pool, lane, 1, row, 10) is pool
+    _assert_pools_match(pool, jpool)

@@ -14,6 +14,8 @@ After every call the two packages must agree on:
   * block conservation (``allocated - freed == resident + shared``).
 """
 
+from dataclasses import replace
+
 import jax
 import numpy as np
 import pytest
@@ -149,10 +151,13 @@ def test_migration_package_pages_match_jax():
 def test_ported_worker_guards(monkeypatch):
     cfg = get_config("qwen3_1_7b").reduced(n_periods=1)
     params = init_params(cfg, seed=0, device="cpu")
-    w = RolloutWorker(cfg, params, device="cpu", **KW)
-    w.prefill(1, PROMPT)
-    with pytest.raises(NotImplementedError):   # cross-layout ingress needs the dense plane
-        w.migrate_in(dict(w.checkpoint_out(1), page_size=4))
+    src = RolloutWorker(cfg, params, device="cpu", paged=False, **KW)
+    src.prefill(1, PROMPT)
+    dst = RolloutWorker(cfg, params, device="cpu", paged=False, **dict(KW, capacity=32))
+    with pytest.raises(ValueError, match="capacity"):   # a 64-slot lane into 32-slot lanes
+        dst.migrate_in(src.checkpoint_out(1))
+    with pytest.raises(NotImplementedError):   # layer kinds of later slices
+        RolloutWorker(replace(cfg, block_pattern=("mamba",)), params, device="cpu", **KW)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         RolloutWorker(cfg, params, **KW)       # device=None means the card
