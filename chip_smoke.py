@@ -14,8 +14,11 @@ Phases (each raises on failure; any failure exits non-zero with no result line):
               paths' shapes, in bf16 and f32 (bf16 also relative to the
               output's size), with poisoned scratch / unmapped blocks / slots
               past valid_len; times for the kernel, the plain version, a
-              library call computing the same function, and the bound.  The dense kernel runs at the linear pool's shape and at
-              the sliding-window ring's.
+              library call computing the same function, and the bound.  The
+              dense kernel runs at the linear pool's shape and at the
+              sliding-window ring's; the selective scan at a jamba Mamba
+              layer's admission (B 1, S 2,048, di 8,192, N 16), all-f32, at
+              S 1,500 and at B 2 (no PyTorch call computes a scan).
 4. slice   -- qwen3-1.7b at full width (28 layers, d_model 2048, bf16, random
               weights from a seed): two paged RolloutWorkers on the card serve
               8 requests in 2 GRPO groups (radix page sharing), decode at
@@ -36,9 +39,22 @@ Phases (each raises on failure; any failure exits non-zero with no result line):
               launches per step, and the kernels that take the device's time
               (torch.profiler), beside the step's bound (weights and KV read
               once).
-7. reference -- the same model reduced (2 layers, f32): decode logits on the
+7. jamba   -- jamba-v0.1-52b at its published widths cut to one period (8
+              layers: 7 Mamba, 1 attention, 4 MoE; bf16, 13.3 B params, random
+              weights from the seed): two paged workers and a dense one serve
+              8 requests in 2 GRPO groups (prompts of 2,048 and 1,500 tokens,
+              whole-prompt admission: 7 scan launches each), decode 64 steps
+              at temperature 1.0 / top-p 0.9, absorb a 16-token tool output
+              one step per token, preempt and resume, migrate paged -> paged
+              -> dense -> paged and restore a checkpoint, each lane's KV and
+              Mamba state held exactly.  Counts zeroed before and read after;
+              then a profile of one 2,048-token admission and of one decode
+              step at 8 lanes, beside the step's bound.
+8. reference -- the qwen3 model reduced (2 layers, f32): decode logits on the
               card (kernels) against the CPU (plain versions) under teacher
-              forcing, on the paged plane and on a sliding-window ring.
+              forcing, on the paged plane and on a sliding-window ring; the
+              reduced jamba period the same way after a whole-prompt
+              admission, its Mamba state card vs CPU.
 
 float32 matrix products run in full float32: TF32 is switched off for matmuls
 and cuDNN.  The next-to-last line is one JSON object describing each kernel;
@@ -60,6 +76,11 @@ SRC = ROOT / "src"
 HBM_BYTES_PER_S = 3.35e12            # H100 SXM HBM3, NVIDIA's data sheet
 PEAK_FLOPS = {"bfloat16": 989e12,    # dense tensor-core rate
               "float32": 67e12}      # outside the tensor cores
+# exp2 results per second on the special-function units: 16 a clock per SM
+# (CUDA C++ Programming Guide, arithmetic throughput for compute capability
+# 9.0) x 132 SMs x the 1.98 GHz boost clock that the 67 TFLOP/s assumes
+SFU_PER_S = 16 * 132 * 1.98e9
+SCAN_TOL = 1e-4                      # x max(1, max |reference|): f32 in both, exp2 vs exp
 TOL = {"bfloat16": 2.5e-2,           # the plain version rounds probabilities to bf16
        "float32": 1e-5}              # sums in another order (8 warps' partials merged)
 BF16_REL = 2e-2                      # bf16 is also held to this share of max |reference|
@@ -109,15 +130,21 @@ def phase_device(torch):
 
 # ---------------------------------------------------------------- phase 2
 def phase_build():
-    from repro_torch.kernels.build import DECODE
+    from repro_torch.kernels.build import KERNELS
     t0 = time.perf_counter()
-    DECODE.load()
-    log(f"[build] {DECODE.name} ({', '.join(DECODE.sources)}): "
-        f"{time.perf_counter() - t0:.2f} s (nvcc {DECODE.build_seconds:.2f} s, one per "
-        f"source, started together) -> {DECODE.path}")
-    for line in DECODE.log.splitlines():           # ptxas -v: instantiations that spill
+    KERNELS.load()
+    log(f"[build] {KERNELS.name} ({', '.join(KERNELS.sources)}): "
+        f"{time.perf_counter() - t0:.2f} s (nvcc {KERNELS.build_seconds:.2f} s, one per "
+        f"source, started together) -> {KERNELS.path}")
+    entry = ""
+    for line in KERNELS.log.splitlines():          # ptxas -v
+        if "Compiling entry function" in line:
+            entry = line
         if any(int(n) for n in re.findall(r"(\d+) bytes spill", line)):
-            log(f"[build]   {line.strip()}")
+            log(f"[build]   {line.strip()}")       # instantiations that spill
+        if "registers" in line and "mamba_scan_kernel" in entry:
+            log(f"[build]   mamba_scan_kernel<{re.search(r'kernelI(.*?)EEEv', entry).group(1)}>: "
+                f"{line.split(':', 1)[1].strip()}")
 
 
 # ---------------------------------------------------------------- phase 3
@@ -298,6 +325,71 @@ def phase_kernels(torch):
                 f"{row['bound_ms']:.4f} ms ({nbytes / 1e6:.1f} MB, {row['bound_by']}-bound)")
             del q, k, v, kp, vp
             torch.cuda.empty_cache()
+    rows["mamba_scan"] = _scan_rows(torch, gen)
+    return rows
+
+
+def _scan_bound(B, S, di, N, item):
+    """The least time for one selective scan: the larger of the bytes (dt
+    and y in f32, x, B, C in ``item`` bytes, A_log and the last state in f32,
+    each once), the exponentials (one per (t, d, n)) on the special-function
+    units, and 6 f32 operations per (t, d, n) at the f32 peak.  Returns
+    (bound ms, bound_by, bytes, each of the three times in ms)."""
+    nbytes = B * S * di * (4 + item + 4) + 2 * B * S * N * item + di * N * 4 + B * di * N * 4
+    n = B * S * di * N
+    times = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3, "exp": n / SFU_PER_S * 1e3,
+             "flops": 6 * n / PEAK_FLOPS["float32"] * 1e3}
+    bound = max(times.values())
+    return bound, "bytes" if times["bytes"] >= bound else "operations", nbytes, times
+
+
+def _scan_rows(torch, gen):
+    """The scan kernel against its plain version: the main path's shape (one
+    2,048-token admission of a jamba Mamba layer: B 1, di 8,192, N 16; dt
+    f32, x/B/C bf16), all-f32, a ragged S of 1,500 and B 2.  The plain
+    version launches ~10 ops per time step, so it is timed over 2 calls."""
+    from repro_torch.kernels import mamba_scan as scan_kernel
+    from repro_torch.kernels import ref
+    import torch.nn.functional as F
+    di, N = 8192, 16
+    a_log = torch.log(torch.arange(1, N + 1, dtype=torch.float32, device="cuda")
+                      ).expand(di, N).contiguous()           # the model's A_log
+    rows = {}
+    for label, B, S, name in (("main", 1, 2048, "bfloat16"), ("f32", 1, 2048, "float32"),
+                              ("ragged S", 1, 1500, "bfloat16"), ("B 2", 2, 2048, "bfloat16")):
+        dtype = getattr(torch, name)
+        dt = F.softplus(torch.randn((B, S, di), generator=gen, device="cuda"))
+        b_in, c_in = (0.5 * torch.randn((B, S, N), generator=gen, device="cuda")
+                      for _ in "bc")
+        x = 0.5 * torch.randn((B, S, di), generator=gen, device="cuda")
+        args = (dt, b_in.to(dtype), c_in.to(dtype), x.to(dtype), a_log)
+        got = scan_kernel.mamba_scan(*args)
+        torch.cuda.synchronize()
+        want = ref.mamba_scan_ref(*args)
+        errs = []
+        for part, g, w in zip(("y", "h_S"), got, want):
+            limit = SCAN_TOL * max(1.0, float(w.abs().max()))
+            err = float((g - w).abs().max())
+            _check_err(f"mamba_scan {label} {part}", name, [g], err, limit)
+            errs.append(f"{part} max|err| {err:.3e} (tol {limit:.3e})")
+        bound, bound_by, nbytes, times = _scan_bound(B, S, di, N, args[1].element_size())
+        msg = (f"[kernels] mamba_scan {label}: B={B} S={S} di={di} N={N}, dt f32, x/B/C "
+               f"{name}; {', '.join(errs)}")
+        if label in ("main", "f32"):
+            ms = event_ms(torch, lambda i: scan_kernel.mamba_scan(*args), 20)
+            plain_ms = event_ms(torch, lambda i: ref.mamba_scan_ref(*args), 2, n_warm=1)
+            rows[name] = {"max_abs_err": float(max((g - w).abs().max()
+                                                   for g, w in zip(got, want))),
+                          "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+                          "bound_ms": bound, "bound_by": bound_by}
+            msg += (f"; kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, library none (no "
+                    f"PyTorch call computes a selective scan); bound {bound:.4f} ms "
+                    f"({bound_by}: bytes {nbytes / 1e6:.1f} MB {times['bytes']:.4f} ms, "
+                    f"{B * S * di * N / 1e6:.1f} M exp2 on the SFUs {times['exp']:.4f} ms, "
+                    f"f32 ops {times['flops']:.4f} ms)")
+        log(msg)
+        del dt, b_in, c_in, x, args, got, want
+    torch.cuda.empty_cache()
     return rows
 
 
@@ -349,16 +441,20 @@ def _full_width(torch):
     return cfg, params
 
 
+def _counters():
+    from repro_torch.kernels import decode_attention, mamba_scan
+    return decode_attention.launches, mamba_scan.launches
+
+
 def _reset_launches():
-    from repro_torch.kernels import decode_attention
-    for name in decode_attention.launches:
-        decode_attention.launches[name] = 0
+    for counts in _counters():
+        for name in counts:
+            counts[name] = 0
 
 
 def _read_launches(torch):
-    from repro_torch.kernels import decode_attention
     torch.cuda.synchronize()
-    return dict(decode_attention.launches)
+    return {name: n for counts in _counters() for name, n in counts.items()}
 
 
 def phase_slice(torch):
@@ -582,6 +678,203 @@ def phase_profile(torch):
 
 
 # ---------------------------------------------------------------- phase 7
+def _jamba_model(torch):
+    """jamba-v0.1-52b at its published widths, cut to one period of its four
+    (8 layers: 7 Mamba, 1 attention, 4 MoE, 4 MLP), random weights from the
+    seed: the four periods' 51.6 B parameters (103 GB in bf16) do not fit
+    on one 80 GB card."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import init_params, param_count
+    cfg = dataclasses.replace(get_config("jamba_v0_1_52b"), n_periods=1)
+    params, ms = sync_ms(torch, lambda: init_params(cfg, seed=SEED, device="cuda"))
+    log(f"[model] {cfg.name}, 1 period of 4: {cfg.n_layers} layers "
+        f"({' '.join(cfg.block_pattern)}), d_model {cfg.d_model}, {cfg.n_heads}/"
+        f"{cfg.n_kv_heads} heads, hd {cfg.hd}, d_ff {cfg.d_ff}, di "
+        f"{cfg.ssm_expand * cfg.d_model}, N {cfg.ssm_state_dim}, {cfg.n_experts} experts "
+        f"top-{cfg.top_k}, vocab {cfg.vocab}, {cfg.dtype}; "
+        f"{param_count(params) / 1e9:.3f} B params, {_nbytes(params) / 1e9:.2f} GB "
+        f"(init {ms:.0f} ms)")
+    return cfg, params
+
+
+def _nbytes(tree):
+    from repro_torch.models.model import tree_leaves
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+
+def _lane_state(w, sid):
+    """Copies of one lane's KV at its resident positions and its Mamba state."""
+    seq = w.store[sid]
+    n = len(seq.tokens)
+    out = {}
+    for key, c in w.pool["blocks"].items():
+        for name, leaf in c.items():
+            if name in ("h", "conv"):
+                lane = leaf[:, seq.slot]
+            elif w._paged:
+                lane = leaf[:, w.lane_pages[seq.slot]]
+                lane = lane.reshape((lane.shape[0], -1) + tuple(lane.shape[3:]))[:, :n]
+            else:
+                lane = leaf[:, seq.slot, :n]
+            out[f"{key}/{name}"] = lane.clone()
+    return out
+
+
+def _same_state(torch, label, want, got):
+    bad = [k for k in want if not torch.equal(want[k], got[k])]
+    if bad or not all(bool(t.float().isfinite().all()) for t in got.values()):
+        raise AssertionError(f"{label}: lane state differs in {bad} or is not finite")
+
+
+def phase_jamba(torch):
+    """The hybrid Mamba + MoE slice at full width, one period: two paged
+    workers and a dense one sharing the params.  Whole-prompt admission (MoE
+    is not chunk-safe) runs the scan kernel once per Mamba layer.  Returns
+    the launch counts of the main path."""
+    import numpy as np
+    from repro_torch.engine.paging import check_block_conservation
+    from repro_torch.engine.sampler import SamplerConfig
+    from repro_torch.engine.worker import RolloutWorker
+
+    torch.cuda.reset_peak_memory_stats()
+    cfg, params = _jamba_model(torch)
+    kw = dict(capacity=4096, max_slots=8, sampler=SamplerConfig(1.0, 0.9), seed=SEED,
+              device="cuda")
+    w0 = RolloutWorker(cfg, params, worker_id=0, page_size=16, **kw)
+    w1 = RolloutWorker(cfg, params, worker_id=1, page_size=16, **kw)
+    wd = RolloutWorker(cfg, params, worker_id=2, paged=False, **kw)
+    if not w0._paged or w0._chunked or w0._reuse or wd._paged:
+        raise AssertionError("jamba must take paged whole-prompt admission, no radix reuse")
+    n_mamba = cfg.n_periods * sum(k.startswith("mamba") for k in cfg.block_pattern)
+    rng = np.random.default_rng(SEED + 3)
+    groups = [rng.integers(0, cfg.vocab, n).tolist() for n in (2048, 1500)]
+    run = Script(torch, cfg)
+
+    _reset_launches()                                       # jamba path starts here
+    for sid in range(8):
+        run.timed("prefill", lambda: w0.prefill(sid, groups[sid // 4]))
+    admissions = 8
+    run.decode(w0, list(range(8)), 64)
+    run.timed("extend_per_token", lambda: w0.extend(0, rng.integers(0, cfg.vocab, 16).tolist()))
+    w0.preempt(1)
+    held = _lane_state(w0, 1)
+    run.decode(w0, [0, 2, 3, 4, 5, 6, 7], 8)
+    _same_state(torch, "preempted lane", held, _lane_state(w0, 1))   # masked: state kept
+    run.decode(w0, [1], 8)                                  # resume
+    for src, dst, leg in ((w0, w1, "paged -> paged"), (w1, wd, "paged -> dense"),
+                          (wd, w0, "dense -> paged")):
+        held = _lane_state(src, 2)
+        pkg = run.timed("migrate", lambda: src.migrate_out(2))
+        run.timed("migrate", lambda: dst.migrate_in(pkg))
+        _same_state(torch, f"migration {leg}", held, _lane_state(dst, 2))
+        run.decode(dst, [2], 8)
+    ck = run.timed("checkpoint", lambda: w0.checkpoint_out(3))
+    run.timed("checkpoint", lambda: w1.migrate_in(dict(ck, seq_id=100)))
+    _same_state(torch, "checkpoint restore", _lane_state(w0, 3), _lane_state(w1, 100))
+    run.decode(w1, [100], 8)
+    run.decode(w0, [3], 8)
+    run.release_all(w0, w1, wd)
+    launches = _read_launches(torch)                        # jamba path ends
+    paged_steps = sum(w.decode_steps + w.absorbed_tokens for w in (w0, w1))
+    dense_steps = wd.decode_steps + wd.absorbed_tokens
+    want = {"mamba_scan": n_mamba * admissions, "paged_decode_attention": paged_steps,
+            "decode_attention": dense_steps}            # one attention layer a period
+    if launches != want:
+        raise AssertionError(f"jamba launches {launches}, want {want}")
+    for i, w in enumerate((w0, w1)):
+        bad = check_block_conservation(w.dispatch_stats())
+        if bad:
+            raise AssertionError(f"jamba worker {i}: {bad}")
+    log(f"[jamba] {admissions} admissions (prompts of {len(groups[0])} and {len(groups[1])} "
+        f"tokens, two groups of 4) by whole-prompt forward; decode steps paged {w0.decode_steps} + "
+        f"{w1.decode_steps}, dense {wd.decode_steps}; per-token extend steps "
+        f"{w0.absorbed_tokens}; launches {launches} (mamba_scan = {n_mamba} x "
+        f"{admissions} admissions; decode kernels = 1 attention layer x each step); "
+        f"lane state held exactly through preemption, 3 migrations and a checkpoint")
+    steps = w0.decode_steps + w1.decode_steps + wd.decode_steps
+    run.report("jamba", steps)
+    del w0, w1, wd, pkg, ck
+    torch.cuda.empty_cache()
+    _profile_jamba(torch, cfg, params)
+    del params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _device_time(prof, n):
+    """(kernel events by device time, device-busy ms per step) of a profile."""
+    from torch.autograd import DeviceType
+    kern = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
+                  key=lambda e: -e.self_device_time_total)
+    return kern, sum(e.self_device_time_total for e in kern) / 1e3 / n
+
+
+def _profile_jamba(torch, cfg, params):
+    """One 2,048-token admission and one decode step at 8 lanes of ~2,050
+    tokens: wall time, device busy time, launches, the scan kernel's share,
+    beside the step's bound (every weight read once: the MoE einsum runs
+    all 16 experts)."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.engine.sampler import SamplerConfig
+    from repro_torch.engine.worker import RolloutWorker
+
+    w = RolloutWorker(cfg, params, capacity=4096, page_size=16, max_slots=8,
+                      sampler=SamplerConfig(1.0, 0.9), seed=SEED, device="cuda")
+    rng = np.random.default_rng(SEED + 4)
+    prompts = [rng.integers(0, cfg.vocab, 2048).tolist() for _ in range(8)]
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    w.prefill(0, prompts[0])                                # warm-up
+    _, wall = sync_ms(torch, lambda: w.prefill(1, prompts[1]))
+    with profile(activities=acts) as prof:
+        w.prefill(2, prompts[2])
+        torch.cuda.synchronize()
+    kern, busy = _device_time(prof, 1)
+    scan = [e for e in kern if "mamba_scan_kernel" in e.key]
+    scan_ms = sum(e.self_device_time_total for e in scan) / 1e3
+    log(f"[profile] jamba admission, {len(prompts[2])} tokens: wall {wall:.3f} ms, device "
+        f"busy {busy:.3f} ms ({100 * busy / wall:.1f}% of wall), "
+        f"{sum(e.count for e in kern)} device launches; mamba_scan_kernel {scan_ms:.3f} ms "
+        f"in {sum(e.count for e in scan)} launches "
+        f"({100 * scan_ms / busy if busy else 0:.1f}% of busy)")
+    for e in kern[:8]:
+        log(f"[profile]   {e.self_device_time_total / 1e3:8.3f} ms {e.count:6d}x  {e.key[:90]}")
+    for sid in range(3, 8):
+        w.prefill(sid, prompts[sid])
+    lanes, n = list(range(8)), 8
+    w.decode(lanes, 2)                                      # warm-up
+    context = sum(len(w.store[s].tokens) for s in lanes)
+    _, wall = sync_ms(torch, lambda: w.decode(lanes, n))
+    with profile(activities=acts) as prof:
+        w.decode(lanes, n)
+        torch.cuda.synchronize()
+    kern, busy = _device_time(prof, n)
+    attn = sum(e.self_device_time_total for e in kern if "paged_decode_kernel" in e.key)
+    # bound: every weight once (the embedding table: 8 rows), the attention
+    # layer's KV at the mean context of the profiled steps, and the Mamba
+    # state read and written
+    item = params["tok_embed"].element_size()
+    weight_bytes = (_nbytes(params) - _nbytes(params["tok_embed"])
+                    + len(lanes) * cfg.d_model * item)
+    kv_bytes = ((context + len(lanes) * (n + 1) / 2) * cfg.n_periods
+                * 2 * cfg.n_kv_heads * cfg.hd * item)
+    state_bytes = 2 * _nbytes({k: c for k, c in w.pool["blocks"].items() if "mamba" in k})
+    bound = (weight_bytes + kv_bytes + state_bytes) / HBM_BYTES_PER_S * 1e3
+    log(f"[profile] jamba decode step, 8 lanes, {context / 8:.0f} tokens of context each: "
+        f"wall {wall / n:.3f} ms, device busy {busy:.3f} ms ({100 * busy * n / wall:.1f}% "
+        f"of wall), {sum(e.count for e in kern) / n:.0f} device launches; paged decode "
+        f"kernel {attn / 1e3 / n:.3f} ms; bound {bound:.3f} ms (weights "
+        f"{weight_bytes / 1e9:.3f} GB + KV {kv_bytes / 1e9:.3f} GB + Mamba state "
+        f"{state_bytes / 1e9:.3f} GB read once at 3.35 TB/s)")
+    for e in kern[:10]:
+        log(f"[profile]   {e.self_device_time_total / 1e3 / n:8.3f} ms/step "
+            f"{e.count / n:6.0f}x  {e.key[:90]}")
+    del w
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------- phase 8
 def phase_reference(torch):
     """Teacher-forced decode logits, card (kernels) vs CPU (plain versions):
     the paged plane, and a sliding-window ring (window 32, a 50-token prompt
@@ -613,6 +906,41 @@ def phase_reference(torch):
     log(f"[reference] reduced {cfg.name} (2 layers, f32), sliding-window ring (window 32, "
         f"50-token prompt): 8 teacher-forced decode steps, logits card vs CPU max |err| "
         f"{err:.2e} (tol 1e-4)")
+    _reference_jamba(torch)
+
+
+def _reference_jamba(torch):
+    """The reduced jamba period (f32): a 40-token whole-prompt admission into
+    a paged lane (the scan kernel on the card, its plain version on the CPU),
+    its Mamba state and KV card vs CPU, then teacher-forced decode logits."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import mamba_scan
+    from repro_torch.models import model as M
+    from repro_torch.models.model import init_params, tree_to
+
+    cfg = get_config("jamba_v0_1_52b").reduced(n_periods=1)
+    params = init_params(cfg, seed=SEED, device="cpu")
+    gparams = tree_to(params, "cuda")
+    prompt = torch.tensor([[(7 * i + 3) % cfg.vocab for i in range(40)]])
+    row = torch.tensor([3, 5, 7, 0], dtype=torch.int32)
+    pools = {}
+    scans = mamba_scan.launches["mamba_scan"]
+    for dev, prm in (("cpu", params), ("cuda", gparams)):
+        _, _, lane = M.forward_full(cfg, prm, {"tokens": prompt.to(dev)}, capacity=40)
+        pools[dev] = M.paged_write_lane(M.init_paged_pool(cfg, 2, 9, 16, 4, dev), lane, 1,
+                                        row, 40)
+    torch.cuda.synchronize()
+    if mamba_scan.launches["mamba_scan"] - scans != 7:
+        raise AssertionError("the card's admission did not run the scan kernel 7 times")
+    state_err = max(float((pools["cuda"]["blocks"][k][n].cpu() - c[n]).abs().max())
+                    for k, c in pools["cpu"]["blocks"].items() for n in c
+                    if n in ("h", "conv"))
+    if not state_err < 1e-4:
+        raise AssertionError(f"jamba admission state card vs CPU max |err| {state_err}")
+    err = _teacher_forced(torch, cfg, params, gparams, pools, torch.tensor([[0], [39]]))
+    log(f"[reference] reduced {cfg.name} (1 period, f32: 7 Mamba, 4 MoE): 40-token "
+        f"admission, Mamba state card vs CPU max |err| {state_err:.2e} (tol 1e-4); 8 "
+        f"teacher-forced decode steps, logits card vs CPU max |err| {err:.2e} (tol 1e-4)")
 
 
 def _teacher_forced(torch, cfg, params, gparams, pools, tok):
@@ -644,6 +972,7 @@ def main() -> int:
         paged_launches = phase_slice(torch)
         dense_launches = phase_dense(torch)
         phase_profile(torch)
+        jamba_launches = phase_jamba(torch)
         phase_reference(torch)
     except Exception:                                  # a failed phase fails the run
         traceback.print_exc()
@@ -658,6 +987,10 @@ def main() -> int:
          "source": f"{csrc}/decode_attention.cu",
          "replaces": "src/repro/kernels/decode_attention.py:159",
          "launches": dense_launches, **rows["decode_attention"]["bfloat16"]},
+        {"name": "mamba_scan", "route": "cuda",
+         "source": f"{csrc}/mamba_scan.cu",
+         "replaces": "src/repro/kernels/mamba_scan.py:55",
+         "launches": jamba_launches["mamba_scan"], **rows["mamba_scan"]["bfloat16"]},
     ]
     log(f"[device] {info['smi']}")
     print(json.dumps({"kernels": kernels}), flush=True)

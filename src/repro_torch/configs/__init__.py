@@ -11,9 +11,10 @@ import importlib
 
 from repro_torch.models.config import ModelConfig
 
-ARCHITECTURES = ("qwen3_1_7b",)
+ARCHITECTURES = ("qwen3_1_7b", "jamba_v0_1_52b")
 
-_ALIASES = {"qwen3-1.7b": "qwen3_1_7b", "qwen3-1-7b": "qwen3_1_7b"}
+_ALIASES = {"qwen3-1.7b": "qwen3_1_7b", "qwen3-1-7b": "qwen3_1_7b",
+            "jamba-v0.1-52b": "jamba_v0_1_52b"}
 
 
 def get_config(name: str) -> ModelConfig:

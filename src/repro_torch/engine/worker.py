@@ -12,20 +12,24 @@ The worker owns one KV pool, of one of two layouts:
     copies a matched prefix lane to lane; a full pool doubles.  The dense
     decode kernel reads each lane directly.
 
+Recurrent (Mamba) state is dense per lane on both layouts.
+
   * admission: chunked prefill of the suffix the radix cache cannot reuse,
-    or one full-sequence forward where chunked prefill does not apply;
+    or one full-sequence forward where chunked prefill does not apply (MoE);
   * decode: a masked step loop over the whole pool; every step of every
     attention layer calls a decode attention kernel;
   * preemption: a mask flip -- the lane stays resident, nothing moves;
-  * migration: the lane's KV moves device to device, between layouts too;
+  * migration: the lane's KV and recurrent state move device to device,
+    between layouts too;
   * tool absorption: chunked prefill at the lane's current offset, or one
     masked decode step per token.
 
 Sampling is per lane: a sequence's key is ``fold_in(PRNGKey(seed + worker_id),
 seq_id)``, and each decode step draws with ``fold_in(key, pos)``
-(``engine.prng`` reproduces ``jax.random`` bit for bit), so a lane's stream is
-independent of co-resident lanes and stable across preemption and migration
-(the key travels in the migration package).
+(``engine.prng`` reproduces ``jax.random`` bit for bit), so a lane's random
+stream is independent of co-resident lanes and stable across preemption and
+migration (the key travels in the migration package).  Its logits are too,
+except under MoE: lanes of one step share each expert's capacity.
 """
 
 from __future__ import annotations
@@ -221,6 +225,10 @@ _DECODE_CHUNK = 8
 
 # ---------------------------------------------------------------- worker
 
+def _nbytes(cache: dict) -> int:
+    return sum(t.numel() * t.element_size() for t in M.tree_leaves(cache))
+
+
 @dataclass
 class Sequence:
     seq_id: int
@@ -271,13 +279,14 @@ class RolloutWorker:
         self.mp = max(int(mp), 1)
         self.base_key = prng.prng_key(seed + worker_id)
         self.params = M.tree_to(params, self.device)
-        # byte prices: a lane's dense state (pos), a dense lane (state + K/V at
-        # full capacity) and, paged, one block across every paged layer
+        # byte prices, from shapes alone (meta tensors allocate nothing): a
+        # lane's dense state (pos and recurrent state), a dense lane (state +
+        # K/V at full capacity) and, paged, one block across every paged layer
+        self._state_bytes = _nbytes(M.init_cache(cfg, 1, 0, "meta"))
+        self._lane_bytes = _nbytes(M.init_cache(cfg, 1, capacity, "meta"))
         itemsize = torch.empty((), dtype=M.torch_dtype(cfg)).element_size()
         n_attn = sum(1 for k in cfg.block_pattern if M._paged_kind(k))
         kv_per_token = 2 * cfg.n_periods * n_attn * cfg.n_kv_heads * cfg.hd * itemsize
-        self._state_bytes = 4
-        self._lane_bytes = self._state_bytes + kv_per_token * capacity
         self.lane_pages: dict[int, list[int]] = {}   # slot -> ordered blocks (paged)
         self._paged = (paged if paged is not None else True) and M.supports_paged_kv(cfg)
         if self._paged:

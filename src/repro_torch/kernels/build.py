@@ -51,6 +51,7 @@ class Library:
         self.path: Path | None = None
         self.build_seconds = 0.0
         self.log = ""
+        self._functions: dict = {}
 
     def load(self) -> ctypes.CDLL:
         """Compile (unless an identical build exists) and load the library."""
@@ -86,5 +87,17 @@ class Library:
         self.handle = ctypes.CDLL(str(self.path))
         return self.handle
 
+    def function(self, name: str, n_ptr: int, n_int: int):
+        """The C entry point ``name`` (loading the library first), typed as
+        ``n_ptr`` pointers, ``n_int`` ints and the stream, returning an int."""
+        fn = self._functions.get(name)
+        if fn is None:
+            fn = getattr(self.load(), name)
+            fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + [ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+            self._functions[name] = fn
+        return fn
 
-DECODE = Library("decode_attention", ("paged_decode_attention.cu", "decode_attention.cu"))
+
+KERNELS = Library("kernels", ("paged_decode_attention.cu", "decode_attention.cu",
+                              "mamba_scan.cu"))

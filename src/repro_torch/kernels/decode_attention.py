@@ -5,8 +5,8 @@ TPU kernel ``repro/kernels/decode_attention.py::paged_decode_attention_pallas``;
 ``decode_attention`` (``csrc/decode_attention.cu``) replaces
 ``decode_attention_pallas``.  Both share one device body
 (``csrc/decode_attention.cuh``), are compiled by ``nvcc`` on first use into
-one library (``build.py``) and are called through ``ctypes`` on PyTorch's
-current stream.
+the port's one kernel library (``build.py``) and are called through
+``ctypes`` on PyTorch's current stream.
 
 On CPU tensors a wrapper returns the plain version (``ref.py``); on CUDA
 tensors it launches its kernel or raises.  ``launches[name]`` counts each
@@ -15,31 +15,16 @@ kernel's launches, and nothing else.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from repro_torch.kernels import ref
-from repro_torch.kernels.build import DECODE
+from repro_torch.kernels.build import KERNELS
 
 launches = {"paged_decode_attention": 0, "decode_attention": 0}
 
 _SUFFIX = {torch.bfloat16: "bf16", torch.float32: "f32"}
 # (G, hd) as built: REPRO_DECODE_SHAPES in csrc/decode_attention.cuh
 _SUPPORTED = {(g, hd) for g in range(1, 9) for hd in (64, 128, 256) if g * hd <= 1024}
-
-_FUNCTIONS: dict = {}
-
-
-def _function(name: str, dtype: torch.dtype, n_ptr: int, n_int: int):
-    key = f"{name}_{_SUFFIX[dtype]}"
-    fn = _FUNCTIONS.get(key)
-    if fn is None:
-        fn = getattr(DECODE.load(), key)
-        fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _FUNCTIONS[key] = fn
-    return fn
 
 
 def _check(name: str, q, kv: tuple, ints: dict) -> None:
@@ -71,7 +56,7 @@ def _check(name: str, q, kv: tuple, ints: dict) -> None:
 
 def _launch(name: str, q: torch.Tensor, ptrs: list, ints: list) -> torch.Tensor:
     out = torch.empty_like(q)
-    fn = _function(name, q.dtype, len(ptrs) + 1, len(ints))
+    fn = KERNELS.function(f"{name}_{_SUFFIX[q.dtype]}", len(ptrs) + 1, len(ints))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(*(t.data_ptr() for t in ptrs), out.data_ptr(), *ints, stream)

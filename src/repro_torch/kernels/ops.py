@@ -9,6 +9,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import decode_attention as kernels
+from repro_torch.kernels import mamba_scan as scan_kernel
 
 
 def _valid_len(q: torch.Tensor, valid_len) -> torch.Tensor:
@@ -31,3 +32,13 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Dense decode: q (B,KV,G,hd) vs one period's cache (B,C,KV,hd);
     ``valid_len`` is an int or (B,) int32 tensor."""
     return kernels.decode_attention(q, k, v, _valid_len(q, valid_len))
+
+
+def mamba_scan(dt: torch.Tensor, b_in: torch.Tensor, c_in: torch.Tensor, x: torch.Tensor,
+               a_log: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fused selective scan: dt (B,S,di) f32, b_in/c_in (B,S,N), x (B,S,di),
+    a_log (di,N).  Returns (y (B,S,di) f32, last state (B,di,N) f32).  The
+    projections ``b_in``/``c_in`` are usually column slices of one product;
+    they are made contiguous here, as the kernel reads them."""
+    return scan_kernel.mamba_scan(dt.contiguous(), b_in.contiguous(), c_in.contiguous(),
+                                  x.contiguous(), a_log.contiguous())

@@ -49,3 +49,25 @@ def paged_decode_attention_ref(q: torch.Tensor, k_pool: torch.Tensor,
     kg = k_pool[idx].reshape(B, num_pages * ps, *k_pool.shape[2:])
     vg = v_pool[idx].reshape(B, num_pages * ps, *v_pool.shape[2:])
     return decode_attention_ref(q, kg, vg, valid_len)
+
+
+def mamba_scan_ref(dt: torch.Tensor, b_in: torch.Tensor, c_in: torch.Tensor,
+                   x: torch.Tensor, a_log: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Selective scan, one time step after another in f32.
+
+    dt, x: (B, S, di) -- softplus'd step sizes and conv'd inputs; b_in, c_in:
+    (B, S, N); a_log: (di, N).  With A = -exp(a_log):
+    h_t = exp(dt_t A) h_{t-1} + (dt_t x_t) B_t and y_t = <h_t, C_t>.
+    Returns (y (B, S, di) f32, the last state h (B, di, N) f32).
+    """
+    B, S, di = dt.shape
+    A = -torch.exp(a_log.to(F32))
+    h = torch.zeros((B, di, a_log.shape[-1]), dtype=F32, device=dt.device)
+    ys = []
+    for t in range(S):
+        a_t = torch.exp(dt[:, t, :, None].to(F32) * A[None])
+        b_t = (dt[:, t] * x[:, t]).to(F32)[..., None] * b_in[:, t].to(F32)[:, None, :]
+        h = a_t * h + b_t
+        ys.append(torch.einsum("bdn,bn->bd", h, c_in[:, t].to(F32)))
+    y = torch.stack(ys, dim=1) if ys else torch.zeros((B, 0, di), dtype=F32, device=dt.device)
+    return y, h

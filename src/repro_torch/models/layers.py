@@ -309,3 +309,112 @@ def mlp(p: dict, x: torch.Tensor, activation: str) -> torch.Tensor:
     h = x @ p["w_in"]
     g = x @ p["w_gate"] if activation == "swiglu" else None
     return activate(h, g, activation) @ p["w_out"]
+
+
+def moe(p: dict, x: torch.Tensor, cfg: ModelConfig) -> tuple[torch.Tensor, torch.Tensor]:
+    """Capacity-based top-k MoE with sort dispatch, one dispatch group.
+
+    Each expert takes at most ``cap = ceil(T * K / E * capacity_factor)``
+    (token, choice) pairs, in token order; the rest drop (their contribution
+    is 0).  Every expert's product runs over its ``cap`` buffer rows, as in
+    the JAX package.  Batched decode is not independent per lane: masked
+    lanes compete for capacity too.  Returns (output (B, S, d), Switch
+    load-balance aux loss)."""
+    B, S, D = x.shape
+    T = B * S
+    E, K = cfg.n_experts, cfg.top_k
+    cap = max(1, int(math.ceil(T * K / E * cfg.capacity_factor)))
+    xf = x.reshape(T, D)
+    dev = x.device
+
+    logits = xf.to(p["router"].dtype) @ p["router"]                  # f32 router
+    gates = torch.softmax(logits.to(F32), dim=-1)                     # (T, E)
+    top_g, top_e = torch.topk(gates, K, dim=-1)                       # (T, K)
+    top_g = top_g / torch.clamp(top_g.sum(-1, keepdim=True), min=1e-9)
+
+    eid = top_e.reshape(-1)                                           # (T*K,)
+    tid = torch.arange(T, device=dev).repeat_interleave(K)
+    order = torch.argsort(eid, stable=True)
+    eid_s, tid_s, gat_s = eid[order], tid[order], top_g.reshape(-1)[order]
+    counts = torch.zeros(E, dtype=torch.long, device=dev).scatter_add_(
+        0, eid_s, torch.ones_like(eid_s))
+    starts = torch.cumsum(counts, 0) - counts
+    rank = torch.arange(T * K, device=dev) - starts[eid_s]
+    keep = (rank < cap).to(x.dtype)
+    rank_c = torch.clamp(rank, 0, cap - 1)
+    # a dropped pair adds zero into row cap - 1, as the reference's scatter-add does
+    buf = torch.zeros((E, cap, D), dtype=x.dtype, device=dev)
+    buf.index_put_((eid_s, rank_c), xf[tid_s] * keep[:, None], accumulate=True)
+
+    h = torch.einsum("ecd,edf->ecf", buf, p["we_in"])
+    g = (torch.einsum("ecd,edf->ecf", buf, p["we_gate"]) if cfg.activation == "swiglu"
+         else None)
+    out_buf = torch.einsum("ecf,efd->ecd", activate(h, g, cfg.activation), p["we_out"])
+
+    yflat = out_buf[eid_s, rank_c] * (gat_s.to(out_buf.dtype) * keep)[:, None]
+    y = torch.zeros((T, D), dtype=yflat.dtype, device=dev).index_add_(0, tid_s, yflat)
+
+    assigned = torch.zeros(E, dtype=F32, device=dev).scatter_add_(
+        0, eid, torch.ones(T * K, dtype=F32, device=dev))
+    frac_tokens = assigned / torch.clamp(assigned.sum(), min=1.0)
+    aux = E * torch.sum(frac_tokens * gates.mean(0))
+    return y.reshape(B, S, D), aux
+
+
+# ----------------------------------------------------------------- Mamba (SSM)
+
+def _mamba_inner(p: dict, x_conv: torch.Tensor, cfg: ModelConfig):
+    """The math after the causal conv: returns (a, b, C) scan ingredients
+    (a, b: (..., di, N) f32)."""
+    dt, Bm, Cm = _mamba_proj(p, x_conv, cfg)
+    A = -torch.exp(p["m_Alog"].to(F32))                               # (di, N)
+    a = torch.exp(dt[..., None] * A)
+    b = (dt * x_conv.to(F32))[..., None] * Bm.to(F32)[..., None, :]
+    return a, b, Cm
+
+
+def _mamba_proj(p: dict, x_conv: torch.Tensor, cfg: ModelConfig):
+    """dt (..., di) f32 and the projections B, C (..., N) of the conv'd input."""
+    dbc = x_conv @ p["m_xproj"]                                       # (..., R + 2N)
+    R = p["m_dtproj"].shape[0]
+    N = cfg.ssm_state_dim
+    dt = F.softplus(dbc[..., :R] @ p["m_dtproj"]).to(F32)
+    return dt, dbc[..., R:R + N], dbc[..., R + N:]
+
+
+def mamba_full(p: dict, x: torch.Tensor, cfg: ModelConfig
+               ) -> tuple[torch.Tensor, dict]:
+    """Full-sequence Mamba mixer.  x: (B, S, d).  The selective scan goes
+    through ``ops.mamba_scan`` (the hand-written kernel on CUDA tensors),
+    which also returns the last state.  Returns (out (B, S, d), state
+    {"h": (B, di, N) f32, "conv": (B, W-1, di)}), the state a decode step
+    continues from."""
+    B, S, _ = x.shape
+    xi = x @ p["m_in"]                                                # (B, S, di)
+    z = x @ p["m_z"]
+    W = cfg.ssm_conv_width
+    xp = F.pad(xi, (0, 0, W - 1, 0))                                  # causal conv
+    xc = F.silu(sum(xp[:, i:i + S] * p["m_conv"][i] for i in range(W)))
+    dt, Bm, Cm = _mamba_proj(p, xc, cfg)
+    y, h_last = kops.mamba_scan(dt, Bm, Cm, xc, p["m_Alog"])
+    y = (y + p["m_D"].to(F32) * xc.to(F32)).to(x.dtype)
+    y = y * F.silu(z)
+    return y @ p["m_out"], {"h": h_last, "conv": xp[:, S:S + W - 1]}
+
+
+def mamba_step(p: dict, x: torch.Tensor, cfg: ModelConfig, state: dict
+               ) -> tuple[torch.Tensor, dict]:
+    """One-token decode.  x: (B, 1, d); state = {"h": (B, di, N) f32,
+    "conv": (B, W-1, di)}.  Returns (out (B, 1, d), new state); the state
+    passed in is not changed."""
+    xi = x[:, 0] @ p["m_in"]                                          # (B, di)
+    z = x[:, 0] @ p["m_z"]
+    hist = torch.cat([state["conv"], xi[:, None]], dim=1)             # (B, W, di)
+    conv = torch.einsum("bwd,wd->bd", hist, p["m_conv"])
+    xc = F.silu(conv)
+    a, b, Cm = _mamba_inner(p, xc, cfg)                               # (B, di, N)
+    h = a * state["h"] + b
+    y = torch.einsum("bdn,bn->bd", h, Cm.to(F32))
+    y = (y + p["m_D"].to(F32) * xc.to(F32)).to(x.dtype)
+    y = y * F.silu(z)
+    return (y @ p["m_out"])[:, None], {"h": h, "conv": hist[:, 1:]}

@@ -3,17 +3,22 @@
 Parameters and caches keep the JAX package's layout: nested dicts keyed
 ``blocks/<ii>_<kind>/...`` with a leading ``n_periods`` axis on every stacked
 leaf.  JAX's ``lax.scan`` over periods becomes a Python loop that indexes that
-axis.  Only the ``attn+mlp`` kind is ported; the other kinds raise.
+axis.  The kinds of ``PORTED_KINDS`` run (attention or Mamba mixers, dense
+MLP or MoE); the other kinds raise.
 
 A dense cache (a "slot pool" when its batch axis holds a worker's lanes) is
-``{"pos": (B,) int32, "blocks": {key: {"k", "v": (P, B, C, KV, hd)}}}``; with a
-sliding window it is a ring (token ``t`` at slot ``t % C``).  The paged pool
-is ``{"pos": (B,) int32, "page_table": (B, num_pages) int32, "blocks": {key:
-{"k", "v": (P, NB, page_size, KV, hd)}}}``.  Functions that the JAX package
-writes as pure (returning a new cache) update the cache's tensors **in
-place** here and return the same dict; functions that must enlarge a tensor
-(``grow_*``, ``concat_pools``) put new tensors into the dict or return a new
-one, and the gathers (``gather_slots``, ``paged_gather_*``) return copies.
+``{"pos": (B,) int32, "blocks": {key: leaves}}``, where an attention layer's
+leaves are ``{"k", "v": (P, B, C, KV, hd)}`` and a Mamba layer's are its
+recurrent state ``{"h": (P, B, di, N) f32, "conv": (P, B, W-1, di)}``; with
+a sliding window the attention leaves are a ring (token ``t`` at slot
+``t % C``).  The paged pool is ``{"pos": (B,) int32, "page_table": (B,
+num_pages) int32, "blocks": ...}`` where attention leaves are block pools
+``{"k", "v": (P, NB, page_size, KV, hd)}`` and recurrent state keeps its
+dense per-lane layout.  Functions that the JAX package writes as pure
+(returning a new cache) update the cache's tensors **in place** here and
+return the same dict; functions that must enlarge a tensor (``grow_*``,
+``concat_pools``) put new tensors into the dict or return a new one, and the
+gathers (``gather_slots``, ``paged_gather_*``) return copies.
 """
 
 from __future__ import annotations
@@ -27,7 +32,8 @@ from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
 
-PORTED_KINDS = ("attn+mlp",)
+PORTED_KINDS = ("attn+mlp", "attn+moe", "mamba+mlp", "mamba+moe")
+F32 = torch.float32
 
 
 def torch_dtype(cfg: ModelConfig) -> torch.dtype:
@@ -38,16 +44,63 @@ def torch_dtype(cfg: ModelConfig) -> torch.dtype:
 def check_ported(cfg: ModelConfig) -> None:
     """Raise unless every layer kind of ``cfg`` is one the port runs."""
     missing = sorted(set(cfg.block_pattern) - set(PORTED_KINDS))
-    if missing or cfg.arch_type in ("audio", "vlm"):
+    if cfg.arch_type in ("audio", "vlm"):
+        missing.append(cfg.arch_type)
+    if cfg.shared_d_ff or cfg.dense_residual_ff:
+        missing.append("MoE shared experts / dense residual")
+    if missing:
         raise NotImplementedError(
-            f"{cfg.name}: layer kinds {missing or [cfg.arch_type]} are not ported yet "
-            f"(ported: {', '.join(PORTED_KINDS)})")
+            f"{cfg.name}: {missing} are not ported yet (ported kinds: "
+            f"{', '.join(PORTED_KINDS)})")
 
 
 # ------------------------------------------------------------------ init
 
+def _init_attn(cfg: ModelConfig, normal, ones) -> dict:
+    d, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    s = 0.02
+    p = {"wq": normal((d, H, hd), s), "wk": normal((d, KV, hd), s),
+         "wv": normal((d, KV, hd), s), "wo": normal((H, hd, d), s / math.sqrt(2 * cfg.n_layers))}
+    if cfg.qk_norm:
+        p["q_norm"] = ones((hd,))
+        p["k_norm"] = ones((hd,))
+    return p
+
+
+def _init_mlp(cfg: ModelConfig, normal) -> dict:
+    d, s = cfg.d_model, 0.02
+    p = {"w_in": normal((d, cfg.d_ff), s),
+         "w_out": normal((cfg.d_ff, d), s / math.sqrt(2 * cfg.n_layers))}
+    if cfg.activation == "swiglu":
+        p["w_gate"] = normal((d, cfg.d_ff), s)
+    return p
+
+
+def _init_moe(cfg: ModelConfig, normal) -> dict:
+    d, E, eff, s = cfg.d_model, cfg.n_experts, cfg.moe_d_ff, 0.02
+    p = {"router": normal((d, E), s, F32), "we_in": normal((E, d, eff), s),
+         "we_out": normal((E, eff, d), s / math.sqrt(2 * cfg.n_layers))}
+    if cfg.activation == "swiglu":
+        p["we_gate"] = normal((E, d, eff), s)
+    return p
+
+
+def _init_mamba(cfg: ModelConfig, normal, ones) -> dict:
+    d, s = cfg.d_model, 0.02
+    di, N, W = cfg.ssm_expand * d, cfg.ssm_state_dim, cfg.ssm_conv_width
+    R = cfg.ssm_dt_rank or -(-d // 16)
+    return {"m_in": normal((d, di), s), "m_z": normal((d, di), s),
+            "m_conv": normal((W, di), 1.0 / math.sqrt(W)),
+            "m_xproj": normal((di, R + 2 * N), s),
+            "m_dtproj": normal((R, di), 1.0 / math.sqrt(R)),
+            "m_Alog": torch.log(ones((di, N), F32).cumsum(-1)),       # log(1..N)
+            "m_D": ones((di,), F32),
+            "m_out": normal((di, d), s / math.sqrt(2 * cfg.n_layers))}
+
+
 def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
-    """Random parameters with ``model.init_params``'s names, shapes and scales.
+    """Random parameters with ``model.init_params``'s names, shapes, dtypes
+    and scales.
 
     Drawn from a ``torch.Generator`` seeded with ``seed`` on ``device``, so the
     numbers differ from ``jax.random``'s; to hold the port against the JAX
@@ -57,37 +110,36 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
     dev = resolve_device(device)
     dtype = torch_dtype(cfg)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    d, H, KV, hd, P = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.n_periods
-    s = 0.02
-    s_out = s / math.sqrt(2 * cfg.n_layers)
+    d, P = cfg.d_model, cfg.n_periods
 
-    def normal(shape, scale):
-        return torch.randn(shape, generator=gen, device=dev, dtype=dtype) * scale
+    def normal(shape, scale, dt=dtype):          # a leaf stacked over periods
+        return torch.randn((P,) + shape, generator=gen, device=dev, dtype=dt).mul_(scale)
 
-    def ones(shape):
-        return torch.ones(shape, device=dev, dtype=dtype)
+    def ones(shape, dt=dtype):
+        return torch.ones((P,) + shape, device=dev, dtype=dt)
 
     params: dict[str, Any] = {
-        "tok_embed": normal((cfg.vocab, d), 0.02),
-        "final_norm": {"scale": ones((d,))},
+        "tok_embed": torch.randn((cfg.vocab, d), generator=gen, device=dev,
+                                 dtype=dtype).mul_(0.02),
+        "final_norm": {"scale": torch.ones((d,), device=dev, dtype=dtype)},
     }
     if not cfg.tie_embeddings:
-        params["lm_head"] = normal((d, cfg.vocab), 0.02)
+        params["lm_head"] = torch.randn((d, cfg.vocab), generator=gen, device=dev,
+                                        dtype=dtype).mul_(0.02)
     blocks = {}
     for i, kind in enumerate(cfg.block_pattern):
-        mixer = {"wq": normal((P, d, H, hd), s), "wk": normal((P, d, KV, hd), s),
-                 "wv": normal((P, d, KV, hd), s), "wo": normal((P, H, hd, d), s_out)}
-        if cfg.qk_norm:
-            mixer["q_norm"] = ones((P, hd))
-            mixer["k_norm"] = ones((P, hd))
-        mlp = {"w_in": normal((P, d, cfg.d_ff), s), "w_out": normal((P, cfg.d_ff, d), s_out)}
-        if cfg.activation == "swiglu":
-            mlp["w_gate"] = normal((P, d, cfg.d_ff), s)
-        blocks[f"{i:02d}_{kind}"] = {"norm1": {"scale": ones((P, d))}, "mixer": mixer,
-                                     "norm2": {"scale": ones((P, d))}, "mlp": mlp}
+        mixer, _, mlp_kind = kind.partition("+")
+        layer = {"norm1": {"scale": ones((d,))},
+                 "mixer": (_init_attn(cfg, normal, ones) if mixer == "attn"
+                           else _init_mamba(cfg, normal, ones))}
+        if mlp_kind:
+            layer["norm2"] = {"scale": ones((d,))}
+            layer["mlp"] = (_init_mlp(cfg, normal) if mlp_kind == "mlp"
+                            else _init_moe(cfg, normal))
+        blocks[f"{i:02d}_{kind}"] = layer
     if cfg.norm == "layernorm":
         for tree in [params["final_norm"]] + [b[n] for b in blocks.values()
-                                              for n in ("norm1", "norm2")]:
+                                              for n in ("norm1", "norm2") if n in b]:
             tree["bias"] = torch.zeros_like(tree["scale"])
     params["blocks"] = blocks
     return params
@@ -181,13 +233,39 @@ def _kv_from_full(cfg: ModelConfig, p: dict, h: torch.Tensor, positions: torch.T
         lane["v"][:, keep % C] = v[:, keep]
 
 
+def _mamba_state_from_full(cfg: ModelConfig, p: dict, h: torch.Tensor) -> dict:
+    """A Mamba layer's recurrent state after a full-sequence forward over its
+    normed input ``h`` (B, S, d): {"h": (B, di, N) f32, "conv": (B, W-1, di)}.
+    The scan kernel writes its last state, so this is ``mamba_full``'s second
+    output, and ``_layer_full`` takes it from the one ``mamba_full`` call it
+    makes anyway (the JAX package re-runs a chunked scan here)."""
+    return L.mamba_full(p, h, cfg)[1]
+
+
 def _layer_full(cfg, kind, p, x, positions, lane):
+    """One layer over the full sequence; writes its cache leaves into ``lane``
+    (when given) in place.  Returns (x, aux loss)."""
+    mixer, _, mlp_kind = kind.partition("+")
+    aux = torch.zeros((), dtype=F32, device=x.device)
     h = L.block_norm(cfg, p["norm1"], x)
-    x = x + L.attention_full(p["mixer"], h, cfg, positions, window=cfg.sliding_window)
-    if lane is not None:
-        _kv_from_full(cfg, p["mixer"], h, positions, lane)
-    h = L.block_norm(cfg, p["norm2"], x)
-    return x + L.mlp(p["mlp"], h, cfg.activation)
+    if mixer == "attn":
+        x = x + L.attention_full(p["mixer"], h, cfg, positions, window=cfg.sliding_window)
+        if lane is not None:
+            _kv_from_full(cfg, p["mixer"], h, positions, lane)
+    else:
+        out, state = L.mamba_full(p["mixer"], h, cfg)
+        x = x + out
+        if lane is not None:
+            for name, leaf in lane.items():
+                leaf.copy_(state[name])
+    if mlp_kind:
+        h = L.block_norm(cfg, p["norm2"], x)
+        if mlp_kind == "mlp":
+            x = x + L.mlp(p["mlp"], h, cfg.activation)
+        else:
+            out, aux = L.moe(p["mlp"], h, cfg)
+            x = x + out
+    return x, aux
 
 
 def forward_full(cfg: ModelConfig, params, batch: dict, capacity: int | None = None):
@@ -195,7 +273,8 @@ def forward_full(cfg: ModelConfig, params, batch: dict, capacity: int | None = N
 
     Returns (logits (B, S, V), aux_loss) or, with ``capacity``, (logits,
     aux_loss, cache), where the dense cache of ``capacity`` slots decodes from
-    position S onward.  ``aux_loss`` is 0: the ported kinds have no router.
+    position S onward.  ``aux_loss`` sums the MoE layers' load-balance losses
+    (0 without MoE).
     """
     tokens = batch["tokens"]
     B, S = tokens.shape
@@ -203,29 +282,56 @@ def forward_full(cfg: ModelConfig, params, batch: dict, capacity: int | None = N
     positions = torch.arange(S, device=dev)
     cache = None if capacity is None else init_cache(cfg, B, capacity, dev, start_pos=S)
     x = params["tok_embed"][tokens.long()]
+    aux = torch.zeros((), dtype=F32, device=dev)
     for pi in range(cfg.n_periods):
         for i, kind in enumerate(cfg.block_pattern):
             key = f"{i:02d}_{kind}"
             lane = None if cache is None else _period(cache["blocks"][key], pi)
-            x = _layer_full(cfg, kind, _period(params["blocks"][key], pi), x, positions, lane)
+            x, a = _layer_full(cfg, kind, _period(params["blocks"][key], pi), x, positions,
+                               lane)
+            aux = aux + a
     logits = _logits(cfg, params, x)
-    aux = torch.zeros((), dtype=torch.float32, device=dev)
     return (logits, aux) if cache is None else (logits, aux, cache)
 
 
 # ------------------------------------------------------------------ decode
 
-def _layer_step(cfg, kind, p, x, cache, pos, page_table):
+def _merge_state(active: torch.Tensor | None, new: dict, cache: dict) -> None:
+    """Write a recurrent layer's ``new`` state into ``cache`` in place, on
+    active lanes only (all lanes without a mask): a masked lane keeps its
+    state, since a recurrent update is destructive.  Attention KV needs no
+    merge (a masked step writes the frozen ``pos`` slot, overwritten when the
+    lane resumes)."""
+    for name, leaf in cache.items():
+        val = new[name].to(leaf.dtype)
+        if active is not None:
+            m = active.reshape(active.shape + (1,) * (val.dim() - 1))
+            val = torch.where(m, val, leaf)
+        leaf.copy_(val)
+
+
+def _mlp_step(cfg, mlp_kind, p, x):
+    if not mlp_kind:
+        return x
+    h = L.block_norm(cfg, p["norm2"], x)
+    if mlp_kind == "mlp":
+        return x + L.mlp(p["mlp"], h, cfg.activation)
+    return x + L.moe(p["mlp"], h, cfg)[0]
+
+
+def _layer_step(cfg, kind, p, x, cache, pos, page_table, active):
+    mixer, _, mlp_kind = kind.partition("+")
     h = L.block_norm(cfg, p["norm1"], x)
-    if page_table is None:
+    if mixer == "mamba":
+        out, new = L.mamba_step(p["mixer"], h, cfg, cache)
+        _merge_state(active, new, cache)
+    elif page_table is None:
         out, _, _ = L.attention_decode(p["mixer"], h, cfg, cache["k"], cache["v"], pos,
                                        window=cfg.sliding_window)
     else:
         out, _, _ = L.attention_decode_paged(p["mixer"], h, cfg, cache["k"], cache["v"],
                                              page_table, pos)
-    x = x + out
-    h = L.block_norm(cfg, p["norm2"], x)
-    return x + L.mlp(p["mlp"], h, cfg.activation)
+    return _mlp_step(cfg, mlp_kind, p, x + out)
 
 
 def decode_step(cfg: ModelConfig, params, cache: dict, tokens: torch.Tensor,
@@ -235,9 +341,11 @@ def decode_step(cfg: ModelConfig, params, cache: dict, tokens: torch.Tensor,
     updated in place.
 
     ``active``: optional (B,) bool lane mask.  Inactive lanes do not advance
-    ``pos``; their KV write lands at the frozen ``pos`` slot (their own slot
-    or page, or scratch) and is overwritten when the lane resumes.  Their
-    logits are garbage and the caller masks them.
+    ``pos`` and keep their recurrent state; their KV write lands at the
+    frozen ``pos`` slot (their own slot or page, or scratch) and is
+    overwritten when the lane resumes.  Their logits are garbage and the
+    caller masks them.  (With MoE, masked lanes still compete for expert
+    capacity, as in the JAX package.)
     """
     pos = cache["pos"]
     page_table = cache.get("page_table")
@@ -246,7 +354,7 @@ def decode_step(cfg: ModelConfig, params, cache: dict, tokens: torch.Tensor,
         for i, kind in enumerate(cfg.block_pattern):
             key = f"{i:02d}_{kind}"
             x = _layer_step(cfg, kind, _period(params["blocks"][key], pi), x,
-                            _period(cache["blocks"][key], pi), pos, page_table)
+                            _period(cache["blocks"][key], pi), pos, page_table, active)
     logits = _logits(cfg, params, x)
     cache["pos"] = pos + 1 if active is None else pos + active.to(torch.int32)
     return logits[:, 0], cache
@@ -254,27 +362,61 @@ def decode_step(cfg: ModelConfig, params, cache: dict, tokens: torch.Tensor,
 
 # ------------------------------------------------------------------ dense cache
 
+def _state_leaves(cfg: ModelConfig, lanes: int, device) -> dict:
+    """Zeroed recurrent state of one Mamba layer kind for ``lanes`` lanes."""
+    di, P = cfg.ssm_expand * cfg.d_model, cfg.n_periods
+    return {"h": torch.zeros((P, lanes, di, cfg.ssm_state_dim), dtype=F32, device=device),
+            "conv": torch.zeros((P, lanes, cfg.ssm_conv_width - 1, di),
+                                dtype=torch_dtype(cfg), device=device)}
+
+
 def init_cache(cfg: ModelConfig, batch_size: int, capacity: int, device,
                start_pos: int = 0) -> dict:
-    """Empty dense cache: ``capacity`` zeroed KV slots per lane and layer
-    (with a sliding window, the ring's size)."""
+    """Empty dense cache: ``capacity`` zeroed KV slots per lane and attention
+    layer (with a sliding window, the ring's size), zeroed recurrent state per
+    lane and Mamba layer."""
     check_ported(cfg)
     dtype = torch_dtype(cfg)
     shape = (cfg.n_periods, batch_size, capacity, cfg.n_kv_heads, cfg.hd)
-    blocks = {f"{i:02d}_{kind}": {"k": torch.zeros(shape, dtype=dtype, device=device),
-                                  "v": torch.zeros(shape, dtype=dtype, device=device)}
-              for i, kind in enumerate(cfg.block_pattern)}
+    blocks = {}
+    for i, kind in enumerate(cfg.block_pattern):
+        blocks[f"{i:02d}_{kind}"] = (
+            {"k": torch.zeros(shape, dtype=dtype, device=device),
+             "v": torch.zeros(shape, dtype=dtype, device=device)} if _paged_kind(kind)
+            else _state_leaves(cfg, batch_size, device))
     return {"pos": torch.full((batch_size,), start_pos, dtype=torch.int32, device=device),
             "blocks": blocks}
 
 
+def _recurrent_chunk(cfg, p, h, state, length):
+    """Run the one-token Mamba step over a (1, C) chunk; rows >= ``length``
+    are padding and keep the previous state.  ``state`` (a lane's leaves,
+    batch 1) is updated in place.  Returns the chunk's mixer output."""
+    outs = []
+    for j in range(h.shape[1]):
+        out, new = L.mamba_step(p, h[:, j:j + 1], cfg, state)
+        if j < length:
+            _merge_state(None, new, state)
+        outs.append(out)
+    return torch.cat(outs, dim=1)
+
+
+def _chunk_mlp(cfg, mlp_kind, p, x):
+    if mlp_kind == "moe":
+        raise ValueError("prefill_chunk: MoE layers are not chunk-safe "
+                         "(padding rows would consume expert capacity)")
+    return _mlp_step(cfg, mlp_kind, p, x)
+
+
 def _layer_chunk(cfg, kind, p, x, cache, off, length):
+    mixer, _, mlp_kind = kind.partition("+")
     h = L.block_norm(cfg, p["norm1"], x)
-    out, _, _ = L.attention_prefill_chunk(p["mixer"], h, cfg, cache["k"], cache["v"], off,
-                                          length)
-    x = x + out
-    h = L.block_norm(cfg, p["norm2"], x)
-    return x + L.mlp(p["mlp"], h, cfg.activation)
+    if mixer == "mamba":
+        out = _recurrent_chunk(cfg, p["mixer"], h, cache, length)
+    else:
+        out, _, _ = L.attention_prefill_chunk(p["mixer"], h, cfg, cache["k"], cache["v"],
+                                              off, length)
+    return _chunk_mlp(cfg, mlp_kind, p, x + out)
 
 
 def prefill_chunk(cfg: ModelConfig, params, cache: dict, tokens: torch.Tensor,
@@ -284,7 +426,8 @@ def prefill_chunk(cfg: ModelConfig, params, cache: dict, tokens: torch.Tensor,
     Rows >= ``length`` of ``tokens`` are padding.  The chunk lands at positions
     ``pos .. pos + length`` where ``pos = cache["pos"][0]`` (read on the
     device).  Updates the lane in place, advances ``pos`` by ``length`` and
-    returns it.  Linear (non-ring) lanes only (``supports_chunked_prefill``).
+    returns it.  Linear (non-ring) lanes without MoE only
+    (``supports_chunked_prefill``).
     """
     if tokens.shape[0] != 1:
         raise ValueError("prefill_chunk operates on one lane (batch 1)")
@@ -309,7 +452,8 @@ def _lane_leaves(pool: dict, lane: dict):
 def copy_prefix(pool: dict, src_slot: int, lane: dict, n: int) -> dict:
     """Implant the first ``n`` positions of pool lane ``src_slot`` into the
     batch-1 ``lane`` (radix-cache prefix reuse), in place; positions from
-    ``n`` on keep the lane's contents.  Sets ``lane["pos"] = n``."""
+    ``n`` on keep the lane's contents.  Sets ``lane["pos"] = n``.
+    Attention-only caches (``supports_prefix_reuse``)."""
     for src, dst in _lane_leaves(pool, lane):
         dst[:, 0, :n] = src[:, src_slot, :n]
     lane["pos"].fill_(n)
@@ -346,26 +490,43 @@ def concat_pools(a: dict, b: dict) -> dict:
 
 def init_paged_pool(cfg: ModelConfig, max_lanes: int, num_blocks: int, page_size: int,
                     num_pages: int, device) -> dict:
-    """Empty paged pool: zeroed block pools for every attention kind."""
+    """Empty paged pool: zeroed block pools for every attention kind, zeroed
+    dense per-lane state for every Mamba kind."""
     check_ported(cfg)
     dtype = torch_dtype(cfg)
     shape = (cfg.n_periods, num_blocks, page_size, cfg.n_kv_heads, cfg.hd)
-    blocks = {f"{i:02d}_{kind}": {"k": torch.zeros(shape, dtype=dtype, device=device),
-                                  "v": torch.zeros(shape, dtype=dtype, device=device)}
-              for i, kind in enumerate(cfg.block_pattern)}
+    blocks = {}
+    for i, kind in enumerate(cfg.block_pattern):
+        blocks[f"{i:02d}_{kind}"] = (
+            {"k": torch.zeros(shape, dtype=dtype, device=device),
+             "v": torch.zeros(shape, dtype=dtype, device=device)} if _paged_kind(kind)
+            else _state_leaves(cfg, max_lanes, device))
     return {"pos": torch.zeros((max_lanes,), dtype=torch.int32, device=device),
             "page_table": torch.zeros((max_lanes, num_pages), dtype=torch.int32,
                                       device=device),
             "blocks": blocks}
 
 
-def _layer_chunk_paged(cfg, kind, p, x, cache, pt_row, off, length):
+def _paged_blocks(pool: dict):
+    """(key, leaves) of the paged (attention) layers."""
+    return [(key, c) for key, c in pool["blocks"].items() if _paged_kind(key[3:])]
+
+
+def _state_blocks(pool: dict):
+    """(key, leaves) of the layers whose state stays dense per lane."""
+    return [(key, c) for key, c in pool["blocks"].items() if not _paged_kind(key[3:])]
+
+
+def _layer_chunk_paged(cfg, kind, p, x, cache, pt_row, slot, off, length):
+    mixer, _, mlp_kind = kind.partition("+")
     h = L.block_norm(cfg, p["norm1"], x)
-    out, _, _ = L.attention_prefill_chunk_paged(p["mixer"], h, cfg, cache["k"], cache["v"],
-                                                pt_row, off, length)
-    x = x + out
-    h = L.block_norm(cfg, p["norm2"], x)
-    return x + L.mlp(p["mlp"], h, cfg.activation)
+    if mixer == "mamba":                     # the lane's dense state row, a view
+        state = {name: leaf[slot:slot + 1] for name, leaf in cache.items()}
+        out = _recurrent_chunk(cfg, p["mixer"], h, state, length)
+    else:
+        out, _, _ = L.attention_prefill_chunk_paged(p["mixer"], h, cfg, cache["k"],
+                                                    cache["v"], pt_row, off, length)
+    return _chunk_mlp(cfg, mlp_kind, p, x + out)
 
 
 def prefill_chunk_paged(cfg: ModelConfig, params, pool: dict, slot: int,
@@ -376,7 +537,8 @@ def prefill_chunk_paged(cfg: ModelConfig, params, pool: dict, slot: int,
     ``pos[slot] .. pos[slot] + length``; ``pos[slot]`` is read on the device.
     K/V scatter to the lane's mapped blocks and queries attend through the
     gathered page view (resident prefix, possibly shared pages, plus the
-    chunk's own causal keys).  Updates the pool in place and returns it.
+    chunk's own causal keys); recurrent state updates the lane's dense row.
+    Updates the pool in place and returns it.
     """
     if tokens.shape[0] != 1:
         raise ValueError("prefill_chunk_paged operates on one lane (batch 1)")
@@ -387,7 +549,8 @@ def prefill_chunk_paged(cfg: ModelConfig, params, pool: dict, slot: int,
         for i, kind in enumerate(cfg.block_pattern):
             key = f"{i:02d}_{kind}"
             x = _layer_chunk_paged(cfg, kind, _period(params["blocks"][key], pi), x,
-                                   _period(pool["blocks"][key], pi), pt_row, off, length)
+                                   _period(pool["blocks"][key], pi), pt_row, slot, off,
+                                   length)
     pool["pos"][slot] += length
     return pool
 
@@ -411,7 +574,7 @@ def paged_set_row(pool: dict, slot: int, row) -> dict:
 
 def paged_copy_block(pool: dict, dst: int, src: int) -> dict:
     """Device-to-device copy of one physical block across every paged leaf."""
-    for c in pool["blocks"].values():
+    for _, c in _paged_blocks(pool):
         for leaf in c.values():
             leaf[:, dst] = leaf[:, src]
     return pool
@@ -426,12 +589,14 @@ def paged_gather_pages(pool: dict, blocks_idx) -> dict:
     (P, n, page_size, KV, hd) stacks (the D2D migration payload)."""
     idx = _index(pool, blocks_idx)
     return {key: {name: leaf[:, idx] for name, leaf in c.items()}
-            for key, c in pool["blocks"].items() if _paged_kind(key[3:])}
+            for key, c in _paged_blocks(pool)}
 
 
 def paged_gather_state(pool: dict, slot: int) -> dict:
-    """Lane ``slot``'s dense (non-paged) state: ``pos`` only for attention stacks."""
-    return {"pos": pool["pos"][slot:slot + 1].clone(), "blocks": {}}
+    """A batch-1 copy of lane ``slot``'s dense (non-paged) leaves and ``pos``."""
+    return {"pos": pool["pos"][slot:slot + 1].clone(),
+            "blocks": {key: {name: leaf[:, slot:slot + 1].clone() for name, leaf in c.items()}
+                       for key, c in _state_blocks(pool)}}
 
 
 def paged_scatter_pages(pool: dict, pages: dict, blocks_idx) -> dict:
@@ -443,9 +608,18 @@ def paged_scatter_pages(pool: dict, pages: dict, blocks_idx) -> dict:
     return pool
 
 
+def _write_state_row(pool: dict, blocks: dict, slot: int) -> None:
+    """Lane ``slot`` of every dense leaf <- the batch-1 leaves ``blocks``."""
+    for key, c in _state_blocks(pool):
+        for name, leaf in c.items():
+            leaf[:, slot] = torch.as_tensor(blocks[key][name][:, 0]).to(
+                device=leaf.device, dtype=leaf.dtype)
+
+
 def paged_write_state(pool: dict, state: dict, slot: int, row) -> dict:
-    """Write a lane's ``state`` (from :func:`paged_gather_state`) into lane ``slot``
-    and map its page-table row."""
+    """Write a lane's ``state`` (from :func:`paged_gather_state`, on any
+    device) into lane ``slot`` and map its page-table row."""
+    _write_state_row(pool, state["blocks"], slot)
     pool["pos"][slot] = torch.as_tensor(state["pos"]).to(pool["pos"].device)[0]
     pool["page_table"][slot] = _row(pool, row)
     return pool
@@ -454,19 +628,21 @@ def paged_write_state(pool: dict, state: dict, slot: int, row) -> dict:
 def paged_write_lane(pool: dict, lane: dict, slot: int, row, n: int) -> dict:
     """Implant a dense batch-1 ``lane`` (from any device) into the paged pool,
     in place: its first ``n`` KV positions scatter into the blocks mapped by
-    ``row`` (num_pages,), and lane ``slot`` takes its ``pos`` and ``row``.
-    Positions past ``n`` (and past the row's pages) are not written.  Serves
-    full-sequence admission and the cross-layout migration ingress."""
+    ``row`` (num_pages,), its recurrent state goes to lane ``slot``'s dense
+    rows, and lane ``slot`` takes its ``pos`` and ``row``.  Positions past
+    ``n`` (and past the row's pages) are not written.  Serves full-sequence
+    admission and the cross-layout migration ingress."""
     row_t = _row(pool, row)
     num_pages = row_t.shape[0]
     dev = pool["pos"].device
-    for key, c in pool["blocks"].items():
+    for key, c in _paged_blocks(pool):
         ps = c["k"].shape[2]
         j = torch.arange(min(n, lane["blocks"][key]["k"].shape[2], num_pages * ps), device=dev)
         blk, off = row_t[j // ps].long(), j % ps
         for name, leaf in c.items():
             src = lane["blocks"][key][name][:, 0].to(device=dev, dtype=leaf.dtype)
             leaf[:, blk, off] = src[:, j]
+    _write_state_row(pool, lane["blocks"], slot)
     pool["pos"][slot] = lane["pos"][0].to(dev)
     pool["page_table"][slot] = row_t
     return pool
@@ -476,8 +652,8 @@ def pages_to_lane(pages: dict, state: dict, capacity: int) -> dict:
     """Reassemble a dense batch-1 lane from gathered pages and lane state
     (cross-layout migration and restore): the page stacks flatten back to a
     contiguous (P, 1, capacity, KV, hd) lane, zero-padded past the resident
-    span, on the pages' device."""
-    blocks = {}
+    span, on the pages' device; the recurrent state is carried as it is."""
+    blocks = {key: dict(c) for key, c in state["blocks"].items()}
     for key, pg in pages.items():
         out = {}
         for name, x in pg.items():
@@ -493,7 +669,7 @@ def pages_to_lane(pages: dict, state: dict, capacity: int) -> dict:
 
 def grow_paged_blocks(pool: dict, extra: int) -> dict:
     """Append ``extra`` zeroed physical blocks to every paged leaf (block ids stay)."""
-    for c in pool["blocks"].values():
+    for _, c in _paged_blocks(pool):
         for name, leaf in c.items():
             pad = leaf.new_zeros((leaf.shape[0], extra) + tuple(leaf.shape[2:]))
             c[name] = torch.cat([leaf, pad], dim=1)
@@ -501,9 +677,13 @@ def grow_paged_blocks(pool: dict, extra: int) -> dict:
 
 
 def grow_paged_lanes(cfg: ModelConfig, pool: dict, extra: int) -> dict:
-    """Append ``extra`` empty lanes: ``pos`` and page-table rows grow, the block
-    pools are untouched."""
+    """Append ``extra`` empty lanes: ``pos``, page-table rows and the dense
+    per-lane state grow, the block pools are untouched."""
     pool["pos"] = torch.cat([pool["pos"], pool["pos"].new_zeros((extra,))])
     pt = pool["page_table"]
     pool["page_table"] = torch.cat([pt, pt.new_zeros((extra, pt.shape[1]))])
+    for _, c in _state_blocks(pool):
+        for name, leaf in c.items():
+            pad = leaf.new_zeros((leaf.shape[0], extra) + tuple(leaf.shape[2:]))
+            c[name] = torch.cat([leaf, pad], dim=1)
     return pool

@@ -7,7 +7,10 @@ PyTorch is installed:
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 
 Tolerances: 1e-5 in float32 (sums in another order), 2.5e-2 in bfloat16 (the
-plain version rounds probabilities to bf16 before the value product).
+plain version rounds probabilities to bf16 before the value product).  The
+selective scan is held at 1e-4 of max(1, max |reference|): both versions
+compute in f32 from the same inputs, and differ by the kernel's exp2 of a
+pre-scaled A and its fused multiply-adds, compounded over the sequence.
 """
 
 import numpy as np
@@ -18,6 +21,7 @@ from repro_torch.configs import get_config
 from repro_torch.engine.paging import check_block_conservation
 from repro_torch.engine.worker import RolloutWorker
 from repro_torch.kernels import decode_attention as kernel
+from repro_torch.kernels import mamba_scan as scan_kernel
 from repro_torch.kernels import ref
 from repro_torch.models.model import init_params
 
@@ -47,6 +51,18 @@ DENSE_SHAPES = [
     (8, 8, 2, 128, 2048),
     (4, 8, 2, 128, 8192),
 ]
+# tests/test_kernels.py's scan sweep, (B, S, di, N), plus a di that leaves a
+# ragged channel tile, N 32, and the main path's di and N at a ragged S
+SCAN_SHAPES = [
+    (2, 37, 64, 8),
+    (1, 128, 128, 16),
+    (3, 50, 96, 4),
+    (2, 33, 64, 16),
+    (2, 70, 100, 16),
+    (1, 65, 64, 32),
+    (1, 1500, 8192, 16),
+]
+SCAN_TOL = 1e-4
 
 
 def _need_cuda():
@@ -178,6 +194,53 @@ def test_cuda_dense_wrapper_raises_on_unsupported_input():
     assert kernel.launches == launches
 
 
+def _scan_inputs(shape, dtype, seed=0):
+    """dt, a_log in f32; B, C, x in ``dtype`` (the model's path: bf16)."""
+    B, S, di, N = shape
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    dt = torch.nn.functional.softplus(torch.randn((B, S, di), generator=gen, device="cuda"))
+    b_in, c_in = (0.5 * torch.randn((B, S, N), generator=gen, device="cuda") for _ in "bc")
+    x = 0.5 * torch.randn((B, S, di), generator=gen, device="cuda")
+    a_log = 0.3 * torch.randn((di, N), generator=gen, device="cuda")
+    dt_ = getattr(torch, dtype)
+    return dt, b_in.to(dt_), c_in.to(dt_), x.to(dt_), a_log
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", SCAN_SHAPES)
+def test_cuda_scan_matches_plain(shape, dtype):
+    _need_cuda()
+    args = _scan_inputs(shape, dtype)
+    before = scan_kernel.launches["mamba_scan"]
+    y, h = scan_kernel.mamba_scan(*args)
+    torch.cuda.synchronize()
+    assert scan_kernel.launches["mamba_scan"] == before + 1
+    want_y, want_h = ref.mamba_scan_ref(*args)
+    for got, want in ((y, want_y), (h, want_h)):
+        assert got.dtype == torch.float32 and got.shape == want.shape
+        limit = SCAN_TOL * max(1.0, float(want.abs().max()))
+        err = float((got - want).abs().max())
+        assert err < limit, (shape, dtype, err, limit)
+
+
+def test_cuda_scan_wrapper_raises_on_unsupported_input():
+    _need_cuda()
+    dt, b_in, c_in, x, a_log = _scan_inputs((1, 9, 64, 16), "bfloat16")
+    launches = dict(scan_kernel.launches)
+    with pytest.raises(TypeError):                 # dt must be f32
+        scan_kernel.mamba_scan(dt.bfloat16(), b_in, c_in, x, a_log)
+    with pytest.raises(TypeError):                 # x, B, C in one dtype
+        scan_kernel.mamba_scan(dt, b_in.float(), c_in, x, a_log)
+    with pytest.raises(ValueError):                # a column slice: not contiguous
+        scan_kernel.mamba_scan(dt, torch.cat([b_in, c_in], -1)[..., :16], c_in, x, a_log)
+    with pytest.raises(ValueError):                # on another device
+        scan_kernel.mamba_scan(dt, b_in, c_in, x, a_log.cpu())
+    with pytest.raises(ValueError):                # N = 12 not built
+        scan_kernel.mamba_scan(dt, b_in[..., :12].contiguous(), c_in[..., :12].contiguous(),
+                               x, a_log[:, :12].contiguous())
+    assert scan_kernel.launches == launches
+
+
 def _scenario(device, cfg, params, **plane):
     kw = dict(capacity=64, max_slots=4, page_size=8, chunk_size=8, device=device)
     kw.update(plane)
@@ -248,4 +311,30 @@ def test_cuda_dense_worker_matches_cpu_worker(window):
         assert {k: v for k, v in g.items() if k not in timing} == \
             {k: v for k, v in c.items() if k not in timing}
     assert gpu_out[-1][0] == gpu_out[-1][1]        # restored lane == its source
+    assert gpu_out == cpu_out
+
+
+@pytest.mark.parametrize("paged", [True, False], ids=["paged", "dense"])
+def test_cuda_hybrid_worker_matches_cpu_worker(paged):
+    """The reduced jamba period (7 Mamba layers, 1 attention, 4 MoE) on the
+    card and on the CPU: whole-prompt admission runs the scan kernel once per
+    Mamba layer, every decode and per-token extend step the decode kernel
+    once per attention layer; tokens and counters agree."""
+    _need_cuda()
+    cfg = get_config("jamba_v0_1_52b").reduced(n_periods=1)
+    params = init_params(cfg, seed=0, device="cpu")
+    plane = {} if paged else dict(paged=False)
+    cpu_out, cpu_stats, _ = _scenario("cpu", cfg, params, **plane)
+    launches = dict(kernel.launches)
+    scans = scan_kernel.launches["mamba_scan"]
+    gpu_out, gpu_stats, _ = _scenario("cuda", cfg, params, **plane)
+    n_mamba = sum(k.startswith("mamba") for k in cfg.block_pattern)
+    assert scan_kernel.launches["mamba_scan"] - scans == n_mamba * 2   # two admissions
+    steps = sum(s["decode_steps"] + s["absorbed_tokens"] for s in gpu_stats)
+    name = "paged_decode_attention" if paged else "decode_attention"
+    assert kernel.launches[name] - launches[name] == steps      # one attention layer
+    timing = {"decode_wall_s"}
+    for c, g in zip(cpu_stats, gpu_stats):
+        assert {k: v for k, v in g.items() if k not in timing} == \
+            {k: v for k, v in c.items() if k not in timing}
     assert gpu_out == cpu_out
