@@ -13,12 +13,16 @@ Phases (each raises on failure; any failure exits non-zero with no result line):
 3. kernels -- each kernel against its plain PyTorch version at the main
               paths' shapes, in bf16 and f32 (bf16 also relative to the
               output's size), with poisoned scratch / unmapped blocks / slots
-              past valid_len; times for the kernel, the plain version, a
-              library call computing the same function, and the bound.  The
+              past valid_len; device times (CUDA events, the stream held while
+              the host enqueues) for the kernel, the plain version, a library
+              call computing the same function, and the bound.  The
               dense kernel runs at the linear pool's shape and at the
               sliding-window ring's; the selective scan at a jamba Mamba
               layer's admission (B 1, S 2,048, di 8,192, N 16), all-f32, at
-              S 1,500 and at B 2 (no PyTorch call computes a scan).
+              S 1,500 and at B 2 (no PyTorch call computes a scan).  Each
+              decode row also logs the split the wrapper chose (n_split, L,
+              blocks), the achieved GB/s, the share of the bound and the
+              host's time to enqueue one call.
 4. slice   -- qwen3-1.7b at full width (28 layers, d_model 2048, bf16, random
               weights from a seed): two paged RolloutWorkers on the card serve
               8 requests in 2 GRPO groups (radix page sharing), decode at
@@ -99,18 +103,38 @@ def sync_ms(torch, fn):
     return out, (time.perf_counter() - t0) * 1e3
 
 
-def event_ms(torch, fn, n_iter, n_warm=3):
-    """Mean ms per call over ``n_iter`` calls, timed with CUDA events after warm-up."""
+def event_ms(torch, fn, n_iter, n_warm=3, hold=True):
+    """(mean device ms, mean host ms to enqueue) per call over ``n_iter``
+    calls, timed with CUDA events after warm-up.  With ``hold`` a spin kernel
+    keeps the stream busy while the host enqueues the calls, so that calls
+    shorter than their launch on the host are timed on the device and not at
+    the host's launch rate; the spin is made twice as long as the enqueue took
+    on the last warm-up call, and doubled until the enqueue ends inside it.
+    Without it (calls of thousands of launches) the events also take in the
+    host's gaps."""
     for i in range(n_warm):
+        t0 = time.perf_counter()
         fn(i)
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for i in range(n_iter):
-        fn(i)
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / n_iter
+        per_call_s = time.perf_counter() - t0      # the last warm-up call's
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    cycles = min(int(2 * n_iter * per_call_s * 2e9), 2_000_000_000) + 2_000_000  # ~2 GHz
+    for _ in range(6):
+        torch.cuda.synchronize()
+        if hold:
+            ev[0].record()
+            torch.cuda._sleep(cycles)
+        ev[1].record()
+        t0 = time.perf_counter()
+        for i in range(n_iter):
+            fn(i)
+        ev[2].record()
+        enqueue_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        if not hold or enqueue_ms < ev[0].elapsed_time(ev[1]):
+            return ev[1].elapsed_time(ev[2]) / n_iter, enqueue_ms / n_iter
+        cycles *= 2
+    raise RuntimeError(f"event_ms: the host took {enqueue_ms:.1f} ms to enqueue {n_iter} "
+                       f"calls, longer than the spin kernel held the stream")
 
 
 # ---------------------------------------------------------------- phase 1
@@ -225,10 +249,11 @@ def _row(name, err, ms, plain_ms, library_ms, nbytes, flops):
 def _time_three(torch, P, kernel_fn, plain_fn, library_fn):
     """CUDA-event ms of the kernel (4 passes over the P periods), the plain
     version and the library call (one pass each): every call reads another
-    period's cache, so L2 is cold as on the decode path."""
-    return (event_ms(torch, lambda i: kernel_fn(i % P), 4 * P),
-            event_ms(torch, lambda i: plain_fn(i % P), P),
-            event_ms(torch, lambda i: library_fn(i % P), P))
+    period's cache, so L2 is cold as on the decode path.  Also the host's
+    ms to enqueue one kernel call (the wrapper and the launch)."""
+    ms, host_ms = event_ms(torch, lambda i: kernel_fn(i % P), 4 * P)
+    return (ms, event_ms(torch, lambda i: plain_fn(i % P), P)[0],
+            event_ms(torch, lambda i: library_fn(i % P), P)[0], host_ms)
 
 
 def _limit(name, scale):
@@ -242,6 +267,16 @@ def _check_err(label, name, got, err, limit):
     if not finite or err > limit:
         raise AssertionError(f"{label} {name}: max |err| {err} > {limit} "
                              f"(finite={finite})")
+
+
+def _log_split(torch, kernel, label, name, B, KV, C, page_size, nbytes, row, host_ms):
+    """The split the wrapper chose for this shape on this card, the kernel's
+    achieved rate and share of its bound, and the host's time per call."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    L, n_split = kernel._split_plan(B, KV, C, page_size, sms)
+    log(f"[kernels]   {label} {name}: n_split {n_split}, L {L}, {B * KV * n_split} blocks on "
+        f"{sms} SMs; {nbytes / row['ms'] / 1e6:.1f} GB/s, {row['bound_ms'] / row['ms']:.1%} "
+        f"of the bound; the host enqueues a call in {host_ms:.4f} ms")
 
 
 def phase_kernels(torch):
@@ -264,7 +299,7 @@ def phase_kernels(torch):
                 err = max(err, float((got[-1].float() - want).abs().max()))
         limit = _limit(name, scale)
         _check_err("paged_decode_attention", name, got, err, limit)
-        ms, plain_ms, library_ms = _time_three(
+        ms, plain_ms, library_ms, host_ms = _time_three(
             torch, P, lambda i: kernel.paged_decode_attention(q[i], k[i], v[i], pt, vl),
             lambda i: ref.paged_decode_attention_ref(q[i], k[i], v[i], pt, vl),
             lambda i: _library_call(torch, q[i], k[i], v[i], pt, vl))
@@ -285,6 +320,8 @@ def phase_kernels(torch):
             f"plain {plain_ms:.4f} ms, gather+SDPA {library_ms:.4f} ms "
             f"(|err| {lib_err:.2e}); bound {row['bound_ms']:.4f} ms "
             f"({nbytes / 1e6:.1f} MB, {row['bound_by']}-bound)")
+        _log_split(torch, kernel, "paged_decode_attention", name, B, KV, num_pages * ps, ps,
+                   nbytes, row, host_ms)
         del q, k, v, kp, vp
         torch.cuda.empty_cache()
     # the dense kernel: the linear pool's shape (random lengths) and the
@@ -306,7 +343,7 @@ def phase_kernels(torch):
                     err = max(err, float((got[-1].float() - want).abs().max()))
             limit = _limit(name, scale)
             _check_err(label, name, got, err, limit)
-            ms, plain_ms, library_ms = _time_three(
+            ms, plain_ms, library_ms, host_ms = _time_three(
                 torch, P, lambda i: kernel.decode_attention(q[i], k[i], v[i], vl),
                 lambda i: ref.decode_attention_ref(q[i], k[i], v[i], vl),
                 lambda i: _dense_library_call(torch, q[i], k[i], v[i], vl))
@@ -323,6 +360,7 @@ def phase_kernels(torch):
                 f"max|ref| {scale:.3e}, poisoned past valid_len); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
                 f"SDPA {library_ms:.4f} ms (|err| {lib_err:.2e}); bound "
                 f"{row['bound_ms']:.4f} ms ({nbytes / 1e6:.1f} MB, {row['bound_by']}-bound)")
+            _log_split(torch, kernel, label, name, B, KV, C, 1, nbytes, row, host_ms)
             del q, k, v, kp, vp
             torch.cuda.empty_cache()
     rows["mamba_scan"] = _scan_rows(torch, gen)
@@ -376,8 +414,9 @@ def _scan_rows(torch, gen):
         msg = (f"[kernels] mamba_scan {label}: B={B} S={S} di={di} N={N}, dt f32, x/B/C "
                f"{name}; {', '.join(errs)}")
         if label in ("main", "f32"):
-            ms = event_ms(torch, lambda i: scan_kernel.mamba_scan(*args), 20)
-            plain_ms = event_ms(torch, lambda i: ref.mamba_scan_ref(*args), 2, n_warm=1)
+            ms = event_ms(torch, lambda i: scan_kernel.mamba_scan(*args), 20)[0]
+            plain_ms = event_ms(torch, lambda i: ref.mamba_scan_ref(*args), 2, n_warm=1,
+                                hold=False)[0]
             rows[name] = {"max_abs_err": float(max((g - w).abs().max()
                                                    for g, w in zip(got, want))),
                           "ms": ms, "plain_ms": plain_ms, "library_ms": None,

@@ -11,9 +11,22 @@ the port's one kernel library (``build.py``) and are called through
 On CPU tensors a wrapper returns the plain version (``ref.py``); on CUDA
 tensors it launches its kernel or raises.  ``launches[name]`` counts each
 kernel's launches, and nothing else.
+
+Each call is one launch, split over the sequence: ``_split_plan`` cuts a
+lane's C token slots into ``n_split`` pieces of L tokens from the shapes
+alone (``valid_len`` is read on neither host nor device), one block per
+(lane, KV head, piece).  The pieces' partial softmax states go to an f32
+workspace taken from PyTorch's caching allocator for the call; the last
+piece of a (lane, KV head) to finish merges them, found through an int32
+counter that the kernel leaves at 0.  A counter buffer belongs to one stream
+of one device (``_counter_buffer``): two launches in flight on one buffer
+at once would share counts.  Nothing here synchronises, so a call can be
+captured in a CUDA graph.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -25,6 +38,35 @@ launches = {"paged_decode_attention": 0, "decode_attention": 0}
 _SUFFIX = {torch.bfloat16: "bf16", torch.float32: "f32"}
 # (G, hd) as built: REPRO_DECODE_SHAPES in csrc/decode_attention.cuh
 _SUPPORTED = {(g, hd) for g in range(1, 9) for hd in (64, 128, 256) if g * hd <= 1024}
+MAX_SPLITS = 64                       # kMaxSplits in csrc/decode_attention.cuh
+_counters: dict[tuple[int, int], torch.Tensor] = {}   # (device index, stream) -> int32 counts
+
+
+def _split_plan(B: int, KV: int, C: int, page_size: int, sms: int) -> tuple[int, int]:
+    """(L, n_split) for B x KV heads over C token slots (C = num_pages *
+    page_size for the paged kernel, page_size 1 for the dense one) on
+    ``sms`` SMs: about four blocks an SM, at least 64 tokens a piece, at most
+    ``MAX_SPLITS`` pieces, L a multiple of 64 and of page_size.  Pieces
+    [s * L, min((s + 1) * L, C)) for s < n_split cover each slot once."""
+    C = max(C, 1)
+    n = max(1, min(_cdiv(4 * sms, max(B * KV, 1)), _cdiv(C, 64), MAX_SPLITS))
+    step = math.lcm(64, page_size)
+    L = _cdiv(_cdiv(C, n), step) * step
+    return L, _cdiv(C, L)
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _counter_buffer(device: torch.device, stream: torch.cuda.Stream, n: int) -> torch.Tensor:
+    """The int32 counters of ``stream`` on ``device``, at least ``n`` of them:
+    zeroed on that stream when made or grown, kept at 0 by the kernels."""
+    key = (device.index, stream.cuda_stream)
+    buf = _counters.get(key)
+    if buf is None or buf.numel() < n:
+        buf = _counters[key] = torch.zeros(n, dtype=torch.int32, device=device)
+    return buf
 
 
 def _check(name: str, q, kv: tuple, ints: dict) -> None:
@@ -52,14 +94,28 @@ def _check(name: str, q, kv: tuple, ints: dict) -> None:
     for n, t in {"q": q, **tensors}.items():
         if not t.is_contiguous():
             raise ValueError(f"{name}: {n} must be contiguous (strides {t.stride()})")
+    for n, t in zip("kv", kv):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: {n} is not 16-byte aligned (the kernel's row loads)")
 
 
-def _launch(name: str, q: torch.Tensor, ptrs: list, ints: list) -> torch.Tensor:
+def _launch(name: str, q: torch.Tensor, ptrs: list, ints: list, C: int,
+            page_size: int) -> torch.Tensor:
+    """One launch over ``ptrs`` (the inputs) and ``ints``, split over the C
+    token slots (a multiple of ``page_size``) as ``_split_plan`` says."""
+    B, KV, G, hd = q.shape
     out = torch.empty_like(q)
-    fn = KERNELS.function(f"{name}_{_SUFFIX[q.dtype]}", len(ptrs) + 1, len(ints))
+    fn = KERNELS.function(f"{name}_{_SUFFIX[q.dtype]}", len(ptrs) + 3, len(ints) + 2)
     with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(*(t.data_ptr() for t in ptrs), out.data_ptr(), *ints, stream)
+        stream = torch.cuda.current_stream(q.device)
+        sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+        L, n_split = _split_plan(B, KV, C, page_size, sms)
+        ws = (torch.empty(B * KV * n_split * G * (hd + 2), dtype=torch.float32,
+                          device=q.device) if n_split > 1 else None)
+        counters = _counter_buffer(q.device, stream, B * KV)
+        err = fn(*(t.data_ptr() for t in ptrs), out.data_ptr(),
+                 None if ws is None else ws.data_ptr(), counters.data_ptr(), *ints, L, n_split,
+                 stream.cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
     launches[name] += 1
@@ -87,8 +143,9 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.
     B, KV, G, hd = q.shape
     if page_table.dim() != 2 or page_table.shape[0] != B or valid_len.shape != (B,):
         raise ValueError(f"{name}: page_table (B,num_pages) / valid_len (B,) do not match q")
+    num_pages, ps = page_table.shape[1], k_pool.shape[1]
     return _launch(name, q, [q, k_pool, v_pool, page_table, valid_len],
-                   [B, KV, G, hd, page_table.shape[1], k_pool.shape[1]])
+                   [B, KV, G, hd, num_pages, ps], num_pages * ps, ps)
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -103,4 +160,4 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     B, KV, G, hd = q.shape
     if k.shape[0] != B or valid_len.shape != (B,):
         raise ValueError(f"{name}: k (B,C,KV,hd) / valid_len (B,) do not match q")
-    return _launch(name, q, [q, k, v, valid_len], [B, KV, G, hd, k.shape[1]])
+    return _launch(name, q, [q, k, v, valid_len], [B, KV, G, hd, k.shape[1]], k.shape[1], 1)

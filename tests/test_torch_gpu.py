@@ -27,6 +27,15 @@ from repro_torch.models.model import init_params
 
 pytestmark = pytest.mark.gpu
 TOL = {"float32": 1e-5, "bfloat16": 2.5e-2}
+BF16_REL = 2e-2     # the split cases also hold bf16 to this share of max |plain|
+
+
+def _split_limit(dtype, want):
+    """TOL, and in bf16 also relative to the output's size, as chip_smoke.py
+    holds it: outputs averaged over thousands of tokens are small."""
+    if dtype == "float32":
+        return TOL[dtype]
+    return min(TOL[dtype], BF16_REL * float(want.float().abs().max()))
 SHAPES = [
     # (B, KV, G, hd, page_size, num_pages)
     (2, 2, 2, 64, 16, 4),
@@ -70,7 +79,7 @@ def _need_cuda():
         pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
 
 
-def _inputs(shape, dtype, seed=0, poison=False):
+def _inputs(shape, dtype, seed=0, poison=False, lengths=None):
     B, KV, G, hd, ps, num_pages = shape
     NB = B * num_pages + 1
     rng = np.random.default_rng(seed)
@@ -79,6 +88,8 @@ def _inputs(shape, dtype, seed=0, poison=False):
     v = rng.standard_normal((NB, ps, KV, hd), np.float32)
     pt = np.zeros((B, num_pages), np.int32)
     vl = rng.integers(1, num_pages * ps + 1, B).astype(np.int32)
+    if lengths is not None:
+        vl = np.asarray(lengths, np.int32)
     free = rng.permutation(np.arange(1, NB))       # no block mapped by two lanes
     for b in range(B):
         used = -(-int(vl[b]) // ps)
@@ -136,13 +147,15 @@ def test_cuda_wrapper_raises_on_unsupported_input():
     assert kernel.launches == launches
 
 
-def _dense_inputs(shape, dtype, seed=0, poison=False):
+def _dense_inputs(shape, dtype, seed=0, poison=False, lengths=None):
     B, KV, G, hd, C = shape
     rng = np.random.default_rng(seed)
     q = rng.standard_normal((B, KV, G, hd), np.float32)
     k = rng.standard_normal((B, C, KV, hd), np.float32)
     v = rng.standard_normal((B, C, KV, hd), np.float32)
     vl = rng.integers(1, C + 1, B).astype(np.int32)
+    if lengths is not None:
+        vl = np.asarray(lengths, np.int32)
     if poison:                                     # slots past valid_len: ±99
         for b in range(B):
             k[b, vl[b]:], v[b, vl[b]:] = 99.0, -99.0
@@ -192,6 +205,123 @@ def test_cuda_dense_wrapper_raises_on_unsupported_input():
                                 torch.zeros((1, 8, 1, 256), device="cuda"),
                                 torch.zeros((1, 8, 1, 256), device="cuda"), vl[:1])
     assert kernel.launches == launches
+
+
+# The split over the sequence at the main paths' shapes: every lane at one
+# length that ends one token into the first piece, on either side of the first
+# piece's end, or at C (most pieces empty, or a piece ending on a page or tile
+# boundary).  L is the wrapper's piece length on this card.
+SPLIT_SHAPES = {
+    "paged": (8, 8, 2, 128, 16, 128),   # (B, KV, G, hd, page_size, num_pages)
+    "dense": (8, 8, 2, 128, 2048),      # (B, KV, G, hd, C)
+    "ring": (4, 8, 2, 128, 8192),
+}
+SPLIT_LENGTHS = ["1", "L-1", "L", "L+1", "C"]
+
+
+def _split_call(kind, dtype, lengths, poison, seed=5):
+    """(kernel output, plain output, launches of the call) for SPLIT_SHAPES[kind]."""
+    shape = SPLIT_SHAPES[kind]
+    name = "paged_decode_attention" if kind == "paged" else "decode_attention"
+    if kind == "paged":
+        args = _inputs(shape, dtype, seed=seed, poison=poison, lengths=lengths)
+        fn, plain = kernel.paged_decode_attention, ref.paged_decode_attention_ref
+    else:
+        args = _dense_inputs(shape, dtype, seed=seed, poison=poison, lengths=lengths)
+        fn, plain = kernel.decode_attention, ref.decode_attention_ref
+    before = kernel.launches[name]
+    out = fn(*args)
+    torch.cuda.synchronize()
+    return out, plain(*args), kernel.launches[name] - before
+
+
+def _split_plan(kind):
+    B, KV = SPLIT_SHAPES[kind][:2]
+    C, ps = ((SPLIT_SHAPES[kind][4] * SPLIT_SHAPES[kind][5], SPLIT_SHAPES[kind][4])
+             if kind == "paged" else (SPLIT_SHAPES[kind][4], 1))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return kernel._split_plan(B, KV, C, ps, sms), C
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("length", SPLIT_LENGTHS)
+@pytest.mark.parametrize("kind", list(SPLIT_SHAPES))
+def test_cuda_split_edges_match_plain(kind, length, dtype):
+    """Both kernels at the split's edges, on clean and poisoned caches (the
+    slots past valid_len, and for the paged kernel scratch and unmapped
+    blocks, hold +-77 or +-99): one launch a call, within ``_split_limit``
+    of the plain version."""
+    _need_cuda()
+    (L, n_split), C = _split_plan(kind)
+    assert n_split > 1
+    n = {"1": 1, "L-1": L - 1, "L": L, "L+1": L + 1, "C": C}[length]
+    lengths = [n] * SPLIT_SHAPES[kind][0]
+    for poison in (False, True):
+        out, want, launched = _split_call(kind, dtype, lengths, poison)
+        assert launched == 1
+        err = float((out.float() - want.float()).abs().max())
+        assert err < _split_limit(dtype, want), (kind, length, dtype, poison, err)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_split_single_page_lanes_match_plain(dtype):
+    """Paged lanes of one page: a pool of one-page lanes (one piece), and at
+    the main shape lanes of one page beside lanes across pieces."""
+    _need_cuda()
+    (L, _), C = _split_plan("paged")
+    ps = SPLIT_SHAPES["paged"][4]
+    for shape, lengths in (((3, 2, 4, 64, 16, 1), [1, 16, 9]),
+                           (SPLIT_SHAPES["paged"], [ps, 1, C, ps + 1, L, L - 1, L + 1, 2 * ps])):
+        for poison in (False, True):
+            args = _inputs(shape, dtype, seed=6, poison=poison, lengths=lengths)
+            before = kernel.launches["paged_decode_attention"]
+            out = kernel.paged_decode_attention(*args)
+            torch.cuda.synchronize()
+            assert kernel.launches["paged_decode_attention"] == before + 1
+            want = ref.paged_decode_attention_ref(*args)
+            err = float((out.float() - want.float()).abs().max())
+            assert err < _split_limit(dtype, want), (shape, dtype, poison, err)
+
+
+def test_cuda_split_counters_reset_and_grow():
+    """Three split calls in a row on each kernel leave the stream's counters
+    at 0; a call with more (lane, KV head) pairs than the buffer holds grows
+    it, and is right."""
+    _need_cuda()
+    key = (torch.cuda.current_device(), torch.cuda.current_stream().cuda_stream)
+    calls = [(kernel.decode_attention, ref.decode_attention_ref, "decode_attention",
+              _dense_inputs((2, 2, 2, 128, 1024), "float32", seed=s)) for s in range(3)]
+    calls += [(kernel.paged_decode_attention, ref.paged_decode_attention_ref,
+               "paged_decode_attention", _inputs((2, 2, 2, 128, 16, 64), "float32", seed=s))
+              for s in range(3)]
+    for fn, plain, name, args in calls:
+        before = kernel.launches[name]
+        out = fn(*args)
+        torch.cuda.synchronize()
+        assert kernel.launches[name] == before + 1
+        assert float((out - plain(*args)).abs().max()) < TOL["float32"]
+        assert int(kernel._counters[key].abs().sum()) == 0
+    n0 = kernel._counters[key].numel()
+    KV = 2
+    B = n0 // KV + 1                               # B * KV > n0
+    args = _dense_inputs((B, KV, 1, 64, 256), "float32", seed=7)
+    out = kernel.decode_attention(*args)
+    torch.cuda.synchronize()
+    assert kernel._counters[key].numel() >= B * KV > n0
+    assert int(kernel._counters[key].abs().sum()) == 0
+    assert float((out - ref.decode_attention_ref(*args)).abs().max()) < TOL["float32"]
+
+
+def test_cuda_empty_batch_returns_empty():
+    """No lanes: each kernel returns an empty (0, KV, G, hd) output, though
+    the plan splits the (absent) lanes' slots."""
+    _need_cuda()
+    q, k, v, vl = _dense_inputs((1, 2, 2, 128, 512), "bfloat16")
+    out = kernel.decode_attention(q[:0], k[:0], v[:0], vl[:0])
+    q, k, v, pt, vl = _inputs((1, 2, 2, 128, 16, 32), "bfloat16")
+    paged = kernel.paged_decode_attention(q[:0], k, v, pt[:0], vl[:0])
+    torch.cuda.synchronize()
+    assert out.shape == paged.shape == (0, 2, 2, 128)
 
 
 def _scan_inputs(shape, dtype, seed=0):
