@@ -19,7 +19,8 @@ Phases (each raises on failure; any failure exits non-zero with no result line):
               dense kernel runs at the linear pool's shape and at the
               sliding-window ring's; the selective scan at a jamba Mamba
               layer's admission (B 1, S 2,048, di 8,192, N 16), all-f32, at
-              S 1,500 and at B 2 (no PyTorch call computes a scan).  Each
+              S 1,500 and at B 2 (no PyTorch call computes a scan), with
+              the copy widths its wrapper chose.  Each
               decode row also logs the split the wrapper chose (n_split, L,
               blocks), the achieved GB/s, the share of the bound and the
               host's time to enqueue one call.
@@ -166,7 +167,7 @@ def phase_build():
             entry = line
         if any(int(n) for n in re.findall(r"(\d+) bytes spill", line)):
             log(f"[build]   {line.strip()}")       # instantiations that spill
-        if "registers" in line and "mamba_scan_kernel" in entry:
+        if "registers" in line and "mamba_scan_kernel" in entry:   # <T, N>
             log(f"[build]   mamba_scan_kernel<{re.search(r'kernelI(.*?)EEEv', entry).group(1)}>: "
                 f"{line.split(':', 1)[1].strip()}")
 
@@ -381,26 +382,36 @@ def _scan_bound(B, S, di, N, item):
     return bound, "bytes" if times["bytes"] >= bound else "operations", nbytes, times
 
 
+SCAN_SHAPES = (("main", 1, 2048, "bfloat16"), ("f32", 1, 2048, "float32"),
+               ("ragged S", 1, 1500, "bfloat16"), ("B 2", 2, 2048, "bfloat16"))
+
+
+def _scan_inputs(torch, gen, B, S, name):
+    """A jamba Mamba layer's scan inputs (di 8,192, N 16, the model's A_log):
+    dt f32, x/B/C in ``name``."""
+    import torch.nn.functional as F
+    dtype = getattr(torch, name)
+    di, N = 8192, 16
+    a_log = torch.log(torch.arange(1, N + 1, dtype=torch.float32, device="cuda")
+                      ).expand(di, N).contiguous()
+    dt = F.softplus(torch.randn((B, S, di), generator=gen, device="cuda"))
+    b_in, c_in = (0.5 * torch.randn((B, S, N), generator=gen, device="cuda") for _ in "bc")
+    x = 0.5 * torch.randn((B, S, di), generator=gen, device="cuda")
+    return dt, b_in.to(dtype), c_in.to(dtype), x.to(dtype), a_log
+
+
 def _scan_rows(torch, gen):
     """The scan kernel against its plain version: the main path's shape (one
     2,048-token admission of a jamba Mamba layer: B 1, di 8,192, N 16; dt
     f32, x/B/C bf16), all-f32, a ragged S of 1,500 and B 2.  The plain
-    version launches ~10 ops per time step, so it is timed over 2 calls."""
+    version launches ~10 ops per time step, so it is timed over 2 calls.
+    Each row logs the copy widths of the checked launch."""
     from repro_torch.kernels import mamba_scan as scan_kernel
     from repro_torch.kernels import ref
-    import torch.nn.functional as F
     di, N = 8192, 16
-    a_log = torch.log(torch.arange(1, N + 1, dtype=torch.float32, device="cuda")
-                      ).expand(di, N).contiguous()           # the model's A_log
     rows = {}
-    for label, B, S, name in (("main", 1, 2048, "bfloat16"), ("f32", 1, 2048, "float32"),
-                              ("ragged S", 1, 1500, "bfloat16"), ("B 2", 2, 2048, "bfloat16")):
-        dtype = getattr(torch, name)
-        dt = F.softplus(torch.randn((B, S, di), generator=gen, device="cuda"))
-        b_in, c_in = (0.5 * torch.randn((B, S, N), generator=gen, device="cuda")
-                      for _ in "bc")
-        x = 0.5 * torch.randn((B, S, di), generator=gen, device="cuda")
-        args = (dt, b_in.to(dtype), c_in.to(dtype), x.to(dtype), a_log)
+    for label, B, S, name in SCAN_SHAPES:
+        args = _scan_inputs(torch, gen, B, S, name)
         got = scan_kernel.mamba_scan(*args)
         torch.cuda.synchronize()
         want = ref.mamba_scan_ref(*args)
@@ -421,13 +432,15 @@ def _scan_rows(torch, gen):
                                                    for g, w in zip(got, want))),
                           "ms": ms, "plain_ms": plain_ms, "library_ms": None,
                           "bound_ms": bound, "bound_by": bound_by}
-            msg += (f"; kernel {ms:.4f} ms, plain {plain_ms:.2f} ms, library none (no "
-                    f"PyTorch call computes a selective scan); bound {bound:.4f} ms "
-                    f"({bound_by}: bytes {nbytes / 1e6:.1f} MB {times['bytes']:.4f} ms, "
-                    f"{B * S * di * N / 1e6:.1f} M exp2 on the SFUs {times['exp']:.4f} ms, "
-                    f"f32 ops {times['flops']:.4f} ms)")
-        log(msg)
-        del dt, b_in, c_in, x, args, got, want
+            msg += (f"; kernel {ms:.4f} ms ({bound / ms:.1%} of the bound), plain "
+                    f"{plain_ms:.2f} ms, library none (no PyTorch call computes a selective "
+                    f"scan); bound {bound:.4f} ms ({bound_by}: bytes {nbytes / 1e6:.1f} MB "
+                    f"{times['bytes']:.4f} ms, {B * S * di * N / 1e6:.1f} M exp2 on the SFUs "
+                    f"{times['exp']:.4f} ms, f32 ops {times['flops']:.4f} ms)")
+        plan = scan_kernel._scan_plan(S, di, N, args[1].element_size(),
+                                      [t.data_ptr() for t in (*args[:4], got[0])])
+        log(msg + "; copy widths " + ", ".join(f"{k} {plan[k]}" for k in scan_kernel.PLAN_KEYS))
+        del args, got, want
     torch.cuda.empty_cache()
     return rows
 

@@ -61,7 +61,10 @@ DENSE_SHAPES = [
     (4, 8, 2, 128, 8192),
 ]
 # tests/test_kernels.py's scan sweep, (B, S, di, N), plus a di that leaves a
-# ragged channel tile, N 32, and the main path's di and N at a ragged S
+# ragged channel tile, N 32, and the main path's di and N at a ragged S; then
+# the edges of the kernel's tile ring (64-step tiles, 3 in the ring): S of 0,
+# 1, 63, 64, 65, 191 and 193, di of 98 and 101 (odd: bf16 rows staged with
+# plain loads) and the main di 8,192 at the main S, N of 4, 8, 16 and 32
 SCAN_SHAPES = [
     (2, 37, 64, 8),
     (1, 128, 128, 16),
@@ -70,6 +73,14 @@ SCAN_SHAPES = [
     (2, 70, 100, 16),
     (1, 65, 64, 32),
     (1, 1500, 8192, 16),
+    (2, 0, 98, 16),
+    (1, 1, 101, 8),
+    (2, 63, 98, 4),
+    (1, 64, 101, 32),
+    (3, 65, 98, 16),
+    (2, 191, 101, 16),
+    (1, 193, 98, 32),
+    (1, 2048, 8192, 16),
 ]
 SCAN_TOL = 1e-4
 
@@ -345,12 +356,60 @@ def test_cuda_scan_matches_plain(shape, dtype):
     y, h = scan_kernel.mamba_scan(*args)
     torch.cuda.synchronize()
     assert scan_kernel.launches["mamba_scan"] == before + 1
+    _check_scan(y, h, args, (shape, dtype))
+
+
+def _check_scan(y, h, args, label):
     want_y, want_h = ref.mamba_scan_ref(*args)
     for got, want in ((y, want_y), (h, want_h)):
         assert got.dtype == torch.float32 and got.shape == want.shape
-        limit = SCAN_TOL * max(1.0, float(want.abs().max()))
-        err = float((got - want).abs().max())
-        assert err < limit, (shape, dtype, err, limit)
+        assert bool(got.isfinite().all()), label
+        if want.numel():
+            limit = SCAN_TOL * max(1.0, float(want.abs().max()))
+            err = float((got - want).abs().max())
+            assert err < limit, (label, err, limit)
+
+
+def _offset(t, n):
+    """A contiguous copy of t that starts n elements into a fresh buffer."""
+    buf = torch.empty(t.numel() + n, dtype=t.dtype, device=t.device)
+    out = buf[n:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n", [1, 2, 3])
+def test_cuda_scan_unaligned_inputs_match_plain(n, dtype):
+    """Inputs that start 1-3 elements into their buffers: narrower copies, and
+    in bf16 plain loads (2-byte aligned rows), as the plan says."""
+    _need_cuda()
+    args = _scan_inputs((2, 130, 96, 16), dtype)
+    args = tuple(_offset(t, n) for t in args[:4]) + args[4:]
+    y, h = scan_kernel.mamba_scan(*args)
+    torch.cuda.synchronize()
+    widths = scan_kernel._scan_plan(130, 96, 16, args[1].element_size(),
+                                    [t.data_ptr() for t in (*args[:4], y)])
+    assert widths["w_x"] < 16 and widths["w_b"] < 16
+    _check_scan(y, h, args, (n, dtype))
+
+
+def test_cuda_scan_refuses_a_copy_wider_than_the_alignment():
+    """The source launches nothing when a copy width passed in does not
+    divide its operand's address and row stride."""
+    from repro_torch.kernels.build import KERNELS
+    _need_cuda()
+    B, S, di, N = 1, 9, 64, 16
+    dt, b_in, c_in, x, a_log = _scan_inputs((B, S, di, N), "bfloat16")
+    x = _offset(x, 1)                                # 2 bytes into its buffer
+    y = torch.zeros((B, S, di), device="cuda")
+    h = torch.zeros((B, di, N), device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    err = KERNELS.function("mamba_scan_bf16", 7, 9)(
+        *(t.data_ptr() for t in (dt, b_in, c_in, x, a_log, y, h)), B, S, di, N,
+        16, 16, 16, 16, 16, stream)
+    torch.cuda.synchronize()
+    assert err != 0 and not y.any() and not h.any()
 
 
 def test_cuda_scan_wrapper_raises_on_unsupported_input():

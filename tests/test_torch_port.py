@@ -1,6 +1,7 @@
 """Ground rules of the port that hold for every file of it.
 
-The port and chip_smoke.py import PyTorch and never JAX or the JAX package
+The port and the scripts that run it on the card (chip_smoke.py,
+tools/decode_timers.py) import PyTorch and never JAX or the JAX package
 (``repro``); the port keeps its own copy of what it needs.
 """
 
@@ -10,7 +11,8 @@ from pathlib import Path
 import pytest
 
 REPO = Path(__file__).resolve().parents[1]
-FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [REPO / "chip_smoke.py",
+                                                                 REPO / "tools" / "decode_timers.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 

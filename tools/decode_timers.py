@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Time the decode-attention kernels of several checkouts on one GPU, each with
-three yardsticks, so that two versions are compared under the same clocks.
+"""Time the decode-attention and selective-scan kernels of several checkouts on
+one GPU, each with three yardsticks, so that two versions are compared under
+the same clocks.
 
     python3 tools/decode_timers.py --tree parent=PATH --tree change=. \
         --order parent,change,change,parent [--out FILE]
@@ -10,7 +11,8 @@ the order given (its kernels build into that checkout's ``build/``).  The
 inputs are those of ``chip_smoke.py`` phase 3 (its seed, shapes and 28
 periods, drawn in its order): the paged kernel at B 8, 128 pages of 16, and
 the dense kernel at B 8, C 2,048 and at the ring's B 4, C 8,192, in bf16 and
-f32.  This script's own code (and ``chip_smoke.py`` beside it) makes the
+f32; the selective scan at one jamba admission (B 1, S 2,048, di 8,192, N
+16; x/B/C bf16, then f32: phase 3's two timed rows).  This script's own code (and ``chip_smoke.py`` beside it) makes the
 inputs and times the calls, so every checkout is held to one yardstick:
 
 - ``held``: CUDA events while a spin kernel holds the stream as the host
@@ -21,7 +23,8 @@ inputs and times the calls, so every checkout is held to one yardstick:
   as ``chip_smoke.py`` phases 6 and 7 read it.
 
 Beside them: the host's ms to enqueue one kernel call, and the library call
-(gather + SDPA for the paged kernel, SDPA for the dense one) held and unheld.
+(gather + SDPA for the paged kernel, SDPA for the dense one; none for the
+scan) held and unheld.
 Prints a table, then the card's name and power limit, then one JSON object
 of every run as the last line (also written to ``--out``).  Exits non-zero
 without a CUDA device.
@@ -40,40 +43,45 @@ FIELDS = ("held_ms", "unheld_ms", "profiler_ms", "host_ms", "library_held_ms",
           "library_unheld_ms")
 
 
-def _profiled_ms(torch, fn, n_iter, kernel_name):
+def _profiled_ms(torch, fn, n_iter, kernel_name, tries=3):
     """Mean device ms per launch of the kernels named ``kernel_name`` over
-    ``n_iter`` calls under torch.profiler, after warm-up."""
+    ``n_iter`` calls under torch.profiler, after warm-up.  The profiler can
+    drop device events from a window (it once reported 93 of 112 launches on
+    the H100); such a window is profiled again, up to ``tries`` times."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     for i in range(3):
         fn(i)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for i in range(n_iter):
-            fn(i)
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA and kernel_name in e.key]
-    count = sum(e.count for e in events)
-    if count != n_iter:
-        raise RuntimeError(f"torch.profiler saw {count} launches of {kernel_name}, "
-                           f"not {n_iter}")
-    return sum(e.self_device_time_total for e in events) / 1e3 / count
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for i in range(n_iter):
+                fn(i)
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA and kernel_name in e.key]
+        count = sum(e.count for e in events)
+        if count == n_iter:
+            return sum(e.self_device_time_total for e in events) / 1e3 / count
+        print(f"decode_timers: torch.profiler saw {count} launches of {kernel_name}, not "
+              f"{n_iter}; profiling again", file=sys.stderr, flush=True)
+    raise RuntimeError(f"torch.profiler saw {count} launches of {kernel_name}, not {n_iter}, "
+                       f"in {tries} windows")
 
 
 def _row(torch, cs, P, kernel_name, kernel_fn, plain_fn, library_fn):
     """One shape: the kernel's max |err| against its plain version on period
     0, then the three yardsticks over 4 passes of the P periods (the library
-    call: one pass), each call on another period's cache."""
+    call, where there is one: one pass), each call on another period's
+    inputs."""
     err = float((kernel_fn(0).float() - plain_fn(0).float()).abs().max())
     held, host = cs.event_ms(torch, lambda i: kernel_fn(i % P), 4 * P)
+    lib = (lambda hold: cs.event_ms(torch, lambda i: library_fn(i % P), P, hold=hold)[0]
+           if library_fn else None)
     return {"max_abs_err": err, "held_ms": held,
             "unheld_ms": cs.event_ms(torch, lambda i: kernel_fn(i % P), 4 * P, hold=False)[0],
             "profiler_ms": _profiled_ms(torch, lambda i: kernel_fn(i % P), 4 * P, kernel_name),
-            "host_ms": host,
-            "library_held_ms": cs.event_ms(torch, lambda i: library_fn(i % P), P)[0],
-            "library_unheld_ms": cs.event_ms(torch, lambda i: library_fn(i % P), P,
-                                             hold=False)[0]}
+            "host_ms": host, "library_held_ms": lib(True), "library_unheld_ms": lib(False)}
 
 
 def worker(tree: Path) -> dict:
@@ -115,6 +123,14 @@ def worker(tree: Path) -> dict:
                 lambda i: cs._dense_library_call(torch, q[i], k[i], v[i], vl))
             del q, k, v
             torch.cuda.empty_cache()
+    from repro_torch.kernels import mamba_scan as scan
+    for label, B, S, name in cs.SCAN_SHAPES[:2]:
+        args = cs._scan_inputs(torch, gen, B, S, name)     # one input: 5 calls a pass
+        rows[f"scan {name}"] = _row(
+            torch, cs, 5, "mamba_scan_kernel", lambda i: scan.mamba_scan(*args)[0],
+            lambda i: ref.mamba_scan_ref(*args)[0], None)
+        del args
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -147,7 +163,8 @@ def main() -> int:
         print(f"run {len(runs)}: {name} ({trees[name]})")
         print(f"  {'row':18s} " + " ".join(f"{f:>17s}" for f in (*FIELDS, "max_abs_err")))
         for row, r in rows.items():
-            print(f"  {row:18s} " + " ".join(f"{r[f]:17.6f}" for f in FIELDS)
+            print(f"  {row:18s} " + " ".join(f"{r[f]:17.6f}" if r[f] is not None
+                                               else f"{'none':>17s}" for f in FIELDS)
                   + f" {r['max_abs_err']:17.3e}", flush=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
