@@ -60,6 +60,25 @@ Phases (each raises on failure; any failure exits non-zero with no result line):
               forcing, on the paged plane and on a sliding-window ring; the
               reduced jamba period the same way after a whole-prompt
               admission, its Mamba state card vs CPU.
+9. runtime -- the control plane over the port's workers: qwen3-1.7b at full
+              width, two RolloutWorkers on the card driven by the orchestrator
+              through EngineBackend on the reference trace harness's workload
+              (24 trajectories, 448 planned tokens; pps, migration, 2 active
+              lanes a worker, quantum 8, an infinite link, the sanitizer on),
+              each run's decision trace and makespan held to the sim's: the
+              paged plane (preemptions and migrations must occur), the dense
+              plane (paged=False, migration off, under torch.profiler), and
+              the paged plane under a chaos plan (a worker death and revival,
+              injected tool faults, checkpoints persisted to a temporary
+              directory and loaded back).  The decode kernels' counts are
+              zeroed before each run and read after it.  The inputs of every
+              2,500th decode-kernel call of each run are kept, and after the
+              run the kernel is held to its plain version on them (the cache
+              also poisoned wherever no lane reads), and on drawn inputs at
+              the runtime's shapes whose lengths fill every piece of the
+              split, the ragged last one too.  Then the serve CLI
+              (python -m repro_torch.launch.serve) runs as a process of its
+              own, with no --device flag: on the card.
 
 float32 matrix products run in full float32: TF32 is switched off for matmuls
 and cuDNN.  The next-to-last line is one JSON object describing each kernel;
@@ -173,31 +192,22 @@ def phase_build():
 
 
 # ---------------------------------------------------------------- phase 3
-def _paged_inputs(torch, gen, dtype, P, B, KV, G, hd, ps, num_pages, NB, max_len):
-    """Stacked per-period pools like the main path's, random valid lengths and
-    page tables, and a poisoned copy of the pools."""
+def _paged_inputs(torch, gen, dtype, P, B, KV, G, hd, ps, num_pages, NB, max_len, vl=None):
+    """Stacked per-period pools like the main path's, random valid lengths
+    (unless ``vl`` is given) and page tables."""
     dev = "cuda"
     q = torch.randn((P, B, KV, G, hd), generator=gen, device=dev).to(dtype)
     k = torch.randn((P, NB, ps, KV, hd), generator=gen, device=dev).to(dtype)
     v = torch.randn((P, NB, ps, KV, hd), generator=gen, device=dev).to(dtype)
-    vl = torch.randint(1, max_len + 1, (B,), generator=gen, device=dev, dtype=torch.int32)
+    if vl is None:
+        vl = torch.randint(1, max_len + 1, (B,), generator=gen, device=dev, dtype=torch.int32)
     pt = torch.zeros((B, num_pages), dtype=torch.int32)
     perm = torch.randperm(NB - 1, generator=torch.Generator().manual_seed(SEED)) + 1
-    used, c = set(), 0
+    c = 0
     for b, n in enumerate(((vl.cpu() + ps - 1) // ps).tolist()):
         pt[b, :n] = perm[c:c + n].to(torch.int32)
-        used.update(perm[c:c + n].tolist())
         c += n
-    pt = pt.to(dev)
-    kp, vp = k.clone(), v.clone()
-    unused = torch.tensor([i for i in range(NB) if i not in used], device=dev)
-    kp[:, unused], vp[:, unused] = 99.0, -99.0          # scratch block 0 + unmapped
-    for b, n in enumerate(vl.tolist()):                 # slots past valid_len
-        page, off = divmod(n, ps)
-        if page < num_pages and off:
-            blk = int(pt[b, page])
-            kp[:, blk, off:], vp[:, blk, off:] = 77.0, -77.0
-    return q, k, v, kp, vp, pt, vl
+    return q, k, v, pt.to(dev), vl
 
 
 def _library_call(torch, q, k_pool, v_pool, pt, vl):
@@ -214,17 +224,13 @@ def _library_call(torch, q, k_pool, v_pool, pt, vl):
     return out.transpose(1, 2).reshape(B, KV, G, hd)
 
 
-def _dense_inputs(torch, gen, dtype, P, B, C, KV, G, hd, valid_len):
-    """Stacked per-period caches like the dense pool's, and a copy poisoned
-    with +-99 past each lane's valid_len (a no-op where valid_len = C)."""
+def _dense_inputs(torch, gen, dtype, P, B, C, KV, G, hd):
+    """Stacked per-period caches like the dense pool's."""
     dev = "cuda"
     q = torch.randn((P, B, KV, G, hd), generator=gen, device=dev).to(dtype)
     k = torch.randn((P, B, C, KV, hd), generator=gen, device=dev).to(dtype)
     v = torch.randn((P, B, C, KV, hd), generator=gen, device=dev).to(dtype)
-    kp, vp = k.clone(), v.clone()
-    for b, n in enumerate(valid_len.tolist()):
-        kp[:, b, n:], vp[:, b, n:] = 99.0, -99.0
-    return q, k, v, kp, vp
+    return q, k, v
 
 
 def _dense_library_call(torch, q, k, v, vl):
@@ -270,6 +276,50 @@ def _check_err(label, name, got, err, limit):
                              f"(finite={finite})")
 
 
+def _read_slots(torch, pt, vl, ps, NB):
+    """(NB, ps) bool: the pool slots that some lane reads below its valid_len."""
+    t = torch.arange(pt.shape[1] * ps, device=pt.device)
+    live = t[None] < vl[:, None]
+    blocks = pt.long()[:, t // ps]
+    read = torch.zeros((NB, ps), dtype=torch.bool, device=pt.device)
+    read[blocks[live], (t % ps).expand_as(blocks)[live]] = True
+    return read
+
+
+def _hold_decode(torch, label, args):
+    """A decode kernel's wrapper on ``args`` (q, cache..., valid_len), and on
+    a copy whose cache is poisoned with +-99 in every slot no lane reads,
+    against its plain version on ``args``, to ``_limit``'s tolerance; raises
+    on a mismatch.  Four args are the dense kernel's, five the paged one's.
+    Returns (max |err|, limit, max |reference|)."""
+    from repro_torch.kernels import decode_attention as kernel
+    from repro_torch.kernels import ref
+    q, k, v, *rest = args
+    vl = rest[-1]
+    if len(rest) == 2:
+        read = _read_slots(torch, rest[0], vl, k.shape[1], k.shape[0])
+        fn, plain = kernel.paged_decode_attention, ref.paged_decode_attention_ref
+    else:
+        read = torch.arange(k.shape[1], device=k.device)[None] < vl[:, None]
+        fn, plain = kernel.decode_attention, ref.decode_attention_ref
+    kp, vp = k.clone(), v.clone()
+    kp[~read], vp[~read] = 99.0, -99.0
+    want = plain(*args).float()
+    got = [fn(*args), fn(q, kp, vp, *rest)]
+    torch.cuda.synchronize()
+    err = max(float((g.float() - want).abs().max()) for g in got)
+    name, scale = str(q.dtype).removeprefix("torch."), float(want.abs().max())
+    limit = _limit(name, scale)
+    _check_err(label, name, got, err, limit)
+    return err, limit, scale
+
+
+def _held(torch, label, calls):
+    """``_hold_decode`` over several calls: (max |err|, least limit, max |reference|)."""
+    held = [_hold_decode(torch, label, args) for args in calls]
+    return (max(h[0] for h in held), min(h[1] for h in held), max(h[2] for h in held))
+
+
 def _log_split(torch, kernel, label, name, B, KV, C, page_size, nbytes, row, host_ms):
     """The split the wrapper chose for this shape on this card, the kernel's
     achieved rate and share of its bound, and the host's time per call."""
@@ -288,18 +338,10 @@ def phase_kernels(torch):
     P, B, KV, G, hd, ps, num_pages, NB = 28, 8, 8, 2, 128, 16, 128, 1025
     for name in ("bfloat16", "float32"):
         dtype = getattr(torch, name)
-        q, k, v, kp, vp, pt, vl = _paged_inputs(torch, gen, dtype, P, B, KV, G, hd, ps,
-                                                num_pages, NB, max_len=2048)
-        err, scale, got = 0.0, 0.0, []
-        for p in (0, P - 1):
-            want = ref.paged_decode_attention_ref(q[p], k[p], v[p], pt, vl).float()
-            scale = max(scale, float(want.abs().max()))
-            for kk, vv in ((k, v), (kp, vp)):
-                got.append(kernel.paged_decode_attention(q[p], kk[p], vv[p], pt, vl))
-                torch.cuda.synchronize()
-                err = max(err, float((got[-1].float() - want).abs().max()))
-        limit = _limit(name, scale)
-        _check_err("paged_decode_attention", name, got, err, limit)
+        q, k, v, pt, vl = _paged_inputs(torch, gen, dtype, P, B, KV, G, hd, ps, num_pages, NB,
+                                        max_len=2048)
+        err, limit, scale = _held(torch, "paged_decode_attention",
+                                  [(q[p], k[p], v[p], pt, vl) for p in (0, P - 1)])
         ms, plain_ms, library_ms, host_ms = _time_three(
             torch, P, lambda i: kernel.paged_decode_attention(q[i], k[i], v[i], pt, vl),
             lambda i: ref.paged_decode_attention_ref(q[i], k[i], v[i], pt, vl),
@@ -323,7 +365,7 @@ def phase_kernels(torch):
             f"({nbytes / 1e6:.1f} MB, {row['bound_by']}-bound)")
         _log_split(torch, kernel, "paged_decode_attention", name, B, KV, num_pages * ps, ps,
                    nbytes, row, host_ms)
-        del q, k, v, kp, vp
+        del q, k, v
         torch.cuda.empty_cache()
     # the dense kernel: the linear pool's shape (random lengths) and the
     # sliding-window ring's (every slot valid)
@@ -333,17 +375,8 @@ def phase_kernels(torch):
             vl = (torch.full((B,), C, dtype=torch.int32, device="cuda") if C == 8192 else
                   torch.randint(1, C + 1, (B,), generator=gen, device="cuda",
                                 dtype=torch.int32))
-            q, k, v, kp, vp = _dense_inputs(torch, gen, dtype, P, B, C, KV, G, hd, vl)
-            err, scale, got = 0.0, 0.0, []
-            for p in (0, P - 1):
-                want = ref.decode_attention_ref(q[p], k[p], v[p], vl).float()
-                scale = max(scale, float(want.abs().max()))
-                for kk, vv in ((k, v), (kp, vp)):
-                    got.append(kernel.decode_attention(q[p], kk[p], vv[p], vl))
-                    torch.cuda.synchronize()
-                    err = max(err, float((got[-1].float() - want).abs().max()))
-            limit = _limit(name, scale)
-            _check_err(label, name, got, err, limit)
+            q, k, v = _dense_inputs(torch, gen, dtype, P, B, C, KV, G, hd)
+            err, limit, scale = _held(torch, label, [(q[p], k[p], v[p], vl) for p in (0, P - 1)])
             ms, plain_ms, library_ms, host_ms = _time_three(
                 torch, P, lambda i: kernel.decode_attention(q[i], k[i], v[i], vl),
                 lambda i: ref.decode_attention_ref(q[i], k[i], v[i], vl),
@@ -362,7 +395,7 @@ def phase_kernels(torch):
                 f"SDPA {library_ms:.4f} ms (|err| {lib_err:.2e}); bound "
                 f"{row['bound_ms']:.4f} ms ({nbytes / 1e6:.1f} MB, {row['bound_by']}-bound)")
             _log_split(torch, kernel, label, name, B, KV, C, 1, nbytes, row, host_ms)
-            del q, k, v, kp, vp
+            del q, k, v
             torch.cuda.empty_cache()
     rows["mamba_scan"] = _scan_rows(torch, gen)
     return rows
@@ -1009,6 +1042,251 @@ def _teacher_forced(torch, cfg, params, gparams, pools, tok):
     return err
 
 
+# ---------------------------------------------------------------- phase 9
+RUNTIME_CAPACITY = 512               # lanes of 32 pages of 16 tokens; the workload needs 285
+CAPTURE_EVERY = 2_500                # keep the inputs of every 2,500th decode-kernel call
+
+
+class _Capture:
+    """While the runtime runs, keeps a copy of the inputs of every
+    ``CAPTURE_EVERY``-th call of a decode kernel's wrapper: the inputs the
+    runtime's decode steps give it, masked lanes at their frozen positions
+    included.  The wrapper is called as before and counts its own launches;
+    the copy costs one call in 2,500 a few device copies."""
+
+    def __init__(self, module, name):
+        self.module, self.name, self.calls, self.kept = module, name, 0, []
+        self.launch = getattr(module, name)
+
+    def __enter__(self):
+        def capturing(*args):
+            self.calls += 1
+            if self.calls % CAPTURE_EVERY == 0:
+                self.kept.append([a.clone() for a in args])
+            return self.launch(*args)
+
+        setattr(self.module, self.name, capturing)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.launch)
+
+
+def _hold_kept(torch, tag, kept):
+    """The kept live calls of one run against the plain version."""
+    if not kept:
+        raise AssertionError(f"[runtime] {tag}: no decode-kernel call was kept")
+    err, limit, _ = _held(torch, f"[runtime] {tag} live calls", kept)
+    q, *_, vl = kept[-1]
+    log(f"[runtime] {tag}: {len(kept)} live decode-kernel calls (every {CAPTURE_EVERY}th; "
+        f"the last: q {tuple(q.shape)}, cache {tuple(kept[-1][1].shape)}, valid_len "
+        f"{sorted(vl.tolist())}) against the plain version, cache poisoned where no lane "
+        f"reads: max|err| {err:.3e} (tol {limit:.3e})")
+    return err
+
+
+def _hold_runtime_shapes(torch, paged_args, dense_args):
+    """Both decode kernels at the runtime's shapes (taken from a kept live
+    call of each) on drawn inputs whose lengths span the whole lane, so that
+    every piece of the split the wrapper picks, the ragged last one too,
+    holds tokens: lane 0 full, lane 1 one token into the last piece, lane 2
+    exactly one piece, lane 3 one token, the rest drawn in [1, C]."""
+    from repro_torch.kernels import decode_attention as kernel
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    errs = {}
+    for label, args in (("paged_decode_attention", paged_args),
+                        ("decode_attention", dense_args)):
+        q = args[0]
+        B, KV, G, hd = q.shape
+        ps, C = (args[1].shape[1], args[3].shape[1] * args[1].shape[1]) if len(args) == 5 \
+            else (1, args[1].shape[1])
+        L, n_split = kernel._split_plan(B, KV, C, ps, sms)
+        vl = torch.randint(1, C + 1, (B,), generator=gen, device="cuda", dtype=torch.int32)
+        vl[:4] = torch.tensor([C, min(C, (n_split - 1) * L + 1), min(C, L), 1])
+        if len(args) == 5:
+            q, k, v, pt, vl = _paged_inputs(torch, gen, q.dtype, 1, B, KV, G, hd, ps, C // ps,
+                                            B * (C // ps) + 1, C, vl=vl)
+            inputs = (q[0], k[0], v[0], pt, vl)
+        else:
+            q, k, v = _dense_inputs(torch, gen, q.dtype, 1, B, C, KV, G, hd)
+            inputs = (q[0], k[0], v[0], vl)
+        err, limit, _ = _hold_decode(torch, f"[runtime] {label} at the runtime's shape", inputs)
+        errs[label] = err
+        log(f"[runtime] {label} at the runtime's shape: B={B} KV={KV} G={G} hd={hd} "
+            f"ps={ps} C={C}, n_split {n_split} (pieces of {L}, the last "
+            f"{C - (n_split - 1) * L}), valid_len sum {int(vl.sum())} max {int(vl.max())}; "
+            f"max|err| {err:.3e} (tol {limit:.3e}, cache poisoned where no lane reads)")
+    return errs
+
+
+def _runtime_run(torch, tag, cfg, params, batch, predictor, config, faults=None,
+                 profile_run=False):
+    """One RolloutRuntime run on the card beside its analytic twin: counts
+    zeroed just before the run and read just after; the engine's trace held to
+    the sim's; the decode kernel's inputs kept every ``CAPTURE_EVERY``-th
+    call.  Returns (result, launches, checkpoints written, kept inputs)."""
+    import copy
+    from repro_torch.engine.runtime import make_runtime, run_on_sim, split_restores
+    from repro_torch.kernels import decode_attention as kernel
+
+    sim = run_on_sim(copy.deepcopy(batch), predictor, n_workers=2, config=config,
+                     faults=faults)
+    rt = make_runtime(cfg, params, batch, predictor, n_workers=2, config=config,
+                      capacity=RUNTIME_CAPACITY, faults=faults)
+    written = {}
+    checkpoint = rt.backend.checkpoint
+
+    def recording(traj):
+        checkpoint(traj)
+        if traj.traj_id in rt.backend.ckpts:
+            written[traj.traj_id] = rt.backend.ckpts[traj.traj_id]
+
+    rt.backend.checkpoint = recording
+    name = "decode_attention" if config.paged is False else "paged_decode_attention"
+    torch.cuda.synchronize()
+    with _Capture(kernel, name) as capture:
+        _reset_launches()                                   # the run starts here
+        if profile_run:
+            from torch.profiler import ProfilerActivity, profile
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                res = rt.run()
+                torch.cuda.synchronize()
+        else:
+            res = rt.run()
+        launches = _read_launches(torch)                    # the run ends
+    if not all(t.finished for t in batch):
+        raise AssertionError(f"[runtime] {tag}: unfinished trajectories")
+    if res.sanitizer.get("violations") != 0 or res.sanitizer.get("block_conservation") != "ok":
+        raise AssertionError(f"[runtime] {tag}: sanitizer {res.sanitizer}")
+    if res.total_tokens != sum(t.payload.total_tokens for t in batch):
+        raise AssertionError(f"[runtime] {tag}: decoded {res.total_tokens} tokens")
+    if faults is None:
+        same = res.trace == sim.trace
+    else:
+        same = split_restores(res.trace) == split_restores(sim.trace)
+    if not same or res.makespan != sim.makespan or len(res.trace) == 0:
+        raise AssertionError(f"[runtime] {tag}: engine trace ({len(res.trace)} events, "
+                             f"makespan {res.makespan}) differs from the sim's "
+                             f"({len(sim.trace)}, {sim.makespan})")
+    stats = [view.engine.dispatch_stats() for view in rt.workers]
+    log(f"[runtime] {tag}: wall {res.wall_time * 1e3:.1f} ms, {rt.backend.wall * 1e3:.1f} ms "
+        f"of it inside the workers' calls (host clock, nothing added to the run); "
+        f"{res.total_tokens} real tokens decoded ({res.total_tokens / res.wall_time:.1f} "
+        f"tokens/s); decode calls {[s['decode_calls'] for s in stats]}, decode steps "
+        f"{[s['decode_steps'] for s in stats]}, decode wall "
+        f"{[round(s['decode_wall_s'] * 1e3, 1) for s in stats]} ms (the workers' own clock, "
+        f"to the one host copy of the emitted tokens a call, which also waits for work "
+        f"queued before the call); {len(res.trace)} trace events == sim, virtual makespan "
+        f"{res.makespan:.6f} s, preemptions {res.preemptions}, migrations "
+        f"{res.migrations}; launches {launches}")
+    if profile_run:
+        # the run's raw device events: key_averages() would take minutes over
+        # its 1.6 M launches
+        from torch.autograd import DeviceType
+        device = [e for e in prof.profiler.kineto_results.events()
+                  if e.device_type() == DeviceType.CUDA]
+        busy = sum(e.duration_ns() for e in device) / 1e6
+        log(f"[runtime] {tag} under torch.profiler: device busy {busy:.1f} ms of the "
+            f"run's {res.wall_time * 1e3:.1f} ms wall ({100 * busy / (res.wall_time * 1e3):.1f}%), "
+            f"{len(device)} device events")
+        if busy == 0:
+            log("[runtime] torch.profiler recorded no device time on this machine")
+    return res, launches, written, capture.kept
+
+
+def phase_runtime(torch, smi):
+    """The control plane over the port's workers on the card: qwen3-1.7b at
+    full width, two RolloutWorkers driven by the orchestrator through
+    EngineBackend on the reference harness's workload, each run held to the
+    sim's decision trace, and the decode kernels held to their plain versions
+    on live calls of each run and at the runtime's shapes.  Returns the
+    decode kernels' launches per run and their largest errors there."""
+    import copy
+    import math
+    import os
+    import tempfile
+    from repro_torch.checkpoint import checkpoint as ckpt
+    from repro_torch.core.faults import FaultPlan
+    from repro_torch.engine.runtime import RuntimeConfig, build_workbench, run_on_sim
+    from repro_torch.models import model as M
+
+    cfg, params = _full_width(torch)
+    log(f"[runtime] {smi}")
+    base = dict(scheduler="pps", migration=True, max_active=2, quantum=8,
+                link_bandwidth=math.inf, trace=True, seed=5, sanitize=True)
+    out = {}
+    batch, predictor = build_workbench(n_prompts=6, group_size=4, seed=5)
+    res, launches, _, kept = _runtime_run(torch, "paged", cfg, params, batch, predictor,
+                                          RuntimeConfig(**base))
+    if res.preemptions == 0 or res.migrations == 0:
+        raise AssertionError(f"[runtime] paged: preemptions {res.preemptions}, "
+                             f"migrations {res.migrations}: the parity does not bite")
+    out["paged"] = launches["paged_decode_attention"]
+    errs = {"paged_decode_attention": [_hold_kept(torch, "paged", kept)]}
+    paged_args = kept[-1]
+
+    batch, predictor = build_workbench(n_prompts=6, group_size=4, seed=5)
+    _, launches, _, kept = _runtime_run(torch, "dense", cfg, params, batch, predictor,
+                                        RuntimeConfig(**dict(base, paged=False,
+                                                             migration=False)),
+                                        profile_run=True)
+    out["dense"] = launches["decode_attention"]
+    errs["decode_attention"] = [_hold_kept(torch, "dense", kept)]
+    for name, err in _hold_runtime_shapes(torch, paged_args, kept[-1]).items():
+        errs[name].append(err)
+    del paged_args, kept
+
+    batch, predictor = build_workbench(n_prompts=6, group_size=4, seed=5)
+    horizon = run_on_sim(copy.deepcopy(batch), predictor, n_workers=2,
+                         config=RuntimeConfig(**base)).makespan
+    faults = FaultPlan.chaos(seed=5, n_workers=2, horizon=horizon)
+    with tempfile.TemporaryDirectory() as tmp:
+        res, launches, written, kept = _runtime_run(
+            torch, "chaos", cfg, params, batch, predictor,
+            RuntimeConfig(**dict(base, checkpoint_dir=tmp)), faults=faults)
+        if res.worker_deaths < 1 or res.recoveries < 1:
+            raise AssertionError(f"[runtime] chaos: deaths {res.worker_deaths}, "
+                                 f"recoveries {res.recoveries}")
+        if not written or len(os.listdir(tmp)) != len(written):
+            raise AssertionError(f"[runtime] chaos: {len(written)} checkpoints held, "
+                                 f"{len(os.listdir(tmp))} persisted")
+        for tid, pkg in written.items():
+            tree = {"pages": pkg["pages"], "state": pkg["state"], "key": pkg["key"]}
+            back = ckpt.restore(os.path.join(tmp, f"traj_{tid:05d}"), tree)
+            if not (back["key"] == pkg["key"]).all():
+                raise AssertionError(f"[runtime] chaos: checkpoint of {tid}: key differs")
+            for part in ("pages", "state"):
+                for a, b in zip(M.tree_leaves(back[part]), M.tree_leaves(pkg[part])):
+                    if a.dtype != b.dtype or not torch.equal(a, b):
+                        raise AssertionError(f"[runtime] chaos: checkpoint of {tid} "
+                                             f"loads back different")
+    log(f"[runtime] chaos: {res.worker_deaths} worker death(s), {res.recoveries} "
+        f"recoveries, {res.tool_retries} tool retries; {len(written)} checkpoints "
+        f"persisted and loaded back equal")
+    out["chaos"] = launches["paged_decode_attention"]
+    errs["paged_decode_attention"].append(_hold_kept(torch, "chaos", kept))
+    out["max_abs_err"] = {name: max(e) for name, e in errs.items()}
+    del params, kept
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    cli = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+                          "qwen3-1.7b", "--requests", "8", "--steps", "2"], cwd=ROOT,
+                         env=env, capture_output=True, text=True, timeout=600)
+    lines = cli.stdout.strip().splitlines()
+    if cli.returncode != 0 or not any("served 8 trajectories on cuda" in ln for ln in lines):
+        raise AssertionError(f"[runtime] serve CLI exited {cli.returncode}:\n"
+                             f"{cli.stdout[-2000:]}\n{cli.stderr[-2000:]}")
+    for ln in lines:
+        if ln.startswith(("served", "virtual makespan", "preemptions")):
+            log(f"[runtime] serve: {ln}")
+    log(f"[runtime] serve CLI (a process of its own, qwen3-1.7b reduced to 2 layers, "
+        f"f32): exit 0 in {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         print("chip_smoke: src/repro_torch not found next to this script", file=sys.stderr)
@@ -1017,15 +1295,26 @@ def main() -> int:
     import torch
     torch.backends.cuda.matmul.allow_tf32 = False      # f32 matmuls in full f32
     torch.backends.cudnn.allow_tf32 = False
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        log(f"[time] phase {name}: {time.perf_counter() - t0:.1f} s")
+        return out
+
     try:
-        info = phase_device(torch)
-        phase_build()
-        rows = phase_kernels(torch)
-        paged_launches = phase_slice(torch)
-        dense_launches = phase_dense(torch)
-        phase_profile(torch)
-        jamba_launches = phase_jamba(torch)
-        phase_reference(torch)
+        info = timed("device", phase_device, torch)
+        timed("build", phase_build)
+        rows = timed("kernels", phase_kernels, torch)
+        paged_launches = timed("slice", phase_slice, torch)
+        dense_launches = timed("dense", phase_dense, torch)
+        timed("profile", phase_profile, torch)
+        jamba_launches = timed("jamba", phase_jamba, torch)
+        timed("reference", phase_reference, torch)
+        runtime = timed("runtime", phase_runtime, torch, info["smi"])
+        if min(runtime[run] for run in ("paged", "dense", "chaos")) == 0:
+            raise AssertionError(f"a decode kernel never launched under the runtime: "
+                                 f"{runtime}")
     except Exception:                                  # a failed phase fails the run
         traceback.print_exc()
         return 1
@@ -1034,11 +1323,16 @@ def main() -> int:
         {"name": "paged_decode_attention", "route": "cuda",
          "source": f"{csrc}/paged_decode_attention.cu",
          "replaces": "src/repro/kernels/decode_attention.py:112",
-         "launches": paged_launches, **rows["paged_decode_attention"]["bfloat16"]},
+         "launches": paged_launches,
+         "runtime_launches": runtime["paged"] + runtime["chaos"],
+         "runtime_max_abs_err": runtime["max_abs_err"]["paged_decode_attention"],
+         **rows["paged_decode_attention"]["bfloat16"]},
         {"name": "decode_attention", "route": "cuda",
          "source": f"{csrc}/decode_attention.cu",
          "replaces": "src/repro/kernels/decode_attention.py:159",
-         "launches": dense_launches, **rows["decode_attention"]["bfloat16"]},
+         "launches": dense_launches, "runtime_launches": runtime["dense"],
+         "runtime_max_abs_err": runtime["max_abs_err"]["decode_attention"],
+         **rows["decode_attention"]["bfloat16"]},
         {"name": "mamba_scan", "route": "cuda",
          "source": f"{csrc}/mamba_scan.cu",
          "replaces": "src/repro/kernels/mamba_scan.py:55",

@@ -11,10 +11,10 @@ import importlib
 
 from repro_torch.models.config import ModelConfig
 
-ARCHITECTURES = ("qwen3_1_7b", "jamba_v0_1_52b")
+ARCHITECTURES = ("qwen3_1_7b", "jamba_v0_1_52b", "smollm_135m")
 
 _ALIASES = {"qwen3-1.7b": "qwen3_1_7b", "qwen3-1-7b": "qwen3_1_7b",
-            "jamba-v0.1-52b": "jamba_v0_1_52b"}
+            "jamba-v0.1-52b": "jamba_v0_1_52b", "smollm-135m": "smollm_135m"}
 
 
 def get_config(name: str) -> ModelConfig:

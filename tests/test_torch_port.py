@@ -26,8 +26,14 @@ def _imports(path: Path) -> list[str]:
     return names
 
 
+ENTRY_POINTS = ("engine/worker.py", "core/orchestrator.py", "engine/runtime.py",
+                "launch/serve.py")
+
+
 def test_port_files_exist():
     assert len(FILES) > 10 and all(f.exists() for f in FILES)
+    for name in ENTRY_POINTS:                  # each slice's entry points are scanned
+        assert REPO / "src" / "repro_torch" / name in FILES, name
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(REPO)))
