@@ -23,7 +23,13 @@ Phases (each raises on failure; any failure exits non-zero with no result line):
               the copy widths its wrapper chose.  Each
               decode row also logs the split the wrapper chose (n_split, L,
               blocks), the achieved GB/s, the share of the bound and the
-              host's time to enqueue one call.
+              host's time to enqueue one call.  The paged kernel is also
+              timed at qwen2-moe's runtime decode shape (B 24, KV 16, G 1,
+              lanes of 512), and both decode kernels are held at phase 10's
+              other paged paths' own shapes, so at the splits they get
+              (arctic KV 8 G 7, B 4, lanes of 2,048; nemotron KV 8 G 6 and
+              phi3 KV 10 G 4, B 8, lanes of 1,024), lengths filling every
+              piece.
 4. slice   -- qwen3-1.7b at full width (28 layers, d_model 2048, bf16, random
               weights from a seed): two paged RolloutWorkers on the card serve
               8 requests in 2 GRPO groups (radix page sharing), decode at
@@ -59,7 +65,9 @@ Phases (each raises on failure; any failure exits non-zero with no result line):
               card (kernels) against the CPU (plain versions) under teacher
               forcing, on the paged plane and on a sliding-window ring; the
               reduced jamba period the same way after a whole-prompt
-              admission, its Mamba state card vs CPU.
+              admission, its Mamba state card vs CPU; the reduced xLSTM
+              period after a chunked recurrent admission, its state card vs
+              CPU.
 9. runtime -- the control plane over the port's workers: qwen3-1.7b at full
               width, two RolloutWorkers on the card driven by the orchestrator
               through EngineBackend on the reference trace harness's workload
@@ -79,6 +87,29 @@ Phases (each raises on failure; any failure exits non-zero with no result line):
               split, the ragged last one too.  Then the serve CLI
               (python -m repro_torch.launch.serve) runs as a process of its
               own, with no --device flag: on the card.
+10. families -- the other language-model families, weights from the seed,
+              each model freed before the next, peak memory logged:
+              (a) qwen2-moe-a2.7b at full width (24 layers, 60 experts top-4
+              and the gated shared experts, MHA) under the runtime on phase
+              9's workload and settings, the paged and the dense plane
+              (migration off), each trace held to the sim's, the decode
+              kernel's launches equal to 24 x the decode steps (per-token
+              tool absorptions included), kept live calls held to the plain
+              version; (b) xlstm-350m at full width (20 mLSTM, 4 sLSTM):
+              two paged workers (pure-state pools) and a dense one, two GRPO
+              groups of 4 (prompts of 512 and 300 tokens) by chunked
+              recurrent prefill, decode, a chunked extend, preempt and
+              resume, migration paged -> dense -> paged, a checkpoint, each
+              lane's state held exactly, and a released lane readmitted
+              equal to a fresh one; (c) arctic-480b at its published widths
+              cut to 1 of 35 layers (128 experts top-2 and the dense
+              residual): 4 whole-prompt admissions of 1,024 tokens, 32
+              decode steps (the paged kernel at G 7); (d) nemotron-4-15b
+              (relu2, G 6) and phi3-medium-14b (KV 10) at full width: 8
+              requests in 2 groups (prompts of 300 and 257 tokens, radix
+              sharing), 32 decode steps.  Counts zeroed before each path and
+              read after it; 4 live paged-kernel calls of each of (c) and (d),
+              the last among them, kept and held to the plain version.
 
 float32 matrix products run in full float32: TF32 is switched off for matmuls
 and cuDNN.  The next-to-last line is one JSON object describing each kernel;
@@ -88,6 +119,7 @@ the last is {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import json
+import math
 import re
 import subprocess
 import sys
@@ -263,10 +295,20 @@ def _time_three(torch, P, kernel_fn, plain_fn, library_fn):
             event_ms(torch, lambda i: library_fn(i % P), P)[0], host_ms)
 
 
+def _bf16_ulp(scale):
+    """bf16's spacing (8 significant bits) at |values| of ``scale``."""
+    return 2.0 ** (math.floor(math.log2(max(scale, 1e-30))) - 7)
+
+
 def _limit(name, scale):
-    """The tolerance for outputs whose largest |value| is ``scale``: in bf16
-    also relative, so that small outputs (8,192 tokens averaged) are checked."""
-    return TOL[name] if name == "float32" else min(TOL[name], BF16_REL * scale)
+    """The tolerance against the plain version for outputs whose largest
+    |value| is ``scale``.  In bf16, TOL (1.6 ulps at outputs in [2, 4)) and
+    the same number of ulps above 4, where bf16's spacing outgrows TOL
+    (0.03125 in [4, 8)); also relative, so that small outputs (8,192 tokens
+    averaged) are checked."""
+    if name == "float32":
+        return TOL[name]
+    return min(TOL[name] * max(1.0, _bf16_ulp(scale) / 2.0 ** -6), BF16_REL * scale)
 
 
 def _check_err(label, name, got, err, limit):
@@ -291,7 +333,12 @@ def _hold_decode(torch, label, args):
     a copy whose cache is poisoned with +-99 in every slot no lane reads,
     against its plain version on ``args``, to ``_limit``'s tolerance; raises
     on a mismatch.  Four args are the dense kernel's, five the paged one's.
-    Returns (max |err|, limit, max |reference|)."""
+    The plain version rounds its probabilities to bf16, as the reference
+    does, and the kernel keeps them in f32; so the kernel is also held to the
+    exact answer (the plain version on the inputs in f32): in bf16 within
+    one ulp at the output's scale, since its output is the f32 result
+    rounded once.  Returns (max |err|, limit, max |reference|, the kernel's
+    and the plain version's max |err| against the exact answer)."""
     from repro_torch.kernels import decode_attention as kernel
     from repro_torch.kernels import ref
     q, k, v, *rest = args
@@ -305,19 +352,26 @@ def _hold_decode(torch, label, args):
     kp, vp = k.clone(), v.clone()
     kp[~read], vp[~read] = 99.0, -99.0
     want = plain(*args).float()
+    exact = plain(q.float(), k.float(), v.float(), *rest)
     got = [fn(*args), fn(q, kp, vp, *rest)]
     torch.cuda.synchronize()
     err = max(float((g.float() - want).abs().max()) for g in got)
     name, scale = str(q.dtype).removeprefix("torch."), float(want.abs().max())
     limit = _limit(name, scale)
     _check_err(label, name, got, err, limit)
-    return err, limit, scale
+    exact_err = max(float((g.float() - exact).abs().max()) for g in got)
+    _check_err(f"{label} against the exact answer", name, got, exact_err,
+               TOL[name] if name == "float32" else _bf16_ulp(scale))
+    return err, limit, scale, exact_err, float((want - exact).abs().max())
 
 
 def _held(torch, label, calls):
-    """``_hold_decode`` over several calls: (max |err|, least limit, max |reference|)."""
+    """``_hold_decode`` over several calls, each held to its own limit: the
+    largest error with that call's limit and max |reference| (the tighter
+    limit on a tie), and the largest errors against the exact answer."""
     held = [_hold_decode(torch, label, args) for args in calls]
-    return (max(h[0] for h in held), min(h[1] for h in held), max(h[2] for h in held))
+    worst = max(held, key=lambda h: (h[0], -h[1]))
+    return (*worst[:3], max(h[3] for h in held), max(h[4] for h in held))
 
 
 def _log_split(torch, kernel, label, name, B, KV, C, page_size, nbytes, row, host_ms):
@@ -330,43 +384,102 @@ def _log_split(torch, kernel, label, name, B, KV, C, page_size, nbytes, row, hos
         f"of the bound; the host enqueues a call in {host_ms:.4f} ms")
 
 
+def _paged_row(torch, gen, label, name, P, B, KV, G, hd, ps, num_pages, max_len):
+    """The paged kernel at one shape: held to its plain version on the first
+    and last period's pool, then timed against the plain version and gather
+    + SDPA over the P periods (L2 cold).  Returns the row."""
+    from repro_torch.kernels import decode_attention as kernel
+    from repro_torch.kernels import ref
+    NB = B * num_pages + 1
+    q, k, v, pt, vl = _paged_inputs(torch, gen, getattr(torch, name), P, B, KV, G, hd, ps,
+                                    num_pages, NB, max_len=max_len)
+    err, limit, scale, *_ = _held(torch, label, [(q[p], k[p], v[p], pt, vl) for p in (0, P - 1)])
+    ms, plain_ms, library_ms, host_ms = _time_three(
+        torch, P, lambda i: kernel.paged_decode_attention(q[i], k[i], v[i], pt, vl),
+        lambda i: ref.paged_decode_attention_ref(q[i], k[i], v[i], pt, vl),
+        lambda i: _library_call(torch, q[i], k[i], v[i], pt, vl))
+    lib_err = float((_library_call(torch, q[0], k[0], v[0], pt, vl).float()
+                     - ref.paged_decode_attention_ref(q[0], k[0], v[0], pt, vl).float())
+                    .abs().max())
+    tokens = int(vl.sum())
+    item = q.element_size()
+    pages = int(((vl + ps - 1) // ps).sum())
+    nbytes = (2 * tokens * KV * hd * item + 2 * q[0].numel() * item
+              + pages * 4 + B * 4)
+    row = _row(name, err, ms, plain_ms, library_ms, nbytes, 4 * tokens * KV * G * hd)
+    log(f"[kernels] {label} {name}: B={B} KV={KV} G={G} hd={hd} ps={ps} "
+        f"num_pages={num_pages} NB={NB}, valid_len sum {tokens} max {int(vl.max())}; "
+        f"max|err| {err:.3e} (tol {limit:.3e}, max|ref| {scale:.3e}, poisoned "
+        f"scratch/unmapped/tail); kernel {ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms, gather+SDPA {library_ms:.4f} ms "
+        f"(|err| {lib_err:.2e}); bound {row['bound_ms']:.4f} ms "
+        f"({nbytes / 1e6:.1f} MB, {row['bound_by']}-bound)")
+    _log_split(torch, kernel, label, name, B, KV, num_pages * ps, ps, nbytes, row, host_ms)
+    del q, k, v
+    torch.cuda.empty_cache()
+    return row
+
+
+def _hold_spanning(torch, gen, label, dtype, B, KV, G, hd, C, ps=None):
+    """A decode kernel (paged, with pages of ``ps`` slots; dense when ``ps``
+    is None) at one shape, on drawn inputs whose lengths span the whole lane,
+    so that every piece of the split the wrapper picks for this shape, the
+    ragged last one too, holds tokens: lane 0 full, lane 1 one token into the
+    last piece, lane 2 exactly one piece, lane 3 one token, the rest drawn in
+    [1, C].  Returns (max |err|, limit, a description of the shape)."""
+    from repro_torch.kernels import decode_attention as kernel
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    L, n_split = kernel._split_plan(B, KV, C, ps or 1, sms)
+    vl = torch.randint(1, C + 1, (B,), generator=gen, device="cuda", dtype=torch.int32)
+    vl[:4] = torch.tensor([C, min(C, (n_split - 1) * L + 1), min(C, L), 1])
+    if ps:
+        q, k, v, pt, vl = _paged_inputs(torch, gen, dtype, 1, B, KV, G, hd, ps, C // ps,
+                                        B * (C // ps) + 1, C, vl=vl)
+        inputs = (q[0], k[0], v[0], pt, vl)
+    else:
+        q, k, v = _dense_inputs(torch, gen, dtype, 1, B, C, KV, G, hd)
+        inputs = (q[0], k[0], v[0], vl)
+    err, limit, _, exact, plain_exact = _hold_decode(torch, label, inputs)
+    return err, limit, (f"B={B} KV={KV} G={G} hd={hd} ps={ps or 1} C={C}, n_split {n_split} "
+                        f"(pieces of {L}, the last {C - (n_split - 1) * L}), valid_len sum "
+                        f"{int(vl.sum())} max {int(vl.max())}; against the exact answer: "
+                        f"kernel {exact:.3e}, plain {plain_exact:.3e}")
+
+
+# (family, KV, G, B, C) of phase 10's paged paths, whose (KV, G) no other row
+# holds: arctic's 4 lanes of 2,048 slots, nemotron's and phi3's 8 of 1,024
+FAMILY_SHAPES = (("arctic-480b", 8, 7, 4, 2048), ("nemotron-4-15b", 8, 6, 8, 1024),
+                 ("phi3-medium-14b", 10, 4, 8, 1024))
+
+
+def _family_holds(torch, gen):
+    """Both decode kernels held to their plain versions at the families'
+    paged paths' own (KV, G, B, C), so at the split plans those paths get,
+    with lengths that fill every piece; hd 128, pages of 16, bf16 and f32;
+    raises on a mismatch."""
+    for fam, KV, G, B, C in FAMILY_SHAPES:
+        for name in ("bfloat16", "float32"):
+            dtype = getattr(torch, name)
+            perr, plimit, shape = _hold_spanning(torch, gen, f"paged {fam}", dtype, B, KV, G,
+                                                 128, C, ps=16)
+            derr, dlimit, dshape = _hold_spanning(torch, gen, f"dense {fam}", dtype, B, KV, G,
+                                                  128, C)
+            log(f"[kernels] {fam} heads {name}: paged {shape}: max|err| {perr:.3e} (tol "
+                f"{plimit:.3e}); dense {dshape}: max|err| {derr:.3e} (tol {dlimit:.3e}); "
+                f"caches poisoned where no lane reads")
+    torch.cuda.empty_cache()
+
+
 def phase_kernels(torch):
     from repro_torch.kernels import decode_attention as kernel
     from repro_torch.kernels import ref
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     rows = {"paged_decode_attention": {}, "decode_attention": {}, "decode_attention_ring": {}}
-    P, B, KV, G, hd, ps, num_pages, NB = 28, 8, 8, 2, 128, 16, 128, 1025
+    P, B, KV, G, hd = 28, 8, 8, 2, 128
     for name in ("bfloat16", "float32"):
-        dtype = getattr(torch, name)
-        q, k, v, pt, vl = _paged_inputs(torch, gen, dtype, P, B, KV, G, hd, ps, num_pages, NB,
-                                        max_len=2048)
-        err, limit, scale = _held(torch, "paged_decode_attention",
-                                  [(q[p], k[p], v[p], pt, vl) for p in (0, P - 1)])
-        ms, plain_ms, library_ms, host_ms = _time_three(
-            torch, P, lambda i: kernel.paged_decode_attention(q[i], k[i], v[i], pt, vl),
-            lambda i: ref.paged_decode_attention_ref(q[i], k[i], v[i], pt, vl),
-            lambda i: _library_call(torch, q[i], k[i], v[i], pt, vl))
-        lib_err = float((_library_call(torch, q[0], k[0], v[0], pt, vl).float()
-                         - ref.paged_decode_attention_ref(q[0], k[0], v[0], pt, vl).float())
-                        .abs().max())
-        tokens = int(vl.sum())
-        item = q.element_size()
-        pages = int(((vl + ps - 1) // ps).sum())
-        nbytes = (2 * tokens * KV * hd * item + 2 * q[0].numel() * item
-                  + pages * 4 + B * 4)
-        row = _row(name, err, ms, plain_ms, library_ms, nbytes, 4 * tokens * KV * G * hd)
-        rows["paged_decode_attention"][name] = row
-        log(f"[kernels] paged_decode_attention {name}: B={B} KV={KV} G={G} hd={hd} ps={ps} "
-            f"num_pages={num_pages} NB={NB}, valid_len sum {tokens} max {int(vl.max())}; "
-            f"max|err| {err:.3e} "
-            f"(tol {limit:.3e}, max|ref| {scale:.3e}, poisoned scratch/unmapped/tail); kernel {ms:.4f} ms, "
-            f"plain {plain_ms:.4f} ms, gather+SDPA {library_ms:.4f} ms "
-            f"(|err| {lib_err:.2e}); bound {row['bound_ms']:.4f} ms "
-            f"({nbytes / 1e6:.1f} MB, {row['bound_by']}-bound)")
-        _log_split(torch, kernel, "paged_decode_attention", name, B, KV, num_pages * ps, ps,
-                   nbytes, row, host_ms)
-        del q, k, v
-        torch.cuda.empty_cache()
+        rows["paged_decode_attention"][name] = _paged_row(
+            torch, gen, "paged_decode_attention", name, P, B, KV, G, hd, ps=16, num_pages=128,
+            max_len=2048)
     # the dense kernel: the linear pool's shape (random lengths) and the
     # sliding-window ring's (every slot valid)
     for label, B, C in (("decode_attention", 8, 2048), ("decode_attention_ring", 4, 8192)):
@@ -376,7 +489,8 @@ def phase_kernels(torch):
                   torch.randint(1, C + 1, (B,), generator=gen, device="cuda",
                                 dtype=torch.int32))
             q, k, v = _dense_inputs(torch, gen, dtype, P, B, C, KV, G, hd)
-            err, limit, scale = _held(torch, label, [(q[p], k[p], v[p], vl) for p in (0, P - 1)])
+            err, limit, scale, *_ = _held(torch, label,
+                                          [(q[p], k[p], v[p], vl) for p in (0, P - 1)])
             ms, plain_ms, library_ms, host_ms = _time_three(
                 torch, P, lambda i: kernel.decode_attention(q[i], k[i], v[i], vl),
                 lambda i: ref.decode_attention_ref(q[i], k[i], v[i], vl),
@@ -398,6 +512,13 @@ def phase_kernels(torch):
             del q, k, v
             torch.cuda.empty_cache()
     rows["mamba_scan"] = _scan_rows(torch, gen)
+    # drawn after the rows above, whose inputs stay those of earlier runs:
+    # qwen2-moe-a2.7b's runtime decode (phase 10), 24 lanes, MHA (KV 16, G
+    # 1), lanes of 512 slots, one pool a layer (24); logged only
+    for name in ("bfloat16", "float32"):
+        _paged_row(torch, gen, "paged_decode_attention qwen2-moe", name, 24, 24, 16, 1, hd,
+                   ps=16, num_pages=32, max_len=512)
+    _family_holds(torch, gen)
     return rows
 
 
@@ -789,13 +910,14 @@ def _nbytes(tree):
 
 
 def _lane_state(w, sid):
-    """Copies of one lane's KV at its resident positions and its Mamba state."""
+    """Copies of one lane's KV at its resident positions and its recurrent
+    state (Mamba, mLSTM or sLSTM: every leaf but k and v)."""
     seq = w.store[sid]
     n = len(seq.tokens)
     out = {}
     for key, c in w.pool["blocks"].items():
         for name, leaf in c.items():
-            if name in ("h", "conv"):
+            if name not in ("k", "v"):
                 lane = leaf[:, seq.slot]
             elif w._paged:
                 lane = leaf[:, w.lane_pages[seq.slot]]
@@ -904,6 +1026,7 @@ def _profile_jamba(torch, cfg, params):
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.engine.sampler import SamplerConfig
     from repro_torch.engine.worker import RolloutWorker
+    from repro_torch.models import model as M
 
     w = RolloutWorker(cfg, params, capacity=4096, page_size=16, max_slots=8,
                       sampler=SamplerConfig(1.0, 0.9), seed=SEED, device="cuda")
@@ -944,7 +1067,7 @@ def _profile_jamba(torch, cfg, params):
                     + len(lanes) * cfg.d_model * item)
     kv_bytes = ((context + len(lanes) * (n + 1) / 2) * cfg.n_periods
                 * 2 * cfg.n_kv_heads * cfg.hd * item)
-    state_bytes = 2 * _nbytes({k: c for k, c in w.pool["blocks"].items() if "mamba" in k})
+    state_bytes = 2 * _nbytes(dict(M._state_blocks(w.pool)))
     bound = (weight_bytes + kv_bytes + state_bytes) / HBM_BYTES_PER_S * 1e3
     log(f"[profile] jamba decode step, 8 lanes, {context / 8:.0f} tokens of context each: "
         f"wall {wall / n:.3f} ms, device busy {busy:.3f} ms ({100 * busy * n / wall:.1f}% "
@@ -992,6 +1115,7 @@ def phase_reference(torch):
         f"50-token prompt): 8 teacher-forced decode steps, logits card vs CPU max |err| "
         f"{err:.2e} (tol 1e-4)")
     _reference_jamba(torch)
+    _reference_xlstm(torch)
 
 
 def _reference_jamba(torch):
@@ -1019,12 +1143,45 @@ def _reference_jamba(torch):
         raise AssertionError("the card's admission did not run the scan kernel 7 times")
     state_err = max(float((pools["cuda"]["blocks"][k][n].cpu() - c[n]).abs().max())
                     for k, c in pools["cpu"]["blocks"].items() for n in c
-                    if n in ("h", "conv"))
+                    if n not in ("k", "v"))
     if not state_err < 1e-4:
         raise AssertionError(f"jamba admission state card vs CPU max |err| {state_err}")
     err = _teacher_forced(torch, cfg, params, gparams, pools, torch.tensor([[0], [39]]))
     log(f"[reference] reduced {cfg.name} (1 period, f32: 7 Mamba, 4 MoE): 40-token "
         f"admission, Mamba state card vs CPU max |err| {state_err:.2e} (tol 1e-4); 8 "
+        f"teacher-forced decode steps, logits card vs CPU max |err| {err:.2e} (tol 1e-4)")
+
+
+def _reference_xlstm(torch):
+    """The reduced xLSTM period (f32: 5 mLSTM, 1 sLSTM): a 40-token chunked
+    recurrent admission into a paged lane, its state card vs CPU, then
+    teacher-forced decode logits."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.models.model import init_params, tree_to
+
+    cfg = get_config("xlstm_350m").reduced(n_periods=1)
+    params = init_params(cfg, seed=SEED, device="cpu")
+    gparams = tree_to(params, "cuda")
+    prompt = [(7 * i + 3) % cfg.vocab for i in range(40)]
+    pools = {}
+    for dev, prm in (("cpu", params), ("cuda", gparams)):
+        pool = M.init_paged_pool(cfg, 2, 9, 16, 4, dev)
+        M.paged_set_lane(pool, 1, np.asarray([3, 5, 7, 0], np.int32), 0)
+        for off in range(0, len(prompt), 16):
+            part = prompt[off:off + 16]
+            buf = torch.zeros((1, 16), dtype=torch.int64)
+            buf[0, :len(part)] = torch.tensor(part)
+            M.prefill_chunk_paged(cfg, prm, pool, 1, buf.to(dev), len(part))
+        pools[dev] = pool
+    state_err = max(float((pools["cuda"]["blocks"][k][n].cpu() - c[n]).abs().max())
+                    for k, c in pools["cpu"]["blocks"].items() for n in c)
+    if not state_err < 1e-4:
+        raise AssertionError(f"xlstm admission state card vs CPU max |err| {state_err}")
+    err = _teacher_forced(torch, cfg, params, gparams, pools, torch.tensor([[0], [39]]))
+    log(f"[reference] reduced {cfg.name} (1 period, f32: 5 mLSTM, 1 sLSTM): 40-token "
+        f"chunked admission, state card vs CPU max |err| {state_err:.2e} (tol 1e-4); 8 "
         f"teacher-forced decode steps, logits card vs CPU max |err| {err:.2e} (tol 1e-4)")
 
 
@@ -1044,24 +1201,27 @@ def _teacher_forced(torch, cfg, params, gparams, pools, tok):
 
 # ---------------------------------------------------------------- phase 9
 RUNTIME_CAPACITY = 512               # lanes of 32 pages of 16 tokens; the workload needs 285
+# the reference trace harness's config (tests/test_orchestrator.py)
+RUNTIME_BASE = dict(scheduler="pps", migration=True, max_active=2, quantum=8,
+                    link_bandwidth=float("inf"), trace=True, seed=5, sanitize=True)
 CAPTURE_EVERY = 2_500                # keep the inputs of every 2,500th decode-kernel call
 
 
 class _Capture:
-    """While the runtime runs, keeps a copy of the inputs of every
-    ``CAPTURE_EVERY``-th call of a decode kernel's wrapper: the inputs the
-    runtime's decode steps give it, masked lanes at their frozen positions
-    included.  The wrapper is called as before and counts its own launches;
-    the copy costs one call in 2,500 a few device copies."""
+    """While a path runs, keeps a copy of the inputs of every ``every``-th
+    call of a decode kernel's wrapper: the inputs the path's decode steps give
+    it, masked lanes at their frozen positions included.  The wrapper is
+    called as before and counts its own launches; a kept call costs a few
+    device copies."""
 
-    def __init__(self, module, name):
-        self.module, self.name, self.calls, self.kept = module, name, 0, []
+    def __init__(self, module, name, every=CAPTURE_EVERY):
+        self.module, self.name, self.every, self.calls, self.kept = module, name, every, 0, []
         self.launch = getattr(module, name)
 
     def __enter__(self):
         def capturing(*args):
             self.calls += 1
-            if self.calls % CAPTURE_EVERY == 0:
+            if self.calls % self.every == 0:
                 self.kept.append([a.clone() for a in args])
             return self.launch(*args)
 
@@ -1072,51 +1232,37 @@ class _Capture:
         setattr(self.module, self.name, self.launch)
 
 
-def _hold_kept(torch, tag, kept):
+def _hold_kept(torch, tag, kept, every=CAPTURE_EVERY):
     """The kept live calls of one run against the plain version."""
     if not kept:
         raise AssertionError(f"[runtime] {tag}: no decode-kernel call was kept")
-    err, limit, _ = _held(torch, f"[runtime] {tag} live calls", kept)
+    err, limit, scale, exact, plain_exact = _held(torch, f"[runtime] {tag} live calls", kept)
     q, *_, vl = kept[-1]
-    log(f"[runtime] {tag}: {len(kept)} live decode-kernel calls (every {CAPTURE_EVERY}th; "
+    log(f"[runtime] {tag}: {len(kept)} live decode-kernel calls (every {every}th; "
         f"the last: q {tuple(q.shape)}, cache {tuple(kept[-1][1].shape)}, valid_len "
         f"{sorted(vl.tolist())}) against the plain version, cache poisoned where no lane "
-        f"reads: max|err| {err:.3e} (tol {limit:.3e})")
+        f"reads: max|err| {err:.3e} (tol {limit:.3e}, max|ref| {scale:.3e}); against the "
+        f"exact answer: kernel {exact:.3e}, plain {plain_exact:.3e}")
     return err
 
 
 def _hold_runtime_shapes(torch, paged_args, dense_args):
     """Both decode kernels at the runtime's shapes (taken from a kept live
-    call of each) on drawn inputs whose lengths span the whole lane, so that
-    every piece of the split the wrapper picks, the ragged last one too,
-    holds tokens: lane 0 full, lane 1 one token into the last piece, lane 2
-    exactly one piece, lane 3 one token, the rest drawn in [1, C]."""
-    from repro_torch.kernels import decode_attention as kernel
+    call of each) on drawn inputs whose lengths fill every piece of the split
+    (``_hold_spanning``)."""
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
     errs = {}
     for label, args in (("paged_decode_attention", paged_args),
                         ("decode_attention", dense_args)):
         q = args[0]
         B, KV, G, hd = q.shape
         ps, C = (args[1].shape[1], args[3].shape[1] * args[1].shape[1]) if len(args) == 5 \
-            else (1, args[1].shape[1])
-        L, n_split = kernel._split_plan(B, KV, C, ps, sms)
-        vl = torch.randint(1, C + 1, (B,), generator=gen, device="cuda", dtype=torch.int32)
-        vl[:4] = torch.tensor([C, min(C, (n_split - 1) * L + 1), min(C, L), 1])
-        if len(args) == 5:
-            q, k, v, pt, vl = _paged_inputs(torch, gen, q.dtype, 1, B, KV, G, hd, ps, C // ps,
-                                            B * (C // ps) + 1, C, vl=vl)
-            inputs = (q[0], k[0], v[0], pt, vl)
-        else:
-            q, k, v = _dense_inputs(torch, gen, q.dtype, 1, B, C, KV, G, hd)
-            inputs = (q[0], k[0], v[0], vl)
-        err, limit, _ = _hold_decode(torch, f"[runtime] {label} at the runtime's shape", inputs)
+            else (None, args[1].shape[1])
+        err, limit, shape = _hold_spanning(torch, gen, f"[runtime] {label} at the runtime's shape",
+                                           q.dtype, B, KV, G, hd, C, ps=ps)
         errs[label] = err
-        log(f"[runtime] {label} at the runtime's shape: B={B} KV={KV} G={G} hd={hd} "
-            f"ps={ps} C={C}, n_split {n_split} (pieces of {L}, the last "
-            f"{C - (n_split - 1) * L}), valid_len sum {int(vl.sum())} max {int(vl.max())}; "
-            f"max|err| {err:.3e} (tol {limit:.3e}, cache poisoned where no lane reads)")
+        log(f"[runtime] {label} at the runtime's shape: {shape}; max|err| {err:.3e} "
+            f"(tol {limit:.3e}, cache poisoned where no lane reads)")
     return errs
 
 
@@ -1125,7 +1271,8 @@ def _runtime_run(torch, tag, cfg, params, batch, predictor, config, faults=None,
     """One RolloutRuntime run on the card beside its analytic twin: counts
     zeroed just before the run and read just after; the engine's trace held to
     the sim's; the decode kernel's inputs kept every ``CAPTURE_EVERY``-th
-    call.  Returns (result, launches, checkpoints written, kept inputs)."""
+    call.  Returns (result, launches, checkpoints written, kept inputs, each
+    worker's dispatch_stats)."""
     import copy
     from repro_torch.engine.runtime import make_runtime, run_on_sim, split_restores
     from repro_torch.kernels import decode_attention as kernel
@@ -1192,7 +1339,7 @@ def _runtime_run(torch, tag, cfg, params, batch, predictor, config, faults=None,
             f"{len(device)} device events")
         if busy == 0:
             log("[runtime] torch.profiler recorded no device time on this machine")
-    return res, launches, written, capture.kept
+    return res, launches, written, capture.kept, stats
 
 
 def phase_runtime(torch, smi):
@@ -1203,7 +1350,6 @@ def phase_runtime(torch, smi):
     on live calls of each run and at the runtime's shapes.  Returns the
     decode kernels' launches per run and their largest errors there."""
     import copy
-    import math
     import os
     import tempfile
     from repro_torch.checkpoint import checkpoint as ckpt
@@ -1213,12 +1359,11 @@ def phase_runtime(torch, smi):
 
     cfg, params = _full_width(torch)
     log(f"[runtime] {smi}")
-    base = dict(scheduler="pps", migration=True, max_active=2, quantum=8,
-                link_bandwidth=math.inf, trace=True, seed=5, sanitize=True)
+    base = RUNTIME_BASE
     out = {}
     batch, predictor = build_workbench(n_prompts=6, group_size=4, seed=5)
-    res, launches, _, kept = _runtime_run(torch, "paged", cfg, params, batch, predictor,
-                                          RuntimeConfig(**base))
+    res, launches, _, kept, _ = _runtime_run(torch, "paged", cfg, params, batch, predictor,
+                                             RuntimeConfig(**base))
     if res.preemptions == 0 or res.migrations == 0:
         raise AssertionError(f"[runtime] paged: preemptions {res.preemptions}, "
                              f"migrations {res.migrations}: the parity does not bite")
@@ -1227,10 +1372,10 @@ def phase_runtime(torch, smi):
     paged_args = kept[-1]
 
     batch, predictor = build_workbench(n_prompts=6, group_size=4, seed=5)
-    _, launches, _, kept = _runtime_run(torch, "dense", cfg, params, batch, predictor,
-                                        RuntimeConfig(**dict(base, paged=False,
-                                                             migration=False)),
-                                        profile_run=True)
+    _, launches, _, kept, _ = _runtime_run(torch, "dense", cfg, params, batch, predictor,
+                                           RuntimeConfig(**dict(base, paged=False,
+                                                                migration=False)),
+                                           profile_run=True)
     out["dense"] = launches["decode_attention"]
     errs["decode_attention"] = [_hold_kept(torch, "dense", kept)]
     for name, err in _hold_runtime_shapes(torch, paged_args, kept[-1]).items():
@@ -1242,7 +1387,7 @@ def phase_runtime(torch, smi):
                          config=RuntimeConfig(**base)).makespan
     faults = FaultPlan.chaos(seed=5, n_workers=2, horizon=horizon)
     with tempfile.TemporaryDirectory() as tmp:
-        res, launches, written, kept = _runtime_run(
+        res, launches, written, kept, _ = _runtime_run(
             torch, "chaos", cfg, params, batch, predictor,
             RuntimeConfig(**dict(base, checkpoint_dir=tmp)), faults=faults)
         if res.worker_deaths < 1 or res.recoveries < 1:
@@ -1287,6 +1432,230 @@ def phase_runtime(torch, smi):
     return out
 
 
+# ---------------------------------------------------------------- phase 10
+def _family_model(torch, name, **cut):
+    """A config of the port's registry (depth cut by ``cut``) and its random
+    params on the card, with the peak-memory counter reset.  The previous
+    model's runtime holds reference cycles, so garbage is collected first
+    and the peak is this model's alone."""
+    import dataclasses
+    import gc
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import init_params, param_count
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[families] allocated before {name}: "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    torch.cuda.reset_peak_memory_stats()
+    full = get_config(name)
+    cfg = dataclasses.replace(full, **cut)
+    params, ms = sync_ms(torch, lambda: init_params(cfg, seed=SEED, device="cuda"))
+    depth = (f"{cfg.n_layers} layers" if cfg == full
+             else f"{cfg.n_layers} of its {full.n_layers} layers")
+    log(f"[families] {cfg.name}: {depth} ({' '.join(cfg.block_pattern)}), d_model "
+        f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads, hd {cfg.hd}, d_ff {cfg.d_ff}, "
+        f"experts {cfg.n_experts} top-{cfg.top_k} x {cfg.moe_d_ff}, shared {cfg.shared_d_ff}, "
+        f"dense residual {cfg.dense_residual_ff}, vocab {cfg.vocab}, {cfg.dtype}; "
+        f"{param_count(params) / 1e9:.3f} B params, {_nbytes(params) / 1e9:.2f} GB "
+        f"(init {ms:.0f} ms)")
+    return cfg, params
+
+
+def _peak(torch, tag):
+    log(f"[families] {tag}: peak allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+
+def _check_launches(tag, launches, want):
+    full = {name: 0 for name in launches}
+    full.update(want)
+    if launches != full or not any(want.values()):
+        raise AssertionError(f"[families] {tag}: launches {launches}, want {full}")
+
+
+def _families_moe(torch):
+    """qwen2-moe-a2.7b at full width under the runtime, on phase 9's workload
+    and settings: the paged plane and the dense plane, each trace held to the
+    sim's; every decode step (a per-token tool absorption included) launches
+    the plane's decode kernel once a layer.  Returns {plane: (launches,
+    largest error of the kept live calls)}."""
+    import gc
+    from repro_torch.engine.runtime import RuntimeConfig, build_workbench
+
+    cfg, params = _family_model(torch, "qwen2_moe_a2_7b")
+    out = {}
+    for plane, config in (("paged", RuntimeConfig(**RUNTIME_BASE)),
+                          ("dense", RuntimeConfig(**dict(RUNTIME_BASE, paged=False,
+                                                         migration=False)))):
+        tag = f"qwen2-moe {plane}"
+        gc.collect()                                # the previous run's runtime
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        batch, predictor = build_workbench(n_prompts=6, group_size=4, seed=5)
+        res, launches, _, kept, stats = _runtime_run(torch, tag, cfg, params, batch, predictor,
+                                                     config)
+        if plane == "paged" and (res.preemptions == 0 or res.migrations == 0):
+            raise AssertionError(f"[families] {tag}: preemptions {res.preemptions}, "
+                                 f"migrations {res.migrations}: the parity does not bite")
+        if any(s["prefill_dispatches"] for s in stats):
+            raise AssertionError(f"[families] {tag}: MoE took chunked admission")
+        steps = sum(s["decode_steps"] + s["absorbed_tokens"] for s in stats)
+        name = "paged_decode_attention" if plane == "paged" else "decode_attention"
+        _check_launches(tag, launches, {name: cfg.n_layers * steps})
+        log(f"[families] {tag}: {sum(s['decode_steps'] for s in stats)} decode steps + "
+            f"{sum(s['absorbed_tokens'] for s in stats)} tool tokens absorbed one step each "
+            f"= {steps} steps; {name} launches {launches[name]} = {cfg.n_layers} x {steps}")
+        _peak(torch, tag)
+        out[plane] = (launches[name], _hold_kept(torch, tag, kept))
+        del kept
+    del params
+    return out
+
+
+def _families_xlstm(torch):
+    """xlstm-350m at full width: two paged workers (pure-state pools) and a
+    dense one; two GRPO groups of 4 admitted by chunked recurrent prefill;
+    decode, a chunked extend, preempt and resume, migration paged -> dense ->
+    paged, a checkpoint restored, each lane's state held exactly; a released
+    slot readmitted, its state equal to a fresh lane's.  No kernel of the
+    repo runs (xLSTM has no TPU kernel)."""
+    import numpy as np
+    from repro_torch.engine.paging import check_block_conservation
+    from repro_torch.engine.sampler import SamplerConfig
+    from repro_torch.engine.worker import RolloutWorker
+
+    cfg, params = _family_model(torch, "xlstm_350m")
+    kw = dict(capacity=1024, max_slots=8, sampler=SamplerConfig(1.0, 0.9), seed=SEED,
+              device="cuda")
+    w0 = RolloutWorker(cfg, params, worker_id=0, page_size=16, **kw)
+    w1 = RolloutWorker(cfg, params, worker_id=1, page_size=16, **kw)
+    wd = RolloutWorker(cfg, params, worker_id=2, paged=False, **kw)
+    if not (w0._paged and w0._chunked and not w0._reuse and w0._page_bytes == 0
+            and not wd._paged):
+        raise AssertionError("xlstm must take paged chunked admission into a pure-state pool")
+    lane_mb = w0._state_bytes / 1e6
+    rng = np.random.default_rng(SEED + 5)
+    groups = [rng.integers(0, cfg.vocab, n).tolist() for n in (512, 300)]
+    run = Script(torch, cfg)
+
+    _reset_launches()                                       # the xlstm path starts here
+    for sid in range(8):
+        run.timed("prefill", lambda: w0.prefill(sid, groups[sid // 4]))
+    _same_state(torch, "GRPO siblings", _lane_state(w0, 0), _lane_state(w0, 1))
+    run.decode(w0, list(range(8)), 32)
+    run.timed("extend", lambda: w0.extend(0, rng.integers(0, cfg.vocab, 16).tolist()))
+    w0.preempt(1)
+    held = _lane_state(w0, 1)
+    run.decode(w0, [0, 2, 3, 4, 5, 6, 7], 8)
+    _same_state(torch, "preempted lane", held, _lane_state(w0, 1))   # masked: state kept
+    run.decode(w0, [1], 8)                                  # resume
+    for src, dst, leg in ((w0, wd, "paged -> dense"), (wd, w1, "dense -> paged")):
+        held = _lane_state(src, 2)
+        pkg = run.timed("migrate", lambda: src.migrate_out(2))
+        run.timed("migrate", lambda: dst.migrate_in(pkg))
+        _same_state(torch, f"migration {leg}", held, _lane_state(dst, 2))
+        run.decode(dst, [2], 8)
+    ck = run.timed("checkpoint", lambda: w0.checkpoint_out(3))
+    run.timed("checkpoint", lambda: w1.migrate_in(dict(ck, seq_id=100)))
+    _same_state(torch, "checkpoint restore", _lane_state(w0, 3), _lane_state(w1, 100))
+    # slot reuse: seq 2's released lane on w0 takes a new admission, which
+    # must start fresh: its state equals the same admission on an unused lane
+    prompt = rng.integers(0, cfg.vocab, 64).tolist()
+    run.timed("prefill", lambda: w0.prefill(200, prompt))
+    run.timed("prefill", lambda: w1.prefill(201, prompt))
+    if w0.store[200].slot != 2 or w1.store[201].slot != 2:
+        raise AssertionError(f"readmission took lanes {w0.store[200].slot}, "
+                             f"{w1.store[201].slot}, not the released lane 2 and a fresh one")
+    _same_state(torch, "readmitted lane vs a fresh lane", _lane_state(w1, 201),
+                _lane_state(w0, 200))
+    run.decode(w0, [200], 8)
+    run.release_all(w0, w1, wd)
+    launches = _read_launches(torch)                        # the xlstm path ends
+    if any(launches.values()):
+        raise AssertionError(f"[families] xlstm launched a repo kernel: {launches}")
+    for i, w in enumerate((w0, w1)):
+        bad = check_block_conservation(w.dispatch_stats())
+        if bad:
+            raise AssertionError(f"xlstm worker {i}: {bad}")
+    admitted = 4 * sum(map(len, groups)) + 2 * len(prompt)
+    log(f"[families] xlstm: state {lane_mb:.1f} MB a lane; 10 admissions ({admitted} tokens, "
+        f"chunked recurrent prefill, {run.times['prefill'] / admitted:.3f} ms a token); decode "
+        f"steps paged {w0.decode_steps} + {w1.decode_steps}, dense {wd.decode_steps}; a "
+        f"16-token chunked extend; lane state held exactly through sibling admission, "
+        f"preemption, 2 migrations, a checkpoint and slot reuse; launches {launches}")
+    steps = w0.decode_steps + w1.decode_steps + wd.decode_steps
+    run.report("families xlstm", steps)
+    del w0, w1, wd, pkg, ck, params
+
+
+def _families_paged(torch, name, prompt_lens, steps, lanes, capacity, **cut):
+    """One paged worker of a config at its published widths: ``lanes``
+    requests in groups of 4 (radix page sharing where the config chunks),
+    ``steps`` decode steps, with 4 of the paged kernel's live calls (the
+    last one included) kept and held to the plain version.  Returns (the
+    paged kernel's launches, the largest error of the kept calls)."""
+    import numpy as np
+    from repro_torch.engine.paging import check_block_conservation
+    from repro_torch.engine.sampler import SamplerConfig
+    from repro_torch.engine.worker import RolloutWorker
+    from repro_torch.kernels import decode_attention as kernel
+
+    cfg, params = _family_model(torch, name, **cut)
+    w = RolloutWorker(cfg, params, capacity=capacity, max_slots=lanes, page_size=16,
+                      sampler=SamplerConfig(1.0, 0.9), seed=SEED, device="cuda")
+    rng = np.random.default_rng(SEED + 6)
+    groups = [rng.integers(0, cfg.vocab, n).tolist() for n in prompt_lens]
+    run = Script(torch, cfg)
+    _reset_launches()                                       # the path starts here
+    for sid in range(lanes):
+        run.timed("prefill", lambda: w.prefill(sid, groups[sid // 4]))
+    stats = w.dispatch_stats()
+    if w._reuse and (stats["blocks_shared"] == 0
+                     or stats["reused_tokens"] < 3 * sum(map(len, groups))):
+        raise AssertionError(f"{cfg.name}: radix page sharing did not engage: {stats}")
+    every = cfg.n_layers * steps // 4
+    with _Capture(kernel, "paged_decode_attention", every) as capture:
+        run.decode(w, list(range(lanes)), steps)
+    run.release_all(w)
+    launches = _read_launches(torch)                        # the path ends
+    _check_launches(cfg.name, launches, {"paged_decode_attention": cfg.n_layers * steps})
+    bad = check_block_conservation(w.dispatch_stats())
+    if bad:
+        raise AssertionError(f"{cfg.name}: {bad}")
+    log(f"[families] {cfg.name}: {lanes} requests (prompts of "
+        f"{', '.join(map(str, prompt_lens))} tokens, "
+        f"{'chunked, radix page sharing' if w._reuse else 'whole-prompt admission'}; "
+        f"{stats['reused_tokens']} prompt tokens reused), {steps} decode steps; "
+        f"paged_decode_attention launches {launches['paged_decode_attention']} = "
+        f"{cfg.n_layers} x {steps}")
+    run.report(f"families {cfg.name}", steps)
+    err = _hold_kept(torch, cfg.name, capture.kept, every)
+    del w, params, capture
+    return launches["paged_decode_attention"], err
+
+
+def phase_families(torch, smi):
+    """The remaining language-model families on the card: qwen2-moe under the
+    runtime (the main path), xlstm's recurrent lanes, arctic at its published
+    widths cut to one layer, nemotron and phi3 at full width.  Each model is
+    freed before the next.  Returns the decode kernels' launches and their
+    largest errors on kept live calls."""
+    log(f"[families] {smi}")
+    moe = _families_moe(torch)
+    torch.cuda.empty_cache()
+    _families_xlstm(torch)
+    torch.cuda.empty_cache()
+    # arctic: 35 layers of 13.6 B params do not fit on one 80 GB card
+    paged = [moe["paged"],
+             _families_paged(torch, "arctic_480b", (1024,), 32, 4, 2048, n_periods=1)]
+    torch.cuda.empty_cache()
+    for name in ("nemotron_4_15b", "phi3_medium_14b"):
+        paged.append(_families_paged(torch, name, (300, 257), 32, 8, 1024))
+        torch.cuda.empty_cache()
+    return {"paged": sum(n for n, _ in paged), "dense": moe["dense"][0],
+            "max_abs_err": {"paged_decode_attention": max(e for _, e in paged),
+                            "decode_attention": moe["dense"][1]}}
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         print("chip_smoke: src/repro_torch not found next to this script", file=sys.stderr)
@@ -1315,6 +1684,7 @@ def main() -> int:
         if min(runtime[run] for run in ("paged", "dense", "chaos")) == 0:
             raise AssertionError(f"a decode kernel never launched under the runtime: "
                                  f"{runtime}")
+        families = timed("families", phase_families, torch, info["smi"])
     except Exception:                                  # a failed phase fails the run
         traceback.print_exc()
         return 1
@@ -1326,12 +1696,16 @@ def main() -> int:
          "launches": paged_launches,
          "runtime_launches": runtime["paged"] + runtime["chaos"],
          "runtime_max_abs_err": runtime["max_abs_err"]["paged_decode_attention"],
+         "families_launches": families["paged"],
+         "families_max_abs_err": families["max_abs_err"]["paged_decode_attention"],
          **rows["paged_decode_attention"]["bfloat16"]},
         {"name": "decode_attention", "route": "cuda",
          "source": f"{csrc}/decode_attention.cu",
          "replaces": "src/repro/kernels/decode_attention.py:159",
          "launches": dense_launches, "runtime_launches": runtime["dense"],
          "runtime_max_abs_err": runtime["max_abs_err"]["decode_attention"],
+         "families_launches": families["dense"],
+         "families_max_abs_err": families["max_abs_err"]["decode_attention"],
          **rows["decode_attention"]["bfloat16"]},
         {"name": "mamba_scan", "route": "cuda",
          "source": f"{csrc}/mamba_scan.cu",

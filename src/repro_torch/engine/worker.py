@@ -12,7 +12,8 @@ The worker owns one KV pool, of one of two layouts:
     copies a matched prefix lane to lane; a full pool doubles.  The dense
     decode kernel reads each lane directly.
 
-Recurrent (Mamba) state is dense per lane on both layouts.
+Recurrent state (Mamba, mLSTM, sLSTM) is dense per lane on both layouts,
+and a lane starts from a fresh state at every admission.
 
   * admission: chunked prefill of the suffix the radix cache cannot reuse,
     or one full-sequence forward where chunked prefill does not apply (MoE);
@@ -482,7 +483,10 @@ class RolloutWorker:
         """Share the matched prefix's full pages by refcount (no KV copy),
         copy its boundary partial page device to device, then chunk-prefill
         the suffix straight into freshly mapped pages (or, without chunked
-        prefill, scatter one full forward's lane into them)."""
+        prefill, scatter one full forward's lane into them).  Before the
+        chunks run, the lane's recurrent state row is made fresh, as a dense
+        admission's lane is (the JAX package's paged admission keeps the
+        previous occupant's state); a full forward writes the whole row."""
         S, ps = len(tokens), self.page_size
         blocks: list[int] = []
         boundary: tuple[int, int] | None = None
@@ -513,6 +517,7 @@ class RolloutWorker:
                                self._row_of(blocks), S)
             self.prefilled_tokens += S
             return
+        M.paged_fresh_state(self.cfg, self.pool, slot)
         for buf, n in self._chunks(tokens, reuse_eff):
             M.prefill_chunk_paged(self.cfg, self.params, self.pool, slot, buf, n)
         self.prefilled_tokens += S - reuse_eff

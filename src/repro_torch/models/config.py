@@ -3,8 +3,8 @@
 A model is a stack of *periods*: ``block_pattern`` lists the layer kinds of one
 period (``"<mixer>+<mlp>"``), repeated ``n_periods`` times.  Parameters and
 caches carry a leading ``n_periods`` axis.  The port runs the kinds of
-``models.model.PORTED_KINDS`` (attention or Mamba mixers, dense MLP or MoE);
-the other fields are kept so that configurations read the same in both
+``models.model.PORTED_KINDS`` (attention, Mamba and xLSTM mixers, dense MLP
+or MoE); the other fields are kept so that configurations read the same in both
 packages.
 """
 

@@ -318,8 +318,10 @@ def moe(p: dict, x: torch.Tensor, cfg: ModelConfig) -> tuple[torch.Tensor, torch
     (token, choice) pairs, in token order; the rest drop (their contribution
     is 0).  Every expert's product runs over its ``cap`` buffer rows, as in
     the JAX package.  Batched decode is not independent per lane: masked
-    lanes compete for capacity too.  Returns (output (B, S, d), Switch
-    load-balance aux loss)."""
+    lanes compete for capacity too.  With ``shared_d_ff`` a sigmoid-gated
+    shared SwiGLU MLP (qwen2-moe) and with ``dense_residual_ff`` a dense
+    SwiGLU MLP (arctic) add to every token's output; neither enters the aux
+    loss.  Returns (output (B, S, d), Switch load-balance aux loss)."""
     B, S, D = x.shape
     T = B * S
     E, K = cfg.n_experts, cfg.top_k
@@ -358,6 +360,16 @@ def moe(p: dict, x: torch.Tensor, cfg: ModelConfig) -> tuple[torch.Tensor, torch
         0, eid, torch.ones(T * K, dtype=F32, device=dev))
     frac_tokens = assigned / torch.clamp(assigned.sum(), min=1.0)
     aux = E * torch.sum(frac_tokens * gates.mean(0))
+
+    if cfg.shared_d_ff:                       # qwen2-moe's shared experts, one SwiGLU MLP
+        s_out = (F.silu(xf @ p["ws_gate"]) * (xf @ p["ws_in"])) @ p["ws_out"]
+        # the gate's product runs in the model dtype, is cast to f32 for the
+        # sigmoid and back before it scales the shared output
+        gate = torch.sigmoid((xf @ p["shared_gate"]).to(F32))[:, None]
+        y = y + gate.to(xf.dtype) * s_out
+    if cfg.dense_residual_ff:                 # arctic's dense residual beside the experts
+        y = y + mlp({"w_in": p["wd_in"], "w_gate": p["wd_gate"], "w_out": p["wd_out"]},
+                    xf, "swiglu")
     return y.reshape(B, S, D), aux
 
 
@@ -418,3 +430,173 @@ def mamba_step(p: dict, x: torch.Tensor, cfg: ModelConfig, state: dict
     y = (y + p["m_D"].to(F32) * xc.to(F32)).to(x.dtype)
     y = y * F.silu(z)
     return (y @ p["m_out"])[:, None], {"h": h, "conv": hist[:, 1:]}
+
+
+# ----------------------------------------------------------------- xLSTM
+
+def _mlstm_qkv(p: dict, xi: torch.Tensor):
+    """q, k, v (..., H, hd) in the model dtype; input and forget gate
+    pre-activations (..., H) in f32."""
+    q = torch.einsum("...d,dhk->...hk", xi, p["l_q"])
+    k = torch.einsum("...d,dhk->...hk", xi, p["l_k"])
+    v = torch.einsum("...d,dhk->...hk", xi, p["l_v"])
+    i_pre = torch.einsum("...d,dh->...h", xi, p["l_ig"]).to(F32)
+    f_pre = torch.einsum("...d,dh->...h", xi, p["l_fg"]).to(F32)
+    return q, k, v, i_pre, f_pre
+
+
+MLSTM_CHUNK = 256
+
+
+def fresh_mlstm_state(B: int, H: int, hd: int, device) -> dict:
+    """The mLSTM state before any token: C, n zero and the stabiliser m at
+    -1e30 (so the first token's input gate sets it), all f32."""
+    return {"C": torch.zeros((B, H, hd, hd), dtype=F32, device=device),
+            "n": torch.zeros((B, H, hd), dtype=F32, device=device),
+            "m": torch.full((B, H), -1e30, dtype=F32, device=device)}
+
+
+def fresh_slstm_state(B: int, H: int, hd: int, device) -> dict:
+    """The sLSTM state before any token: h, c, n zero and m at -1e30, f32."""
+    st = {k: torch.zeros((B, H, hd), dtype=F32, device=device) for k in ("h", "c", "n")}
+    st["m"] = torch.full((B, H, hd), -1e30, dtype=F32, device=device)
+    return st
+
+
+def mlstm_full(p: dict, x: torch.Tensor, cfg: ModelConfig) -> tuple[torch.Tensor, dict]:
+    """Chunk-recurrent mLSTM (matrix memory, exponential gating, stabilised).
+
+    Within a chunk of ``MLSTM_CHUNK`` steps the outputs come from a decay-
+    weighted attention-like product; across chunks the (C, n, m) state
+    carries, all in f32.  x: (B, S, d).  Returns (out (B, S, d), the carry
+    after the last token {"C": (B, H, hd, hd), "n": (B, H, hd), "m": (B, H)}),
+    the state a decode step continues from.  (The JAX package reruns the
+    sequential recurrence for that state; the carry equals it in exact
+    arithmetic, padding rows having a zero input weight and a unit forget
+    gate.)"""
+    B, S, _ = x.shape
+    xi = x @ p["l_up"]
+    z = F.silu(x @ p["l_z"])
+    di = xi.shape[-1]
+    H = cfg.n_heads
+    hd = di // H
+    q, k, v, i_pre, f_pre = _mlstm_qkv(p, xi)                 # (B,S,H,hd), (B,S,H)
+    q = q.transpose(1, 2)                                     # (B,H,S,hd)
+    k = k.transpose(1, 2) / math.sqrt(hd)
+    v = v.transpose(1, 2)
+    i_pre = i_pre.transpose(1, 2)                             # (B,H,S)
+    logf = F.logsigmoid(f_pre.transpose(1, 2))
+
+    cs = min(MLSTM_CHUNK, S)
+    nc = -(-S // cs)
+    pad = nc * cs - S
+    if pad:
+        q, k, v = (F.pad(t, (0, 0, 0, pad)) for t in (q, k, v))
+        i_pre = F.pad(i_pre, (0, pad), value=-1e30)
+        logf = F.pad(logf, (0, pad))
+    causal = torch.tril(torch.ones((cs, cs), dtype=torch.bool, device=x.device))
+    st = fresh_mlstm_state(B, H, hd, x.device)
+    hs = []
+    for c in range(nc):
+        sl = slice(c * cs, (c + 1) * cs)
+        qi, ki, vi = q[:, :, sl].to(F32), k[:, :, sl].to(F32), v[:, :, sl].to(F32)
+        ii, fi = i_pre[:, :, sl], logf[:, :, sl]
+        Cst, nst, mst = st["C"], st["n"], st["m"]
+        fcum = torch.cumsum(fi, dim=-1)                       # sum_{u<=t} log f_u
+        ftot = fcum[..., -1]
+        # per-query stabiliser m_out_t = fcum_t + max(m, cummax(i - fcum))
+        runmax = torch.cummax(ii - fcum, dim=-1).values
+        m_out = fcum + torch.maximum(mst[..., None], runmax)  # (B,H,cs)
+        dec_q = torch.exp(mst[..., None] + fcum - m_out)      # inter-chunk decay per query
+        inter = torch.einsum("bhsd,bhde->bhse", qi, Cst) * dec_q[..., None]
+        n_inter = torch.einsum("bhsd,bhd->bhs", qi, nst) * dec_q
+        # intra weights D[t1, t2] = exp(i_t2 + fcum_t1 - fcum_t2 - m_out_t1), t2 <= t1
+        dmat = torch.exp((ii - fcum)[..., None, :] + (fcum - m_out)[..., :, None])
+        dmat = torch.where(causal, dmat, torch.zeros((), dtype=F32, device=x.device))
+        sd = torch.einsum("bhsd,bhtd->bhst", qi, ki) * dmat
+        intra = torch.einsum("bhst,bhtd->bhsd", sd, vi)
+        n_vec = n_inter + sd.sum(-1)
+        hs.append((inter + intra)
+                  / torch.maximum(torch.abs(n_vec), torch.exp(-m_out))[..., None])
+        # the state at the chunk's end: key t weighs log w_t = i_t + ftot - fcum_t
+        wlog = ii + (ftot[..., None] - fcum)
+        m_new = torch.maximum(mst + ftot, wlog.max(dim=-1).values)
+        wk = torch.exp(wlog - m_new[..., None])
+        decay = torch.exp(mst + ftot - m_new)
+        st = {"C": Cst * decay[..., None, None]
+                   + torch.einsum("bhtd,bhte->bhde", ki * wk[..., None], vi),
+              "n": nst * decay[..., None] + torch.einsum("bhtd,bht->bhd", ki, wk),
+              "m": m_new}
+    h = torch.cat(hs, dim=2)[:, :, :S]                        # (B,H,S,hd)
+    h = h.transpose(1, 2).reshape(B, S, di).to(x.dtype)
+    out = h * z + p["l_skip"] * xi
+    return out @ p["l_down"], st
+
+
+def mlstm_step(p: dict, x: torch.Tensor, cfg: ModelConfig, state: dict
+               ) -> tuple[torch.Tensor, dict]:
+    """One-token mLSTM.  x: (B, 1, d); state = {"C": (B,H,hd,hd), "n":
+    (B,H,hd), "m": (B,H)}, f32.  Returns (out (B, 1, d), new state); the
+    state passed in is not changed."""
+    B = x.shape[0]
+    xi = x[:, 0] @ p["l_up"]
+    z = F.silu(x[:, 0] @ p["l_z"])
+    di = xi.shape[-1]
+    hd = di // cfg.n_heads
+    q, k, v, i_pre, f_pre = _mlstm_qkv(p, xi)                 # (B,H,hd), (B,H)
+    k = k / math.sqrt(hd)
+    logf = F.logsigmoid(f_pre)
+    m_new = torch.maximum(logf + state["m"], i_pre)
+    fw = torch.exp(logf + state["m"] - m_new)[..., None]
+    iw = torch.exp(i_pre - m_new)[..., None]
+    kf, qf = k.to(F32), q.to(F32)
+    C = state["C"] * fw[..., None] + iw[..., None] * torch.einsum(
+        "bhd,bhe->bhde", kf, v.to(F32))
+    n = state["n"] * fw + iw * kf
+    num = torch.einsum("bhde,bhd->bhe", C, qf)
+    den = torch.maximum(torch.abs(torch.einsum("bhd,bhd->bh", n, qf)), torch.exp(-m_new))
+    h = (num / den[..., None]).reshape(B, di).to(x.dtype)
+    out = h * z + p["l_skip"] * xi
+    return (out @ p["l_down"])[:, None], {"C": C, "n": n, "m": m_new}
+
+
+def _slstm_cell(p: dict, xt: torch.Tensor, state: dict) -> dict:
+    """xt: (B, 4, H, hd) input pre-activations; state h/c/n/m: (B, H, hd) f32."""
+    rh = torch.einsum("bhd,ghde->bghe", state["h"].to(F32), p["s_r"].to(F32))
+    pre = xt.to(F32) + rh + p["s_b"].to(F32)
+    i_pre, f_pre, z_pre, o_pre = pre[:, 0], pre[:, 1], pre[:, 2], pre[:, 3]
+    logf = F.logsigmoid(f_pre)
+    m_new = torch.maximum(logf + state["m"], i_pre)
+    i_g = torch.exp(i_pre - m_new)
+    f_g = torch.exp(logf + state["m"] - m_new)
+    c = f_g * state["c"] + i_g * torch.tanh(z_pre)
+    n = f_g * state["n"] + i_g
+    h = torch.sigmoid(o_pre) * c / torch.clamp(n, min=1e-6)
+    return {"h": h, "c": c, "n": n, "m": m_new}
+
+
+def slstm_full(p: dict, x: torch.Tensor, cfg: ModelConfig) -> tuple[torch.Tensor, dict]:
+    """Full-sequence sLSTM, a sequential loop over S (its recurrence runs
+    through h, so no chunked form exists).  x: (B, S, d).  Returns (out (B,
+    S, d), the state after the last token {"h", "c", "n", "m": (B, H, hd)})."""
+    B, S, D = x.shape
+    H = cfg.n_heads
+    xt = torch.einsum("bsd,dghe->bsghe", x, p["s_w"])         # (B,S,4,H,hd)
+    st = fresh_slstm_state(B, H, D // H, x.device)
+    hs = []
+    for t in range(S):
+        st = _slstm_cell(p, xt[:, t], st)
+        hs.append(st["h"])
+    h = torch.stack(hs, dim=1).reshape(B, S, D).to(x.dtype)
+    return h @ p["s_out"], st
+
+
+def slstm_step(p: dict, x: torch.Tensor, cfg: ModelConfig, state: dict
+               ) -> tuple[torch.Tensor, dict]:
+    """One-token sLSTM.  x: (B, 1, d); state h/c/n/m: (B, H, hd) f32.
+    Returns (out (B, 1, d), new state)."""
+    B = x.shape[0]
+    xt = torch.einsum("bd,dghe->bghe", x[:, 0], p["s_w"])
+    st = _slstm_cell(p, xt, state)
+    h = st["h"].reshape(B, -1).to(x.dtype)
+    return (h @ p["s_out"])[:, None], st

@@ -3,13 +3,17 @@
 Parameters and caches keep the JAX package's layout: nested dicts keyed
 ``blocks/<ii>_<kind>/...`` with a leading ``n_periods`` axis on every stacked
 leaf.  JAX's ``lax.scan`` over periods becomes a Python loop that indexes that
-axis.  The kinds of ``PORTED_KINDS`` run (attention or Mamba mixers, dense
-MLP or MoE); the other kinds raise.
+axis.  The kinds of ``PORTED_KINDS`` run: attention, Mamba, mLSTM and sLSTM
+mixers; dense MLP or MoE (with qwen2-moe's shared experts or arctic's dense
+residual).  Audio and vision-language configs raise.
 
 A dense cache (a "slot pool" when its batch axis holds a worker's lanes) is
 ``{"pos": (B,) int32, "blocks": {key: leaves}}``, where an attention layer's
-leaves are ``{"k", "v": (P, B, C, KV, hd)}`` and a Mamba layer's are its
-recurrent state ``{"h": (P, B, di, N) f32, "conv": (P, B, W-1, di)}``; with
+leaves are ``{"k", "v": (P, B, C, KV, hd)}`` and a recurrent layer's are its
+state: Mamba ``{"h": (P, B, di, N) f32, "conv": (P, B, W-1, di)}``, mLSTM
+``{"C": (P, B, H, hd, hd), "n": (P, B, H, hd), "m": (P, B, H)}`` and sLSTM
+``{"h", "c", "n", "m": (P, B, H, hd)}``, the xLSTM leaves f32 with ``m``
+starting at -1e30; with
 a sliding window the attention leaves are a ring (token ``t`` at slot
 ``t % C``).  The paged pool is ``{"pos": (B,) int32, "page_table": (B,
 num_pages) int32, "blocks": ...}`` where attention leaves are block pools
@@ -32,7 +36,11 @@ from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
 
-PORTED_KINDS = ("attn+mlp", "attn+moe", "mamba+mlp", "mamba+moe")
+PORTED_KINDS = ("attn+mlp", "attn+moe", "attn+moe_dr", "mamba+mlp", "mamba+moe",
+                "mlstm", "slstm")
+# recurrent mixers: (full-sequence function, one-token step)
+RECURRENT = {"mamba": (L.mamba_full, L.mamba_step), "mlstm": (L.mlstm_full, L.mlstm_step),
+             "slstm": (L.slstm_full, L.slstm_step)}
 F32 = torch.float32
 
 
@@ -43,11 +51,11 @@ def torch_dtype(cfg: ModelConfig) -> torch.dtype:
 
 def check_ported(cfg: ModelConfig) -> None:
     """Raise unless every layer kind of ``cfg`` is one the port runs."""
-    missing = sorted(set(cfg.block_pattern) - set(PORTED_KINDS))
     if cfg.arch_type in ("audio", "vlm"):
-        missing.append(cfg.arch_type)
-    if cfg.shared_d_ff or cfg.dense_residual_ff:
-        missing.append("MoE shared experts / dense residual")
+        raise NotImplementedError(
+            f"{cfg.name}: {cfg.arch_type} configs have no worker path in the port yet "
+            "(ROADMAP Queue 1 slice 5 item 3)")
+    missing = sorted(set(cfg.block_pattern) - set(PORTED_KINDS))
     if missing:
         raise NotImplementedError(
             f"{cfg.name}: {missing} are not ported yet (ported kinds: "
@@ -82,6 +90,14 @@ def _init_moe(cfg: ModelConfig, normal) -> dict:
          "we_out": normal((E, eff, d), s / math.sqrt(2 * cfg.n_layers))}
     if cfg.activation == "swiglu":
         p["we_gate"] = normal((E, d, eff), s)
+    if cfg.shared_d_ff:
+        sff = cfg.shared_d_ff
+        p.update(ws_in=normal((d, sff), s), ws_gate=normal((d, sff), s),
+                 ws_out=normal((sff, d), s), shared_gate=normal((d,), s))
+    if cfg.dense_residual_ff:
+        dff = cfg.dense_residual_ff
+        p.update(wd_in=normal((d, dff), s), wd_gate=normal((d, dff), s),
+                 wd_out=normal((dff, d), s))
     return p
 
 
@@ -96,6 +112,30 @@ def _init_mamba(cfg: ModelConfig, normal, ones) -> dict:
             "m_Alog": torch.log(ones((di, N), F32).cumsum(-1)),       # log(1..N)
             "m_D": ones((di,), F32),
             "m_out": normal((di, d), s / math.sqrt(2 * cfg.n_layers))}
+
+
+def _init_mlstm(cfg: ModelConfig, normal, ones) -> dict:
+    d, H, s = cfg.d_model, cfg.n_heads, 0.02
+    di = cfg.xlstm_expand * d
+    hd = di // H
+    return {"l_up": normal((d, di), s), "l_z": normal((d, di), s),
+            "l_q": normal((di, H, hd), s), "l_k": normal((di, H, hd), s),
+            "l_v": normal((di, H, hd), s), "l_ig": normal((di, H), s),
+            "l_fg": normal((di, H), s).add_(1.0),              # biased toward remembering
+            "l_skip": ones((di,)),
+            "l_down": normal((di, d), s / math.sqrt(2 * cfg.n_layers))}
+
+
+def _init_slstm(cfg: ModelConfig, normal, ones) -> dict:
+    d, H, s = cfg.d_model, cfg.n_heads, 0.02
+    hd = d // H
+    return {"s_w": normal((d, 4, H, hd), s), "s_r": normal((4, H, hd, hd), s),
+            "s_b": ones((4, H, hd)).zero_(),
+            "s_out": normal((d, d), s / math.sqrt(2 * cfg.n_layers))}
+
+
+_MIXER_INIT = {"attn": _init_attn, "mamba": _init_mamba, "mlstm": _init_mlstm,
+               "slstm": _init_slstm}
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
@@ -130,8 +170,7 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
     for i, kind in enumerate(cfg.block_pattern):
         mixer, _, mlp_kind = kind.partition("+")
         layer = {"norm1": {"scale": ones((d,))},
-                 "mixer": (_init_attn(cfg, normal, ones) if mixer == "attn"
-                           else _init_mamba(cfg, normal, ones))}
+                 "mixer": _MIXER_INIT[mixer](cfg, normal, ones)}
         if mlp_kind:
             layer["norm2"] = {"scale": ones((d,))}
             layer["mlp"] = (_init_mlp(cfg, normal) if mlp_kind == "mlp"
@@ -253,7 +292,7 @@ def _layer_full(cfg, kind, p, x, positions, lane):
         if lane is not None:
             _kv_from_full(cfg, p["mixer"], h, positions, lane)
     else:
-        out, state = L.mamba_full(p["mixer"], h, cfg)
+        out, state = RECURRENT[mixer][0](p["mixer"], h, cfg)
         x = x + out
         if lane is not None:
             for name, leaf in lane.items():
@@ -322,8 +361,8 @@ def _mlp_step(cfg, mlp_kind, p, x):
 def _layer_step(cfg, kind, p, x, cache, pos, page_table, active):
     mixer, _, mlp_kind = kind.partition("+")
     h = L.block_norm(cfg, p["norm1"], x)
-    if mixer == "mamba":
-        out, new = L.mamba_step(p["mixer"], h, cfg, cache)
+    if mixer in RECURRENT:
+        out, new = RECURRENT[mixer][1](p["mixer"], h, cfg, cache)
         _merge_state(active, new, cache)
     elif page_table is None:
         out, _, _ = L.attention_decode(p["mixer"], h, cfg, cache["k"], cache["v"], pos,
@@ -362,19 +401,28 @@ def decode_step(cfg: ModelConfig, params, cache: dict, tokens: torch.Tensor,
 
 # ------------------------------------------------------------------ dense cache
 
-def _state_leaves(cfg: ModelConfig, lanes: int, device) -> dict:
-    """Zeroed recurrent state of one Mamba layer kind for ``lanes`` lanes."""
-    di, P = cfg.ssm_expand * cfg.d_model, cfg.n_periods
-    return {"h": torch.zeros((P, lanes, di, cfg.ssm_state_dim), dtype=F32, device=device),
-            "conv": torch.zeros((P, lanes, cfg.ssm_conv_width - 1, di),
-                                dtype=torch_dtype(cfg), device=device)}
+def _state_leaves(cfg: ModelConfig, kind: str, lanes: int, device) -> dict:
+    """Fresh recurrent state of one layer kind for ``lanes`` lanes: Mamba's
+    zeroed, xLSTM's as the layers start it (``m`` at -1e30)."""
+    mixer = kind.partition("+")[0]
+    P, d, H = cfg.n_periods, cfg.d_model, cfg.n_heads
+    if mixer == "mamba":
+        di = cfg.ssm_expand * d
+        return {"h": torch.zeros((P, lanes, di, cfg.ssm_state_dim), dtype=F32, device=device),
+                "conv": torch.zeros((P, lanes, cfg.ssm_conv_width - 1, di),
+                                    dtype=torch_dtype(cfg), device=device)}
+    if mixer == "mlstm":
+        st = L.fresh_mlstm_state(P * lanes, H, cfg.xlstm_expand * d // H, device)
+    else:
+        st = L.fresh_slstm_state(P * lanes, H, d // H, device)
+    return {name: t.reshape((P, lanes) + tuple(t.shape[1:])) for name, t in st.items()}
 
 
 def init_cache(cfg: ModelConfig, batch_size: int, capacity: int, device,
                start_pos: int = 0) -> dict:
     """Empty dense cache: ``capacity`` zeroed KV slots per lane and attention
-    layer (with a sliding window, the ring's size), zeroed recurrent state per
-    lane and Mamba layer."""
+    layer (with a sliding window, the ring's size), fresh recurrent state per
+    lane and recurrent layer."""
     check_ported(cfg)
     dtype = torch_dtype(cfg)
     shape = (cfg.n_periods, batch_size, capacity, cfg.n_kv_heads, cfg.hd)
@@ -383,18 +431,19 @@ def init_cache(cfg: ModelConfig, batch_size: int, capacity: int, device,
         blocks[f"{i:02d}_{kind}"] = (
             {"k": torch.zeros(shape, dtype=dtype, device=device),
              "v": torch.zeros(shape, dtype=dtype, device=device)} if _paged_kind(kind)
-            else _state_leaves(cfg, batch_size, device))
+            else _state_leaves(cfg, kind, batch_size, device))
     return {"pos": torch.full((batch_size,), start_pos, dtype=torch.int32, device=device),
             "blocks": blocks}
 
 
-def _recurrent_chunk(cfg, p, h, state, length):
-    """Run the one-token Mamba step over a (1, C) chunk; rows >= ``length``
-    are padding and keep the previous state.  ``state`` (a lane's leaves,
-    batch 1) is updated in place.  Returns the chunk's mixer output."""
+def _recurrent_chunk(step_fn, cfg, p, h, state, length):
+    """Run a recurrent mixer's one-token ``step_fn`` over a (1, C) chunk; rows
+    >= ``length`` are padding and keep the previous state.  ``state`` (a
+    lane's leaves, batch 1) is updated in place.  Returns the chunk's mixer
+    output."""
     outs = []
     for j in range(h.shape[1]):
-        out, new = L.mamba_step(p, h[:, j:j + 1], cfg, state)
+        out, new = step_fn(p, h[:, j:j + 1], cfg, state)
         if j < length:
             _merge_state(None, new, state)
         outs.append(out)
@@ -402,7 +451,7 @@ def _recurrent_chunk(cfg, p, h, state, length):
 
 
 def _chunk_mlp(cfg, mlp_kind, p, x):
-    if mlp_kind == "moe":
+    if mlp_kind not in ("", "mlp"):
         raise ValueError("prefill_chunk: MoE layers are not chunk-safe "
                          "(padding rows would consume expert capacity)")
     return _mlp_step(cfg, mlp_kind, p, x)
@@ -411,8 +460,8 @@ def _chunk_mlp(cfg, mlp_kind, p, x):
 def _layer_chunk(cfg, kind, p, x, cache, off, length):
     mixer, _, mlp_kind = kind.partition("+")
     h = L.block_norm(cfg, p["norm1"], x)
-    if mixer == "mamba":
-        out = _recurrent_chunk(cfg, p["mixer"], h, cache, length)
+    if mixer in RECURRENT:
+        out = _recurrent_chunk(RECURRENT[mixer][1], cfg, p["mixer"], h, cache, length)
     else:
         out, _, _ = L.attention_prefill_chunk(p["mixer"], h, cfg, cache["k"], cache["v"],
                                               off, length)
@@ -490,8 +539,8 @@ def concat_pools(a: dict, b: dict) -> dict:
 
 def init_paged_pool(cfg: ModelConfig, max_lanes: int, num_blocks: int, page_size: int,
                     num_pages: int, device) -> dict:
-    """Empty paged pool: zeroed block pools for every attention kind, zeroed
-    dense per-lane state for every Mamba kind."""
+    """Empty paged pool: zeroed block pools for every attention kind, fresh
+    dense per-lane state for every recurrent kind."""
     check_ported(cfg)
     dtype = torch_dtype(cfg)
     shape = (cfg.n_periods, num_blocks, page_size, cfg.n_kv_heads, cfg.hd)
@@ -500,7 +549,7 @@ def init_paged_pool(cfg: ModelConfig, max_lanes: int, num_blocks: int, page_size
         blocks[f"{i:02d}_{kind}"] = (
             {"k": torch.zeros(shape, dtype=dtype, device=device),
              "v": torch.zeros(shape, dtype=dtype, device=device)} if _paged_kind(kind)
-            else _state_leaves(cfg, max_lanes, device))
+            else _state_leaves(cfg, kind, max_lanes, device))
     return {"pos": torch.zeros((max_lanes,), dtype=torch.int32, device=device),
             "page_table": torch.zeros((max_lanes, num_pages), dtype=torch.int32,
                                       device=device),
@@ -520,9 +569,9 @@ def _state_blocks(pool: dict):
 def _layer_chunk_paged(cfg, kind, p, x, cache, pt_row, slot, off, length):
     mixer, _, mlp_kind = kind.partition("+")
     h = L.block_norm(cfg, p["norm1"], x)
-    if mixer == "mamba":                     # the lane's dense state row, a view
+    if mixer in RECURRENT:                   # the lane's dense state row, a view
         state = {name: leaf[slot:slot + 1] for name, leaf in cache.items()}
-        out = _recurrent_chunk(cfg, p["mixer"], h, state, length)
+        out = _recurrent_chunk(RECURRENT[mixer][1], cfg, p["mixer"], h, state, length)
     else:
         out, _, _ = L.attention_prefill_chunk_paged(p["mixer"], h, cfg, cache["k"],
                                                     cache["v"], pt_row, off, length)
@@ -563,6 +612,17 @@ def paged_set_lane(pool: dict, slot: int, row, pos0: int) -> dict:
     """Map lane ``slot``: write its page-table row and reset its position."""
     pool["pos"][slot] = pos0
     pool["page_table"][slot] = _row(pool, row)
+    return pool
+
+
+def paged_fresh_state(cfg: ModelConfig, pool: dict, slot: int) -> dict:
+    """Give lane ``slot`` a fresh recurrent state (``init_cache``'s), in
+    place, so that a chunked admission into a reused lane starts as a dense
+    admission does.  (The JAX package's paged admission leaves the previous
+    occupant's state in the row, so a reused lane starts from it.)"""
+    dev = pool["pos"].device
+    _write_state_row(pool, {key: _state_leaves(cfg, key[3:], 1, dev)
+                            for key, _ in _state_blocks(pool)}, slot)
     return pool
 
 
@@ -678,12 +738,13 @@ def grow_paged_blocks(pool: dict, extra: int) -> dict:
 
 def grow_paged_lanes(cfg: ModelConfig, pool: dict, extra: int) -> dict:
     """Append ``extra`` empty lanes: ``pos``, page-table rows and the dense
-    per-lane state grow, the block pools are untouched."""
+    per-lane state (fresh, as ``init_cache``'s) grow, the block pools are
+    untouched."""
     pool["pos"] = torch.cat([pool["pos"], pool["pos"].new_zeros((extra,))])
     pt = pool["page_table"]
     pool["page_table"] = torch.cat([pt, pt.new_zeros((extra, pt.shape[1]))])
-    for _, c in _state_blocks(pool):
+    for key, c in _state_blocks(pool):
+        fresh = _state_leaves(cfg, key[3:], extra, pool["pos"].device)
         for name, leaf in c.items():
-            pad = leaf.new_zeros((leaf.shape[0], extra) + tuple(leaf.shape[2:]))
-            c[name] = torch.cat([leaf, pad], dim=1)
+            c[name] = torch.cat([leaf, fresh[name]], dim=1)
     return pool

@@ -11,12 +11,17 @@ import contextlib
 import copy
 import itertools
 
+import pytest
+import torch
+
 import repro.core.trajectory as jax_trajectory
 import repro_torch.core.trajectory as port_trajectory
 from repro.engine import runtime as JR
 from repro_torch.engine import runtime as TR
 
 SEED = 5          # the seeded long-tail workload of the reference's trace tests
+# a CLI subprocess's environment: one intra-op thread, as ``one_torch_thread``
+ONE_THREAD_ENV = {"OMP_NUM_THREADS": "1"}
 PREDICTOR_STATE = ("weights", "_scale", "_resid_var", "hist_max_tokens", "hist_lengths")
 
 
@@ -55,3 +60,16 @@ def rcfg(mod, **kw):
                 link_bandwidth=float("inf"), trace=True, seed=SEED, sanitize=True)
     base.update(kw)
     return mod.RuntimeConfig(**base)
+
+
+@pytest.fixture(scope="module")
+def one_torch_thread():
+    """One intra-op thread while a module runs (modules use it through
+    ``pytest.mark.usefixtures``): their thousands of tiny ops gain nothing
+    from a thread pool, and beside other test workers on the same cores the
+    pool's threads wait on one another, which made runs many times as long.
+    Results do not depend on it."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)

@@ -1,7 +1,7 @@
 """Ground rules of the port that hold for every file of it.
 
 The port and the scripts that run it on the card (chip_smoke.py,
-tools/decode_timers.py) import PyTorch and never JAX or the JAX package
+tools/) import PyTorch and never JAX or the JAX package
 (``repro``); the port keeps its own copy of what it needs.
 """
 
@@ -11,8 +11,8 @@ from pathlib import Path
 import pytest
 
 REPO = Path(__file__).resolve().parents[1]
-FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [REPO / "chip_smoke.py",
-                                                                 REPO / "tools" / "decode_timers.py"]
+FILES = (sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+         + sorted((REPO / "tools").glob("*.py")))
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
@@ -34,6 +34,20 @@ def test_port_files_exist():
     assert len(FILES) > 10 and all(f.exists() for f in FILES)
     for name in ENTRY_POINTS:                  # each slice's entry points are scanned
         assert REPO / "src" / "repro_torch" / name in FILES, name
+
+
+def test_every_ported_config_is_scanned():
+    """Each architecture of the port's registry is a module of its own in
+    the scanned files, and no config module lies outside the registry."""
+    from repro_torch.configs import ARCHITECTURES, PAPER_CONFIGS, get_config
+
+    configs = REPO / "src" / "repro_torch" / "configs"
+    modules = {f.stem for f in configs.glob("*.py")} - {"__init__"}
+    assert modules == set(ARCHITECTURES) | {"qwen3_paper"}
+    for name in modules:
+        assert configs / f"{name}.py" in FILES, name
+    for name in list(ARCHITECTURES) + list(PAPER_CONFIGS):
+        assert get_config(name).n_layers > 0
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(REPO)))
