@@ -29,7 +29,13 @@ Phases (each raises on failure; any failure exits non-zero with no result line):
               other paged paths' own shapes, so at the splits they get
               (arctic KV 8 G 7, B 4, lanes of 2,048; nemotron KV 8 G 6 and
               phi3 KV 10 G 4, B 8, lanes of 1,024), lengths filling every
-              piece.
+              piece.  Last, the dense kernel at phase 11's cross-attention
+              decode shapes, timed as the other dense rows (SDPA with no
+              mask): whisper's B 8, C 1,500, KV 16, G 1, hd 64 (the split's
+              last piece and last tile ragged) over its 24 layers' caches,
+              and the VLM's B 8, C 1,600, KV 8, G 4, hd 128 over 8; every
+              slot valid, each cache the first B lanes of a buffer whose
+              extra lane is NaN.
 4. slice   -- qwen3-1.7b at full width (28 layers, d_model 2048, bf16, random
               weights from a seed): two paged RolloutWorkers on the card serve
               8 requests in 2 GRPO groups (radix page sharing), decode at
@@ -110,6 +116,23 @@ Phases (each raises on failure; any failure exits non-zero with no result line):
               sharing), 32 decode steps.  Counts zeroed before each path and
               read after it; 4 live paged-kernel calls of each of (c) and (d),
               the last among them, kept and held to the plain version.
+11. encoders -- the audio encoder-decoder and the VLM's gated cross-attention
+              through the model API (forward_full, then decode_step on its
+              dense cache, sampled at temperature 1.0 / top-p 0.9), weights
+              from the seed, each model freed before the next, peak memory
+              logged: (a) whisper-medium at full width (24 encoder and 24
+              decoder layers, d 1,024, MHA hd 64, layernorm, GELU, sinusoidal
+              positions): 8 requests of frame embeddings (8, 1,500, 1,024)
+              bf16 and 64-token prompts admitted at capacity 448, 64 decode
+              steps; (b) llama-3.2-vision-11b at full width (32 self- and 8
+              gated cross-attention layers, G 4, gates set to 0.7): patch
+              embeddings (8, 1,600, 4,096) bf16, 512-token prompts, capacity
+              1,024, 64 decode steps.  The dense kernel's count is zeroed
+              before each and must equal steps x 48 (whisper: 24 self + 24
+              cross) and steps x 40 (the VLM) after; 4 live cross- and 4
+              self-attention calls of each are kept and held to the plain
+              version.  Then both reduced (f32, gates open): admission and 8
+              teacher-forced decode steps, logits card vs CPU.
 
 float32 matrix products run in full float32: TF32 is switched off for matmuls
 and cuDNN.  The next-to-last line is one JSON object describing each kernel;
@@ -265,13 +288,14 @@ def _dense_inputs(torch, gen, dtype, P, B, C, KV, G, hd):
     return q, k, v
 
 
-def _dense_library_call(torch, q, k, v, vl):
+def _dense_library_call(torch, q, k, v, vl=None):
     """Yardstick only (never called by the port): PyTorch SDPA with a
-    valid_len mask."""
+    valid_len mask, or with none where every slot is valid (``vl`` None)."""
     import torch.nn.functional as F
     B, KV, G, hd = q.shape
     C = k.shape[1]
-    mask = (torch.arange(C, device=q.device)[None] < vl[:, None])[:, None, None]
+    mask = (None if vl is None else
+            (torch.arange(C, device=q.device)[None] < vl[:, None])[:, None, None])
     out = F.scaled_dot_product_attention(q.reshape(B, 1, KV * G, hd).transpose(1, 2),
                                          k.transpose(1, 2), v.transpose(1, 2),
                                          attn_mask=mask, enable_gqa=True)
@@ -484,33 +508,10 @@ def phase_kernels(torch):
     # sliding-window ring's (every slot valid)
     for label, B, C in (("decode_attention", 8, 2048), ("decode_attention_ring", 4, 8192)):
         for name in ("bfloat16", "float32"):
-            dtype = getattr(torch, name)
             vl = (torch.full((B,), C, dtype=torch.int32, device="cuda") if C == 8192 else
                   torch.randint(1, C + 1, (B,), generator=gen, device="cuda",
                                 dtype=torch.int32))
-            q, k, v = _dense_inputs(torch, gen, dtype, P, B, C, KV, G, hd)
-            err, limit, scale, *_ = _held(torch, label,
-                                          [(q[p], k[p], v[p], vl) for p in (0, P - 1)])
-            ms, plain_ms, library_ms, host_ms = _time_three(
-                torch, P, lambda i: kernel.decode_attention(q[i], k[i], v[i], vl),
-                lambda i: ref.decode_attention_ref(q[i], k[i], v[i], vl),
-                lambda i: _dense_library_call(torch, q[i], k[i], v[i], vl))
-            lib_err = float((_dense_library_call(torch, q[0], k[0], v[0], vl).float()
-                             - ref.decode_attention_ref(q[0], k[0], v[0], vl).float())
-                            .abs().max())
-            tokens = int(vl.sum())
-            item = q.element_size()
-            nbytes = 2 * tokens * KV * hd * item + 2 * q[0].numel() * item + B * 4
-            row = _row(name, err, ms, plain_ms, library_ms, nbytes, 4 * tokens * KV * G * hd)
-            rows[label][name] = row
-            log(f"[kernels] {label} {name}: B={B} C={C} KV={KV} G={G} hd={hd}, valid_len "
-                f"sum {tokens} max {int(vl.max())}; max|err| {err:.3e} (tol {limit:.3e}, "
-                f"max|ref| {scale:.3e}, poisoned past valid_len); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                f"SDPA {library_ms:.4f} ms (|err| {lib_err:.2e}); bound "
-                f"{row['bound_ms']:.4f} ms ({nbytes / 1e6:.1f} MB, {row['bound_by']}-bound)")
-            _log_split(torch, kernel, label, name, B, KV, C, 1, nbytes, row, host_ms)
-            del q, k, v
-            torch.cuda.empty_cache()
+            rows[label][name] = _dense_row(torch, gen, label, name, P, B, C, KV, G, hd, vl)
     rows["mamba_scan"] = _scan_rows(torch, gen)
     # drawn after the rows above, whose inputs stay those of earlier runs:
     # qwen2-moe-a2.7b's runtime decode (phase 10), 24 lanes, MHA (KV 16, G
@@ -519,7 +520,60 @@ def phase_kernels(torch):
         _paged_row(torch, gen, "paged_decode_attention qwen2-moe", name, 24, 24, 16, 1, hd,
                    ps=16, num_pages=32, max_len=512)
     _family_holds(torch, gen)
+    # drawn last: the cross-attention decode of the audio and VLM models
+    # (phase 11), one cross cache a layer, every slot valid
+    for label, P, C, KV, G, hd in CROSS_SHAPES:
+        rows[label] = {name: _dense_row(torch, gen, label, name, P, 8, C, KV, G, hd, None)
+                       for name in ("bfloat16", "float32")}
     return rows
+
+
+# (row, layers P, C, KV, G, hd) of phase 11's cross-attention decode:
+# whisper-medium's 24 decoder layers over 1,500 encoder frames (MHA, hd 64),
+# llama-3.2-vision-11b's 8 cross layers over 1,600 image patches (G 4)
+CROSS_SHAPES = (("decode_attention_cross_whisper", 24, 1500, 16, 1, 64),
+                ("decode_attention_cross_vlm", 8, 1600, 8, 4, 128))
+
+
+def _dense_row(torch, gen, label, name, P, B, C, KV, G, hd, vl):
+    """The dense kernel at one shape over P periods' caches: held to its
+    plain version on the first and last period, then timed against the
+    plain version and SDPA (L2 cold).  ``vl`` None is cross-attention decode:
+    every slot valid (valid_len = C), SDPA with no mask, and each period's
+    cache the first B lanes of a B + 1 lane buffer whose last lane is NaN, so
+    that a read past a lane's end shows.  Returns the row."""
+    from repro_torch.kernels import decode_attention as kernel
+    from repro_torch.kernels import ref
+    dtype = getattr(torch, name)
+    cross = vl is None
+    q, k, v = _dense_inputs(torch, gen, dtype, P, B + 1 if cross else B, C, KV, G, hd)
+    if cross:
+        k[:, B], v[:, B] = float("nan"), float("nan")
+        q, k, v = q[:, :B].contiguous(), k[:, :B], v[:, :B]
+        vl = torch.full((B,), C, dtype=torch.int32, device="cuda")
+    lib_vl = None if cross else vl
+    err, limit, scale, *_ = _held(torch, label, [(q[p], k[p], v[p], vl) for p in (0, P - 1)])
+    ms, plain_ms, library_ms, host_ms = _time_three(
+        torch, P, lambda i: kernel.decode_attention(q[i], k[i], v[i], vl),
+        lambda i: ref.decode_attention_ref(q[i], k[i], v[i], vl),
+        lambda i: _dense_library_call(torch, q[i], k[i], v[i], lib_vl))
+    lib_err = float((_dense_library_call(torch, q[0], k[0], v[0], lib_vl).float()
+                     - ref.decode_attention_ref(q[0], k[0], v[0], vl).float()).abs().max())
+    tokens = int(vl.sum())
+    item = q.element_size()
+    nbytes = 2 * tokens * KV * hd * item + 2 * q[0].numel() * item + B * 4
+    row = _row(name, err, ms, plain_ms, library_ms, nbytes, 4 * tokens * KV * G * hd)
+    where = ("every slot valid, a NaN lane past the last" if cross
+             else "poisoned past valid_len")
+    log(f"[kernels] {label} {name}: B={B} C={C} KV={KV} G={G} hd={hd}, valid_len "
+        f"sum {tokens} max {int(vl.max())}; max|err| {err:.3e} (tol {limit:.3e}, "
+        f"max|ref| {scale:.3e}, {where}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"SDPA{'' if cross else ' (masked)'} {library_ms:.4f} ms (|err| {lib_err:.2e}); bound "
+        f"{row['bound_ms']:.4f} ms ({nbytes / 1e6:.1f} MB, {row['bound_by']}-bound)")
+    _log_split(torch, kernel, label, name, B, KV, C, 1, nbytes, row, host_ms)
+    del q, k, v
+    torch.cuda.empty_cache()
+    return row
 
 
 def _scan_bound(B, S, di, N, item):
@@ -1209,20 +1263,24 @@ CAPTURE_EVERY = 2_500                # keep the inputs of every 2,500th decode-k
 
 class _Capture:
     """While a path runs, keeps a copy of the inputs of every ``every``-th
-    call of a decode kernel's wrapper: the inputs the path's decode steps give
-    it, masked lanes at their frozen positions included.  The wrapper is
-    called as before and counts its own launches; a kept call costs a few
-    device copies."""
+    call of a decode kernel's wrapper (of the calls whose arguments ``keep``
+    accepts, when given): the inputs the path's decode steps give it, masked
+    lanes at their frozen positions included.  The wrapper is called as
+    before and counts its own launches; a kept call costs a few device
+    copies.  Captures nest: each wraps the wrapper it finds."""
 
-    def __init__(self, module, name, every=CAPTURE_EVERY):
+    def __init__(self, module, name, every=CAPTURE_EVERY, keep=None):
         self.module, self.name, self.every, self.calls, self.kept = module, name, every, 0, []
-        self.launch = getattr(module, name)
+        self.keep = keep
 
     def __enter__(self):
+        self.launch = getattr(self.module, self.name)
+
         def capturing(*args):
-            self.calls += 1
-            if self.calls % self.every == 0:
-                self.kept.append([a.clone() for a in args])
+            if self.keep is None or self.keep(args):
+                self.calls += 1
+                if self.calls % self.every == 0:
+                    self.kept.append([a.clone() for a in args])
             return self.launch(*args)
 
         setattr(self.module, self.name, capturing)
@@ -1656,6 +1714,185 @@ def phase_families(torch, smi):
                             "decode_attention": moe["dense"][1]}}
 
 
+# ---------------------------------------------------------------- phase 11
+ENC_LANES, ENC_STEPS = 8, 64
+# (config, prompt tokens, capacity): whisper's decoder context is 448 tokens
+# (its n_text_ctx); the VLM's prompts stay at 512, so that its plain
+# cross-attention at admission (S x T scores in f32) stays under 1 GB
+ENCODER_PATHS = (("whisper_medium", 64, 448), ("llama_3_2_vision_11b", 512, 1024))
+XGATE = 0.7
+
+
+def _open_gates(tree):
+    """Every ``xgate`` of a param tree set to XGATE, in place: the VLM's gates
+    start at 0, and tanh(0) = 0 would hide its cross-attention."""
+    for name, leaf in tree.items():
+        if isinstance(leaf, dict):
+            _open_gates(leaf)
+        elif name == "xgate":
+            leaf.fill_(XGATE)
+    return tree
+
+
+def _cross_batch(torch, cfg, B, S, gen, device):
+    """B prompts of S tokens and the config's embeddings (B, T, d) in its
+    dtype (frames for audio, patches for the VLM), drawn from ``gen``."""
+    from repro_torch.models.model import torch_dtype
+    key, T = (("encoder_embeds", cfg.encoder_seq) if cfg.arch_type == "audio"
+              else ("image_embeds", cfg.image_seq))
+    return {"tokens": torch.randint(0, cfg.vocab, (B, S), generator=gen, device=device),
+            key: torch.randn((B, T, cfg.d_model), generator=gen, device=device,
+                             dtype=torch_dtype(cfg))}
+
+
+def _decode_calls(cfg):
+    """(self-, cross-attention) decode-kernel calls of one decode step."""
+    kinds = [k.partition("+")[0] for k in cfg.block_pattern]
+    return ((kinds.count("attn") + kinds.count("dec")) * cfg.n_periods,
+            (kinds.count("xattn") + kinds.count("dec")) * cfg.n_periods)
+
+
+def _encoders_full(torch, name, prompt, capacity):
+    """One model of phase 11 at its published widths, gates open: 8 requests
+    admitted by one ``forward_full`` over their embeddings (the encoder or
+    the projector included), then ENC_STEPS decode steps sampled at
+    temperature 1.0 / top-p 0.9.  The dense kernel's launches must be one a
+    self- and one a cross-attention layer a step; 4 live calls of each kind
+    (the last among them) are held to the plain version.  Returns (launches,
+    largest error of the kept calls)."""
+    from repro_torch.engine import prng
+    from repro_torch.engine.sampler import SamplerConfig, sample_slots
+    from repro_torch.kernels import decode_attention as kernel
+    from repro_torch.models import model as M
+
+    cfg, params = _family_model(torch, name)
+    _open_gates(params)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    batch = _cross_batch(torch, cfg, ENC_LANES, prompt, gen, "cuda")
+    T = cfg.encoder_seq or cfg.image_seq
+    n_self, n_cross = _decode_calls(cfg)
+    sampler = SamplerConfig(1.0, 0.9)
+    keys = prng.fold_in(prng.prng_key(SEED, "cuda"), torch.arange(ENC_LANES, device="cuda"))
+    source = (f"an encoder of {cfg.encoder_layers} layers over {T} frames"
+              if cfg.arch_type == "audio" else f"a projector over {T} patches, gates {XGATE}")
+    log(f"[encoders] {cfg.name}: {source}; {n_self} self- and {n_cross} cross-attention "
+        f"layers; {ENC_LANES} requests, prompts of {prompt} tokens, capacity {capacity}")
+
+    _reset_launches()                                       # the path starts here
+    (logits, _, cache), admit_ms = sync_ms(
+        torch, lambda: M.forward_full(cfg, params, batch, capacity=capacity))
+    tok = sample_slots(prng.fold_in(keys, cache["pos"] - 1), logits[:, -1], sampler)
+    out = []
+
+    def decode():
+        nonlocal tok
+        for _ in range(ENC_STEPS):
+            step_keys = prng.fold_in(keys, cache["pos"])
+            lg, _ = M.decode_step(cfg, params, cache, tok[:, None])
+            tok = sample_slots(step_keys, lg, sampler)
+            out.append(tok)
+        return lg
+
+    with _Capture(kernel, "decode_attention", n_cross * ENC_STEPS // 4,
+                  keep=lambda a: a[1].shape[1] == T) as cross, \
+            _Capture(kernel, "decode_attention", n_self * ENC_STEPS // 4,
+                     keep=lambda a: a[1].shape[1] == capacity) as self_:
+        last, decode_ms = sync_ms(torch, decode)
+    launches = _read_launches(torch)                        # the path ends
+    tag = f"encoders {cfg.name}"
+    _check_launches(tag, launches, {"decode_attention": ENC_STEPS * (n_self + n_cross)})
+    toks = torch.stack(out)
+    if not (bool(logits.isfinite().all()) and bool(last.isfinite().all())
+            and int(toks.min()) >= 0 and int(toks.max()) < cfg.vocab):
+        raise AssertionError(f"[encoders] {cfg.name}: non-finite logits or bad tokens")
+    item = torch.empty((), dtype=M.torch_dtype(cfg)).element_size()
+    weights = _nbytes({k: v for k, v in params.items()
+                       if k in ("blocks", "lm_head", "final_norm")})
+    cross_kv = sum(leaf.numel() * leaf.element_size() for c in cache["blocks"].values()
+                   for n, leaf in c.items() if n in ("xk", "xv"))
+    mean_len = prompt + (ENC_STEPS + 1) / 2
+    self_kv = 2 * n_self * ENC_LANES * mean_len * cfg.n_kv_heads * cfg.hd * item
+    bound = (weights + cross_kv + self_kv) / HBM_BYTES_PER_S * 1e3
+    log(f"[encoders] {cfg.name}: admission {admit_ms:.1f} ms ({ENC_LANES} x {prompt} tokens "
+        f"over {T} embeddings, {source.split(' over ')[0]} included); decode {decode_ms / ENC_STEPS:.2f} ms a step ({ENC_STEPS} steps, "
+        f"{ENC_LANES * ENC_STEPS / (decode_ms / 1e3):.1f} tokens/s, sampling included); "
+        f"bound of a step {bound:.4f} ms (weights {weights / 1e9:.3f} GB + cross K/V "
+        f"{cross_kv / 1e9:.3f} GB + self K/V {self_kv / 1e9:.3f} GB read once); "
+        f"decode_attention launches {launches['decode_attention']} = {ENC_STEPS} x "
+        f"({n_self} + {n_cross}); peak allocated "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    err = max(_hold_kept(torch, f"{tag} cross-attention", cross.kept, cross.every),
+              _hold_kept(torch, f"{tag} self-attention", self_.kept, self_.every))
+    _profile_decode(torch, cfg, params, cache, tok, decode_ms / ENC_STEPS)
+    del params, cache, batch, logits, last, cross, self_
+    return launches["decode_attention"], err
+
+
+def _profile_decode(torch, cfg, params, cache, tok, wall_ms, n=4):
+    """Device time of ``n`` more greedy decode steps under torch.profiler:
+    busy ms and launches a step, the dense kernel's share, and the busy
+    share of the unprofiled wall ``wall_ms`` of a step."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import model as M
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            lg, _ = M.decode_step(cfg, params, cache, tok[:, None])
+            tok = lg.argmax(-1)
+        torch.cuda.synchronize()
+    kern, busy = _device_time(prof, n)
+    attn = sum(e.self_device_time_total for e in kern if "decode_kernel" in e.key) / 1e3 / n
+    log(f"[encoders] {cfg.name}: a decode step under torch.profiler ({n} steps): device "
+        f"busy {busy:.3f} ms, {busy / wall_ms:.1%} of the unprofiled wall "
+        f"{wall_ms:.2f} ms; {sum(e.count for e in kern) / n:.0f} device launches; "
+        f"dense decode kernel {attn:.3f} ms ({attn / busy if busy else 0:.1%} of busy)")
+    for e in kern[:6]:
+        log(f"[encoders]   {e.self_device_time_total / 1e3 / n:8.3f} ms/step "
+            f"{e.count / n:6.0f}x  {e.key[:90]}")
+
+
+def _reference_cross(torch, name):
+    """A reduced model of phase 11 (f32, gates open) on the card and on the
+    CPU: admission logits from one ``forward_full`` over embeddings drawn
+    from the seed, then 8 teacher-forced decode steps; logits card (the
+    kernel) vs CPU (plain versions)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.models.model import init_params, tree_to
+
+    full = get_config(name)
+    cfg = full.reduced(n_periods=2 if len(full.block_pattern) == 1 else 1)
+    params = _open_gates(init_params(cfg, seed=SEED, device="cpu"))
+    gparams = tree_to(params, "cuda")
+    batch = _cross_batch(torch, cfg, 2, 12, torch.Generator().manual_seed(SEED), "cpu")
+    pools, logits = {}, {}
+    for dev, prm in (("cpu", params), ("cuda", gparams)):
+        logits[dev], _, pools[dev] = M.forward_full(cfg, prm, tree_to(batch, dev), capacity=24)
+    admit = float((logits["cuda"].cpu() - logits["cpu"]).abs().max())
+    if not admit < 1e-4:
+        raise AssertionError(f"{cfg.name}: admission logits card vs CPU max |err| {admit}")
+    err = _teacher_forced(torch, cfg, params, gparams, pools, torch.tensor([[0], [1]]))
+    gates = f", gates {XGATE}" if cfg.arch_type == "vlm" else ""
+    log(f"[encoders] reduced {cfg.name} ({cfg.n_layers} layers, f32{gates}): "
+        f"admission logits card vs CPU max |err| {admit:.2e}, 8 teacher-forced decode "
+        f"steps max |err| {err:.2e} (tol 1e-4)")
+
+
+def phase_encoders(torch, smi):
+    """The audio encoder-decoder and the VLM's gated cross-attention through
+    the model API: whisper-medium and llama-3.2-vision-11b at their published
+    widths, each freed before the next, then both reduced, card vs CPU.
+    Returns the dense kernel's launches and the largest error of the kept
+    live calls."""
+    log(f"[encoders] {smi}")
+    runs = []
+    for name, prompt, capacity in ENCODER_PATHS:
+        runs.append(_encoders_full(torch, name, prompt, capacity))
+        torch.cuda.empty_cache()
+    for name, _, _ in ENCODER_PATHS:
+        _reference_cross(torch, name)
+    return {"launches": sum(n for n, _ in runs), "max_abs_err": max(e for _, e in runs)}
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         print("chip_smoke: src/repro_torch not found next to this script", file=sys.stderr)
@@ -1685,6 +1922,7 @@ def main() -> int:
             raise AssertionError(f"a decode kernel never launched under the runtime: "
                                  f"{runtime}")
         families = timed("families", phase_families, torch, info["smi"])
+        encoders = timed("encoders", phase_encoders, torch, info["smi"])
     except Exception:                                  # a failed phase fails the run
         traceback.print_exc()
         return 1
@@ -1706,6 +1944,8 @@ def main() -> int:
          "runtime_max_abs_err": runtime["max_abs_err"]["decode_attention"],
          "families_launches": families["dense"],
          "families_max_abs_err": families["max_abs_err"]["decode_attention"],
+         "encoders_launches": encoders["launches"],
+         "encoders_max_abs_err": encoders["max_abs_err"],
          **rows["decode_attention"]["bfloat16"]},
         {"name": "mamba_scan", "route": "cuda",
          "source": f"{csrc}/mamba_scan.cu",

@@ -2,10 +2,11 @@
 
 ``get_config(name)`` returns the full production config;
 ``get_config(name).reduced()`` is the CPU test variant.  The registry holds
-every decoder-only architecture of the JAX package; the audio and
-vision-language ones (``whisper_medium``, ``llama_3_2_vision_11b``) join it
-with their worker path.  ``qwen3_paper`` holds three configs, reached by
-their own names (``qwen3-8b``, ``qwen3-14b``, ``qwen3-32b``).
+every architecture of the JAX package, the audio encoder-decoder
+(``whisper_medium``) and the vision-language model (``llama_3_2_vision_11b``)
+too; those two run through the model API only, since the rollout worker has
+no admission path for cross-attention.  ``qwen3_paper`` holds three configs,
+reached by their own names (``qwen3-8b``, ``qwen3-14b``, ``qwen3-32b``).
 """
 
 from __future__ import annotations
@@ -23,6 +24,8 @@ ARCHITECTURES = (
     "xlstm_350m",
     "qwen3_1_7b",
     "arctic_480b",
+    "whisper_medium",
+    "llama_3_2_vision_11b",
 )
 
 # the paper's Qwen3 configs: name -> attribute of configs/qwen3_paper.py
@@ -30,7 +33,8 @@ PAPER_CONFIGS = {"qwen3-8b": "QWEN3_8B", "qwen3-14b": "QWEN3_14B", "qwen3-32b": 
 
 _ALIASES = {a.replace("_", "-"): a for a in ARCHITECTURES}
 _ALIASES.update({"jamba-v0.1-52b": "jamba_v0_1_52b", "qwen2-moe-a2.7b": "qwen2_moe_a2_7b",
-                 "qwen3-1.7b": "qwen3_1_7b"})
+                 "qwen3-1.7b": "qwen3_1_7b",
+                 "llama-3.2-vision-11b": "llama_3_2_vision_11b"})
 
 
 def get_config(name: str) -> ModelConfig:
@@ -39,7 +43,6 @@ def get_config(name: str) -> ModelConfig:
                        PAPER_CONFIGS[name])
     mod_name = _ALIASES.get(name, name)
     if mod_name not in ARCHITECTURES:
-        raise KeyError(f"{name!r} is not ported yet (ported: "
-                       f"{', '.join(ARCHITECTURES + tuple(PAPER_CONFIGS))}; audio and "
-                       "vision-language configs are ROADMAP Queue 1 slice 5 item 3)")
+        raise KeyError(f"unknown architecture {name!r} (known: "
+                       f"{', '.join(ARCHITECTURES + tuple(PAPER_CONFIGS))})")
     return importlib.import_module(f"repro_torch.configs.{mod_name}").CONFIG

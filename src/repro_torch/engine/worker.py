@@ -241,6 +241,21 @@ class Sequence:
     finished: bool = False
 
 
+def check_servable(cfg: ModelConfig) -> None:
+    """Raise unless the rollout worker can serve ``cfg``: every layer kind
+    is ported, and admission needs token prompts alone.  Audio and VLM
+    configs also need frame or patch embeddings at admission, and the
+    reference worker has no admission path for cross-attention either; they
+    run through ``models.model.forward_full`` and ``decode_step``."""
+    M.check_ported(cfg)
+    if cfg.arch_type in M.CROSS_ARCHS:
+        raise NotImplementedError(
+            f"{cfg.name}: the rollout worker admits token prompts only, and {cfg.arch_type} "
+            "configs need encoder or image embeddings; the reference worker has no "
+            "admission path for cross-attention (use models.model.forward_full and "
+            "decode_step)")
+
+
 class RolloutWorker:
     """One rollout worker holding model params and a KV pool, paged or dense.
 
@@ -270,7 +285,7 @@ class RolloutWorker:
                  prefix_index_nodes: int = 65_536, mp: int = 1,
                  paged: bool | None = None, page_size: int = 16,
                  num_blocks: int | None = None, device=None):
-        M.check_ported(cfg)
+        check_servable(cfg)
         self.device = resolve_device(device)
         self.cfg = cfg
         self.capacity = capacity

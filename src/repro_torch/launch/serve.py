@@ -22,7 +22,8 @@ Open-loop serving (Poisson ingress, tenant SLOs, admission control):
 
 ``--stream`` (rollout-as-a-service) needs the RL service plane, which the port
 does not have yet; ``--dry-run`` compiles for a TPU pod and has no GPU
-counterpart.  Both stop with an error.
+counterpart.  Both stop with an error, and so does an audio or VLM
+``--arch``: the rollout worker admits token prompts only.
 """
 
 from __future__ import annotations
@@ -212,6 +213,7 @@ def main(argv=None):
 
     from repro_torch.configs import get_config
     from repro_torch.device import resolve_device
+    from repro_torch.engine.worker import check_servable
     from repro_torch.models import model as M
 
     try:
@@ -220,6 +222,10 @@ def main(argv=None):
         ap.error(str(e))
 
     cfg = get_config(args.arch).reduced(n_periods=2)
+    try:
+        check_servable(cfg)
+    except NotImplementedError as e:
+        ap.error(str(e))
     params = M.init_params(cfg, seed=args.seed, device=device)
     runtime = build_runtime(args, cfg, params)
     controller = runtime.controller

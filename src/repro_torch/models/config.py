@@ -3,9 +3,10 @@
 A model is a stack of *periods*: ``block_pattern`` lists the layer kinds of one
 period (``"<mixer>+<mlp>"``), repeated ``n_periods`` times.  Parameters and
 caches carry a leading ``n_periods`` axis.  The port runs the kinds of
-``models.model.PORTED_KINDS`` (attention, Mamba and xLSTM mixers, dense MLP
-or MoE); the other fields are kept so that configurations read the same in both
-packages.
+``models.model.PORTED_KINDS`` (attention, Mamba and xLSTM mixers, the audio
+decoder's self- plus cross-attention ``dec`` and the VLM's gated
+cross-attention ``xattn``; dense MLP or MoE); the other fields are kept so
+that configurations read the same in both packages.
 """
 
 from __future__ import annotations

@@ -89,10 +89,13 @@ def _plain_attention(q, k, v, mask, scale):
     return torch.einsum("bkgst,btkd->bskgd", probs.to(v.dtype), v)
 
 
-def _qkv(p: dict, x: torch.Tensor, cfg: ModelConfig):
+def _qkv(p: dict, x: torch.Tensor, cfg: ModelConfig, kv_input: torch.Tensor | None = None):
+    """q from ``x``; k, v from ``kv_input`` when given (cross-attention), else
+    from ``x``; qk-norm on both sides when the config sets it."""
+    src = x if kv_input is None else kv_input
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
-    k = torch.einsum("bsd,dnk->bsnk", x, p["wk"])
-    v = torch.einsum("bsd,dnk->bsnk", x, p["wv"])
+    k = torch.einsum("bsd,dnk->bsnk", src, p["wk"])
+    v = torch.einsum("bsd,dnk->bsnk", src, p["wv"])
     if cfg.qk_norm:
         q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
         k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
@@ -100,29 +103,40 @@ def _qkv(p: dict, x: torch.Tensor, cfg: ModelConfig):
 
 
 def attention_full(p: dict, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor,
-                   *, window: int = 0) -> torch.Tensor:
-    """Full-sequence causal self-attention (GQA), optionally windowed.
-    x: (B, S, d); positions: (S,).
+                   *, causal: bool = True, use_rope: bool = True,
+                   kv_input: torch.Tensor | None = None, window: int = 0) -> torch.Tensor:
+    """Full-sequence GQA attention, optionally windowed; cross-attention when
+    ``kv_input`` (B, T, d) gives the keys and values.  x: (B, S, d);
+    positions: (S,).
 
-    At ``S >= FLASH_THRESHOLD`` the blocked flash forward runs (no S x S
-    score tensor), below it the plain masked softmax.  Returns (B, S, d_model).
+    RoPE applies when ``use_rope`` holds and the call is not cross-attention.
+    Self-attention at ``max(S, T) >= FLASH_THRESHOLD`` takes the blocked
+    flash forward (no S x T score tensor); cross-attention never does, and
+    below the threshold the plain softmax runs, masked only when causal.
+    Returns (B, S, d_model).
     """
     B, S, _ = x.shape
     KV, hd, H = cfg.n_kv_heads, cfg.hd, cfg.n_heads
     G = H // KV
-    q, k, v = _qkv(p, x, cfg)
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
+    q, k, v = _qkv(p, x, cfg, kv_input)
+    is_cross = kv_input is not None
+    if use_rope and not is_cross:
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
+    T = k.shape[1]
     scale = 1.0 / math.sqrt(hd)
     qg = q.reshape(B, S, KV, G, hd)
-    if S >= FLASH_THRESHOLD:
+    if max(S, T) >= FLASH_THRESHOLD and not is_cross:
         out = flash_attention(qg.permute(0, 2, 3, 1, 4), k, v, positions, positions, scale,
-                              True, window, _QBLK, _KBLK).permute(0, 3, 1, 2, 4)
+                              causal, window, _QBLK, _KBLK).permute(0, 3, 1, 2, 4)
     else:
-        mask = positions[:, None] >= positions[None, :]
-        if window:
-            mask &= positions[:, None] - positions[None, :] < window
-        out = _plain_attention(qg, k, v, mask[None, None, None], scale)
+        mask = None
+        if causal and not is_cross:
+            mask = positions[:, None] >= positions[None, :]
+            if window:
+                mask &= positions[:, None] - positions[None, :] < window
+            mask = mask[None, None, None]
+        out = _plain_attention(qg, k, v, mask, scale)
     out = out.reshape(B, S, H, hd)
     return torch.einsum("bshk,hkd->bsd", out, p["wo"])
 
@@ -138,6 +152,7 @@ def attention_decode(
     pos: torch.Tensor,
     *,
     window: int = 0,
+    use_rope: bool = True,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One-token dense decode: write the new KV at ``pos``'s slot, attend (the
     hand-written dense kernel on CUDA tensors).
@@ -146,14 +161,16 @@ def attention_decode(
     positions.  The slot is ``pos % C`` with a sliding window (a ring) and
     ``min(pos, C - 1)`` without one (a full linear lane overwrites its last
     slot).  Each lane writes only its own row, so no two writes collide.
+    Without ``use_rope`` the key is written and the query used as projected.
     Returns (out (B,1,d_model), cache_k, cache_v).
     """
     B = x.shape[0]
     KV, hd, H = cfg.n_kv_heads, cfg.hd, cfg.n_heads
     q, k, v = _qkv(p, x, cfg)
     pos = pos.expand(B)
-    q = rope(q, pos[:, None], cfg.rope_theta)
-    k = rope(k, pos[:, None], cfg.rope_theta)
+    if use_rope:
+        q = rope(q, pos[:, None], cfg.rope_theta)
+        k = rope(k, pos[:, None], cfg.rope_theta)
     C = cache_k.shape[1]
     slot = (pos % C if window else torch.clamp(pos, max=C - 1)).long()
     bidx = torch.arange(B, device=x.device)
@@ -163,6 +180,25 @@ def attention_decode(
     out = kops.decode_attention(q.reshape(B, KV, H // KV, hd), cache_k, cache_v, valid_len)
     out = out.reshape(B, 1, H, hd)
     return torch.einsum("bshk,hkd->bsd", out, p["wo"]), cache_k, cache_v
+
+
+def cross_attention_decode(p: dict, x: torch.Tensor, cfg: ModelConfig,
+                           cross_k: torch.Tensor, cross_v: torch.Tensor) -> torch.Tensor:
+    """One-token cross-attention against the fixed encoder or image K/V.
+
+    x: (B, 1, d) normed hidden states; cross_k/v: (B, T, KV, hd), every slot
+    valid (``valid_len = T``, the hand-written dense kernel on CUDA tensors;
+    made on the device, since a host integer copied to the card would hold
+    the host until the stream drains).  The query takes no RoPE and no
+    qk-norm, as in the reference.  Returns (B, 1, d_model).
+    """
+    B = x.shape[0]
+    KV, hd, H = cfg.n_kv_heads, cfg.hd, cfg.n_heads
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+    valid_len = torch.full((B,), cross_k.shape[1], dtype=torch.int32, device=x.device)
+    out = kops.decode_attention(q.reshape(B, KV, H // KV, hd), cross_k, cross_v, valid_len)
+    out = out.reshape(B, 1, H, hd)
+    return torch.einsum("bshk,hkd->bsd", out, p["wo"])
 
 
 def attention_prefill_chunk(

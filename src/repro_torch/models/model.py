@@ -4,14 +4,22 @@ Parameters and caches keep the JAX package's layout: nested dicts keyed
 ``blocks/<ii>_<kind>/...`` with a leading ``n_periods`` axis on every stacked
 leaf.  JAX's ``lax.scan`` over periods becomes a Python loop that indexes that
 axis.  The kinds of ``PORTED_KINDS`` run: attention, Mamba, mLSTM and sLSTM
-mixers; dense MLP or MoE (with qwen2-moe's shared experts or arctic's dense
-residual).  Audio and vision-language configs raise.
+mixers, the audio decoder's ``dec`` (causal self-attention, then
+cross-attention to the encoder's output) and the VLM's gated cross-attention
+``xattn``; dense MLP or MoE (with qwen2-moe's shared experts or arctic's
+dense residual).  Audio configs run a non-causal encoder (``enc_blocks``)
+over frame embeddings and use sinusoidal positions in place of RoPE; VLM
+configs project patch embeddings through ``enc_proj``.  Both take their
+embeddings in the model's dtype and live on the dense plane only.
 
 A dense cache (a "slot pool" when its batch axis holds a worker's lanes) is
 ``{"pos": (B,) int32, "blocks": {key: leaves}}``, where an attention layer's
-leaves are ``{"k", "v": (P, B, C, KV, hd)}`` and a recurrent layer's are its
-state: Mamba ``{"h": (P, B, di, N) f32, "conv": (P, B, W-1, di)}``, mLSTM
-``{"C": (P, B, H, hd, hd), "n": (P, B, H, hd), "m": (P, B, H)}`` and sLSTM
+leaves are ``{"k", "v": (P, B, C, KV, hd)}`` (a ``dec`` layer adds, and an
+``xattn`` layer holds only, the cross K/V ``{"xk", "xv": (P, B, T, KV,
+hd)}`` over the T encoder frames or image patches) and a recurrent layer's
+are its state: Mamba ``{"h": (P, B, di, N) f32, "conv": (P, B, W-1,
+di)}``, mLSTM ``{"C": (P, B, H, hd, hd), "n": (P, B, H, hd), "m": (P, B,
+H)}`` and sLSTM
 ``{"h", "c", "n", "m": (P, B, H, hd)}``, the xLSTM leaves f32 with ``m``
 starting at -1e30; with
 a sliding window the attention leaves are a ring (token ``t`` at slot
@@ -37,7 +45,8 @@ from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
 
 PORTED_KINDS = ("attn+mlp", "attn+moe", "attn+moe_dr", "mamba+mlp", "mamba+moe",
-                "mlstm", "slstm")
+                "mlstm", "slstm", "dec+mlp", "xattn+mlp")
+CROSS_ARCHS = ("audio", "vlm")     # configs whose layers attend to embeddings
 # recurrent mixers: (full-sequence function, one-token step)
 RECURRENT = {"mamba": (L.mamba_full, L.mamba_step), "mlstm": (L.mlstm_full, L.mlstm_step),
              "slstm": (L.slstm_full, L.slstm_step)}
@@ -51,10 +60,6 @@ def torch_dtype(cfg: ModelConfig) -> torch.dtype:
 
 def check_ported(cfg: ModelConfig) -> None:
     """Raise unless every layer kind of ``cfg`` is one the port runs."""
-    if cfg.arch_type in ("audio", "vlm"):
-        raise NotImplementedError(
-            f"{cfg.name}: {cfg.arch_type} configs have no worker path in the port yet "
-            "(ROADMAP Queue 1 slice 5 item 3)")
     missing = sorted(set(cfg.block_pattern) - set(PORTED_KINDS))
     if missing:
         raise NotImplementedError(
@@ -64,14 +69,16 @@ def check_ported(cfg: ModelConfig) -> None:
 
 # ------------------------------------------------------------------ init
 
-def _init_attn(cfg: ModelConfig, normal, ones) -> dict:
+def _init_attn(cfg: ModelConfig, normal, ones, cross: bool = False) -> dict:
     d, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
     s = 0.02
     p = {"wq": normal((d, H, hd), s), "wk": normal((d, KV, hd), s),
          "wv": normal((d, KV, hd), s), "wo": normal((H, hd, d), s / math.sqrt(2 * cfg.n_layers))}
-    if cfg.qk_norm:
+    if cfg.qk_norm and not cross:
         p["q_norm"] = ones((hd,))
         p["k_norm"] = ones((hd,))
+    if cross:
+        p["xgate"] = ones(()).zero_()         # tanh(0) = 0: the gate starts closed
     return p
 
 
@@ -134,8 +141,23 @@ def _init_slstm(cfg: ModelConfig, normal, ones) -> dict:
             "s_out": normal((d, d), s / math.sqrt(2 * cfg.n_layers))}
 
 
-_MIXER_INIT = {"attn": _init_attn, "mamba": _init_mamba, "mlstm": _init_mlstm,
-               "slstm": _init_slstm}
+_MIXER_INIT = {"attn": _init_attn, "dec": _init_attn, "enc_attn": _init_attn,
+               "xattn": lambda cfg, normal, ones: _init_attn(cfg, normal, ones, cross=True),
+               "mamba": _init_mamba, "mlstm": _init_mlstm, "slstm": _init_slstm}
+
+
+def _init_layer(cfg: ModelConfig, kind: str, normal, ones, norm) -> dict:
+    """One layer kind's leaves, stacked as ``normal``/``ones``/``norm`` stack
+    them.  A ``dec`` layer adds ``norm_x`` and its cross-attention ``xattn``."""
+    mixer, _, mlp_kind = kind.partition("+")
+    layer = {"norm1": norm(), "mixer": _MIXER_INIT[mixer](cfg, normal, ones)}
+    if mixer == "dec":
+        layer["norm_x"] = norm()
+        layer["xattn"] = _init_attn(cfg, normal, ones, cross=True)
+    if mlp_kind:
+        layer["norm2"] = norm()
+        layer["mlp"] = _init_mlp(cfg, normal) if mlp_kind == "mlp" else _init_moe(cfg, normal)
+    return layer
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
@@ -150,37 +172,39 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
     dev = resolve_device(device)
     dtype = torch_dtype(cfg)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    d, P = cfg.d_model, cfg.n_periods
+    d = cfg.d_model
 
-    def normal(shape, scale, dt=dtype):          # a leaf stacked over periods
-        return torch.randn((P,) + shape, generator=gen, device=dev, dtype=dt).mul_(scale)
+    def norm(lead=()):                           # LayerNorm also has a bias
+        p = {"scale": torch.ones(lead + (d,), device=dev, dtype=dtype)}
+        if cfg.norm == "layernorm":
+            p["bias"] = torch.zeros_like(p["scale"])
+        return p
 
-    def ones(shape, dt=dtype):
-        return torch.ones((P,) + shape, device=dev, dtype=dt)
+    def stack(kinds, n):                         # leaves stacked over n layers
+        def normal(shape, scale, dt=dtype):
+            return torch.randn((n,) + shape, generator=gen, device=dev, dtype=dt).mul_(scale)
+
+        def ones(shape, dt=dtype):
+            return torch.ones((n,) + shape, device=dev, dtype=dt)
+
+        return {f"{i:02d}_{kind}": _init_layer(cfg, kind, normal, ones, lambda: norm((n,)))
+                for i, kind in enumerate(kinds)}
 
     params: dict[str, Any] = {
         "tok_embed": torch.randn((cfg.vocab, d), generator=gen, device=dev,
                                  dtype=dtype).mul_(0.02),
-        "final_norm": {"scale": torch.ones((d,), device=dev, dtype=dtype)},
+        "final_norm": norm(),
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = torch.randn((d, cfg.vocab), generator=gen, device=dev,
                                         dtype=dtype).mul_(0.02)
-    blocks = {}
-    for i, kind in enumerate(cfg.block_pattern):
-        mixer, _, mlp_kind = kind.partition("+")
-        layer = {"norm1": {"scale": ones((d,))},
-                 "mixer": _MIXER_INIT[mixer](cfg, normal, ones)}
-        if mlp_kind:
-            layer["norm2"] = {"scale": ones((d,))}
-            layer["mlp"] = (_init_mlp(cfg, normal) if mlp_kind == "mlp"
-                            else _init_moe(cfg, normal))
-        blocks[f"{i:02d}_{kind}"] = layer
-    if cfg.norm == "layernorm":
-        for tree in [params["final_norm"]] + [b[n] for b in blocks.values()
-                                              for n in ("norm1", "norm2") if n in b]:
-            tree["bias"] = torch.zeros_like(tree["scale"])
-    params["blocks"] = blocks
+    params["blocks"] = stack(cfg.block_pattern, cfg.n_periods)
+    if cfg.arch_type == "audio":
+        params["enc_blocks"] = stack(("enc_attn+mlp",), cfg.encoder_layers)
+        params["enc_norm"] = norm()
+    if cfg.arch_type == "vlm":
+        params["enc_proj"] = torch.randn((d, d), generator=gen, device=dev,
+                                         dtype=dtype).mul_(0.02)
     return params
 
 
@@ -218,6 +242,65 @@ def _logits(cfg: ModelConfig, params, x) -> torch.Tensor:
     return x @ head
 
 
+def _use_rope(cfg: ModelConfig) -> bool:
+    """Audio configs take sinusoidal positions at the embedding, not RoPE."""
+    return cfg.arch_type != "audio"
+
+
+def _sin_cos(pos: torch.Tensor, d: int, dtype) -> torch.Tensor:
+    """Sinusoidal embeddings of f32 positions (..., 1) -> (..., d), computed
+    in f32 and cast to ``dtype``."""
+    dim = torch.arange(d // 2, dtype=F32, device=pos.device)
+    ang = pos / torch.pow(10_000.0, 2 * dim / d)
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1).to(dtype)
+
+
+def _sinusoidal(seq: int, d: int, dtype, device) -> torch.Tensor:
+    """(seq, d): positions 0 .. seq - 1."""
+    return _sin_cos(torch.arange(seq, dtype=F32, device=device)[:, None], d, dtype)
+
+
+def _sinusoidal_at(pos: torch.Tensor, d: int, dtype) -> torch.Tensor:
+    """(B, 1, d): each lane's position of ``pos`` (B,)."""
+    return _sin_cos(pos.to(F32)[:, None], d, dtype)[:, None]
+
+
+def _encoder(cfg: ModelConfig, params, embeds: torch.Tensor) -> torch.Tensor:
+    """The audio encoder over precomputed frame embeddings (B, T, d):
+    sinusoidal positions, then per encoder layer non-causal self-attention
+    and the MLP, then ``enc_norm``."""
+    B, T, D = embeds.shape
+    x = embeds + _sinusoidal(T, D, embeds.dtype, embeds.device)[None]
+    positions = torch.arange(T, device=embeds.device)
+    stack = params["enc_blocks"]["00_enc_attn+mlp"]
+    for li in range(cfg.encoder_layers):
+        lp = _period(stack, li)
+        h = L.block_norm(cfg, lp["norm1"], x)
+        x = x + L.attention_full(lp["mixer"], h, cfg, positions, causal=False, use_rope=False)
+        h = L.block_norm(cfg, lp["norm2"], x)
+        x = x + L.mlp(lp["mlp"], h, cfg.activation)
+    return L.block_norm(cfg, params["enc_norm"], x)
+
+
+def _cross_source(cfg: ModelConfig, params, batch: dict) -> torch.Tensor | None:
+    """What cross-attention attends to: the encoder's output over
+    ``batch["encoder_embeds"]`` (audio) or ``batch["image_embeds"] @
+    enc_proj`` (VLM); None for other configs.  The embeddings must be in the
+    model's dtype: the port does not promote (the reference's f32 patch
+    embeddings against bf16 weights would give f32 cross K/V beside bf16
+    queries, which the decode kernel refuses)."""
+    if cfg.arch_type not in CROSS_ARCHS:
+        return None
+    name = "encoder_embeds" if cfg.arch_type == "audio" else "image_embeds"
+    embeds = batch[name]
+    if embeds.dtype != torch_dtype(cfg):
+        raise TypeError(f"{cfg.name}: batch[{name!r}] is {embeds.dtype}, the model "
+                        f"takes {torch_dtype(cfg)}")
+    if cfg.arch_type == "audio":
+        return _encoder(cfg, params, embeds)
+    return embeds @ params["enc_proj"]
+
+
 # ------------------------------------------------------------------ gates
 
 def supports_chunked_prefill(cfg: ModelConfig) -> bool:
@@ -228,7 +311,7 @@ def supports_chunked_prefill(cfg: ModelConfig) -> bool:
             return False
         if mlp_kind not in ("", "mlp"):
             return False
-    return cfg.sliding_window == 0 and cfg.arch_type not in ("audio", "vlm")
+    return cfg.sliding_window == 0 and cfg.arch_type not in CROSS_ARCHS
 
 
 def supports_prefix_reuse(cfg: ModelConfig) -> bool:
@@ -242,7 +325,7 @@ def supports_paged_kv(cfg: ModelConfig) -> bool:
     for kind in cfg.block_pattern:
         if kind.partition("+")[0] not in ("attn", "mamba", "mlstm", "slstm"):
             return False
-    return cfg.sliding_window == 0 and cfg.arch_type not in ("audio", "vlm")
+    return cfg.sliding_window == 0 and cfg.arch_type not in CROSS_ARCHS
 
 
 def _paged_kind(kind: str) -> bool:
@@ -261,7 +344,8 @@ def _kv_from_full(cfg: ModelConfig, p: dict, h: torch.Tensor, positions: torch.T
     v = torch.einsum("btd,dnk->btnk", h, p["wv"])
     if cfg.qk_norm:
         k = L.rmsnorm(k, p["k_norm"], cfg.norm_eps)
-    k = L.rope(k, positions, cfg.rope_theta)
+    if _use_rope(cfg):
+        k = L.rope(k, positions, cfg.rope_theta)
     C = lane["k"].shape[1]
     if C >= S:
         lane["k"][:, :S] = k
@@ -270,6 +354,13 @@ def _kv_from_full(cfg: ModelConfig, p: dict, h: torch.Tensor, positions: torch.T
         keep = torch.arange(S - C, S, device=h.device)
         lane["k"][:, keep % C] = k[:, keep]
         lane["v"][:, keep % C] = v[:, keep]
+
+
+def _cross_kv(p: dict, enc_out: torch.Tensor, lane: dict) -> None:
+    """Write a cross-attention layer's K/V over ``enc_out`` (B, T, d) into
+    ``lane``'s ``xk``/``xv`` (B, T, KV, hd), in place."""
+    lane["xk"].copy_(torch.einsum("btd,dnk->btnk", enc_out, p["wk"]))
+    lane["xv"].copy_(torch.einsum("btd,dnk->btnk", enc_out, p["wv"]))
 
 
 def _mamba_state_from_full(cfg: ModelConfig, p: dict, h: torch.Tensor) -> dict:
@@ -281,16 +372,30 @@ def _mamba_state_from_full(cfg: ModelConfig, p: dict, h: torch.Tensor) -> dict:
     return L.mamba_full(p, h, cfg)[1]
 
 
-def _layer_full(cfg, kind, p, x, positions, lane):
+def _layer_full(cfg, kind, p, x, positions, lane, enc_out=None):
     """One layer over the full sequence; writes its cache leaves into ``lane``
-    (when given) in place.  Returns (x, aux loss)."""
+    (when given) in place.  Cross-attention attends to ``enc_out`` (B, T, d).
+    Returns (x, aux loss)."""
     mixer, _, mlp_kind = kind.partition("+")
     aux = torch.zeros((), dtype=F32, device=x.device)
     h = L.block_norm(cfg, p["norm1"], x)
-    if mixer == "attn":
-        x = x + L.attention_full(p["mixer"], h, cfg, positions, window=cfg.sliding_window)
+    if mixer in ("attn", "dec"):
+        x = x + L.attention_full(p["mixer"], h, cfg, positions, use_rope=_use_rope(cfg),
+                                 window=cfg.sliding_window)
         if lane is not None:
             _kv_from_full(cfg, p["mixer"], h, positions, lane)
+        if mixer == "dec":
+            hx = L.block_norm(cfg, p["norm_x"], x)
+            x = x + L.attention_full(p["xattn"], hx, cfg, positions, causal=False,
+                                     use_rope=False, kv_input=enc_out)
+            if lane is not None:
+                _cross_kv(p["xattn"], enc_out, lane)
+    elif mixer == "xattn":
+        out = L.attention_full(p["mixer"], h, cfg, positions, causal=False, use_rope=False,
+                               kv_input=enc_out)
+        x = x + torch.tanh(p["mixer"]["xgate"]) * out
+        if lane is not None:
+            _cross_kv(p["mixer"], enc_out, lane)
     else:
         out, state = RECURRENT[mixer][0](p["mixer"], h, cfg)
         x = x + out
@@ -308,26 +413,33 @@ def _layer_full(cfg, kind, p, x, positions, lane):
 
 
 def forward_full(cfg: ModelConfig, params, batch: dict, capacity: int | None = None):
-    """Full-sequence forward.  batch["tokens"]: (B, S).
+    """Full-sequence forward.  batch["tokens"]: (B, S); audio configs also take
+    ``batch["encoder_embeds"]`` (B, T, d) and VLM configs
+    ``batch["image_embeds"]`` (B, T, d), in the model's dtype.
 
     Returns (logits (B, S, V), aux_loss) or, with ``capacity``, (logits,
     aux_loss, cache), where the dense cache of ``capacity`` slots decodes from
-    position S onward.  ``aux_loss`` sums the MoE layers' load-balance losses
-    (0 without MoE).
+    position S onward (with the cross K/V over the T embeddings, for audio
+    and VLM).  ``aux_loss`` sums the MoE layers' load-balance losses (0
+    without MoE).
     """
     tokens = batch["tokens"]
     B, S = tokens.shape
     dev = tokens.device
     positions = torch.arange(S, device=dev)
-    cache = None if capacity is None else init_cache(cfg, B, capacity, dev, start_pos=S)
     x = params["tok_embed"][tokens.long()]
+    if cfg.arch_type == "audio":
+        x = x + _sinusoidal(S, cfg.d_model, x.dtype, dev)[None]
+    enc_out = _cross_source(cfg, params, batch)
+    cache = None if capacity is None else init_cache(
+        cfg, B, capacity, dev, start_pos=S, enc_len=None if enc_out is None else enc_out.shape[1])
     aux = torch.zeros((), dtype=F32, device=dev)
     for pi in range(cfg.n_periods):
         for i, kind in enumerate(cfg.block_pattern):
             key = f"{i:02d}_{kind}"
             lane = None if cache is None else _period(cache["blocks"][key], pi)
             x, a = _layer_full(cfg, kind, _period(params["blocks"][key], pi), x, positions,
-                               lane)
+                               lane, enc_out)
             aux = aux + a
     logits = _logits(cfg, params, x)
     return (logits, aux) if cache is None else (logits, aux, cache)
@@ -364,13 +476,20 @@ def _layer_step(cfg, kind, p, x, cache, pos, page_table, active):
     if mixer in RECURRENT:
         out, new = RECURRENT[mixer][1](p["mixer"], h, cfg, cache)
         _merge_state(active, new, cache)
+    elif mixer == "xattn":
+        out = torch.tanh(p["mixer"]["xgate"]) * L.cross_attention_decode(
+            p["mixer"], h, cfg, cache["xk"], cache["xv"])
     elif page_table is None:
         out, _, _ = L.attention_decode(p["mixer"], h, cfg, cache["k"], cache["v"], pos,
-                                       window=cfg.sliding_window)
+                                       window=cfg.sliding_window, use_rope=_use_rope(cfg))
     else:
         out, _, _ = L.attention_decode_paged(p["mixer"], h, cfg, cache["k"], cache["v"],
                                              page_table, pos)
-    return _mlp_step(cfg, mlp_kind, p, x + out)
+    x = x + out
+    if mixer == "dec":
+        hx = L.block_norm(cfg, p["norm_x"], x)
+        x = x + L.cross_attention_decode(p["xattn"], hx, cfg, cache["xk"], cache["xv"])
+    return _mlp_step(cfg, mlp_kind, p, x)
 
 
 def decode_step(cfg: ModelConfig, params, cache: dict, tokens: torch.Tensor,
@@ -389,6 +508,8 @@ def decode_step(cfg: ModelConfig, params, cache: dict, tokens: torch.Tensor,
     pos = cache["pos"]
     page_table = cache.get("page_table")
     x = params["tok_embed"][tokens.long()]
+    if cfg.arch_type == "audio":
+        x = x + _sinusoidal_at(pos, cfg.d_model, x.dtype)
     for pi in range(cfg.n_periods):
         for i, kind in enumerate(cfg.block_pattern):
             key = f"{i:02d}_{kind}"
@@ -419,19 +540,31 @@ def _state_leaves(cfg: ModelConfig, kind: str, lanes: int, device) -> dict:
 
 
 def init_cache(cfg: ModelConfig, batch_size: int, capacity: int, device,
-               start_pos: int = 0) -> dict:
+               start_pos: int = 0, enc_len: int | None = None) -> dict:
     """Empty dense cache: ``capacity`` zeroed KV slots per lane and attention
-    layer (with a sliding window, the ring's size), fresh recurrent state per
-    lane and recurrent layer."""
+    layer (with a sliding window, the ring's size), ``enc_len`` zeroed cross
+    K/V slots per lane and cross-attention layer (required where the config
+    has one), fresh recurrent state per lane and recurrent layer."""
     check_ported(cfg)
     dtype = torch_dtype(cfg)
-    shape = (cfg.n_periods, batch_size, capacity, cfg.n_kv_heads, cfg.hd)
+
+    def zeros(slots):
+        return torch.zeros((cfg.n_periods, batch_size, slots, cfg.n_kv_heads, cfg.hd),
+                           dtype=dtype, device=device)
+
     blocks = {}
     for i, kind in enumerate(cfg.block_pattern):
-        blocks[f"{i:02d}_{kind}"] = (
-            {"k": torch.zeros(shape, dtype=dtype, device=device),
-             "v": torch.zeros(shape, dtype=dtype, device=device)} if _paged_kind(kind)
-            else _state_leaves(cfg, kind, batch_size, device))
+        mixer = kind.partition("+")[0]
+        if mixer in RECURRENT:
+            c = _state_leaves(cfg, kind, batch_size, device)
+        else:
+            c = {} if mixer == "xattn" else {"k": zeros(capacity), "v": zeros(capacity)}
+        if mixer in ("dec", "xattn"):
+            if enc_len is None:
+                raise ValueError(f"{cfg.name}: a cross-attention cache needs enc_len, the "
+                                 "number of encoder frames or image patches")
+            c.update(xk=zeros(enc_len), xv=zeros(enc_len))
+        blocks[f"{i:02d}_{kind}"] = c
     return {"pos": torch.full((batch_size,), start_pos, dtype=torch.int32, device=device),
             "blocks": blocks}
 
@@ -540,8 +673,11 @@ def concat_pools(a: dict, b: dict) -> dict:
 def init_paged_pool(cfg: ModelConfig, max_lanes: int, num_blocks: int, page_size: int,
                     num_pages: int, device) -> dict:
     """Empty paged pool: zeroed block pools for every attention kind, fresh
-    dense per-lane state for every recurrent kind."""
+    dense per-lane state for every recurrent kind.  Audio and VLM configs
+    live on the dense plane only (``supports_paged_kv``)."""
     check_ported(cfg)
+    if cfg.arch_type in CROSS_ARCHS:
+        raise ValueError(f"{cfg.name}: cross-attention caches have no paged layout")
     dtype = torch_dtype(cfg)
     shape = (cfg.n_periods, num_blocks, page_size, cfg.n_kv_heads, cfg.hd)
     blocks = {}

@@ -20,7 +20,8 @@ of it.
 * ``forward_full`` logits and aux loss, and ``decode_step`` logits and cache
   after a full-forward admission, for nemotron (``relu2``), phi3, qwen3-8b,
   qwen2-moe, arctic and xLSTM;
-* ``check_ported`` and ``get_config`` over the JAX package's registry.
+* ``check_ported`` and ``get_config`` over the JAX package's registry (the
+  audio and VLM configs' model path is ``test_torch_encoders.py``).
 """
 
 from dataclasses import replace
@@ -36,7 +37,7 @@ from repro.configs import get_config as jax_config
 from repro.configs import qwen3_paper
 from repro.models import layers as JL
 from repro.models import model as JM
-from repro_torch.configs import PAPER_CONFIGS, get_config
+from repro_torch.configs import ARCHITECTURES, PAPER_CONFIGS, get_config
 from repro_torch.models import layers as L
 from repro_torch.models import model as M
 from repro_torch.params import from_jax
@@ -286,24 +287,21 @@ def test_state_leaves_match_jax_init_cache():
 
 
 def test_every_decoder_config_is_ported():
-    """``check_ported`` accepts every decoder-only config of the JAX package
-    (the paper's three Qwen3 configs too) and refuses the audio and
-    vision-language ones, naming the slice that brings them; ``get_config``
-    knows every name but those two, by module name and by alias."""
-    refused = {"whisper_medium", "llama_3_2_vision_11b"}
+    """``check_ported`` accepts every config of the JAX package, the audio
+    and vision-language ones too, and the paper's three Qwen3 configs;
+    ``get_config`` knows every one by module name and by alias, with the
+    reference's fields."""
     for name in JAX_ARCHITECTURES:
         jcfg = jax_config(name)
-        if name in refused:
-            with pytest.raises(NotImplementedError, match="slice 5 item 3"):
-                M.check_ported(jcfg)
-            with pytest.raises(KeyError):
-                get_config(name)
-            continue
         M.check_ported(jcfg)
         cfg = get_config(name)
         assert cfg == get_config(jcfg.name) and cfg.name == jcfg.name
+        assert all(getattr(jcfg, k) == v for k, v in vars(cfg).items()), name
         M.check_ported(cfg)
+    assert set(ARCHITECTURES) == set(JAX_ARCHITECTURES)
     for name, attr in PAPER_CONFIGS.items():
         jcfg = getattr(qwen3_paper, attr)
         assert get_config(name).name == jcfg.name == name
         M.check_ported(get_config(name))
+    with pytest.raises(KeyError):
+        get_config("no-such-model")

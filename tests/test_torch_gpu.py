@@ -527,3 +527,78 @@ def test_cuda_hybrid_worker_matches_cpu_worker(paged):
         assert {k: v for k, v in g.items() if k not in timing} == \
             {k: v for k, v in c.items() if k not in timing}
     assert gpu_out == cpu_out
+
+
+# The dense kernel at the cross-attention decode shapes of the audio and VLM
+# models, (B, KV, G, hd, C): whisper-medium's (MHA, hd 64, 1,500 encoder
+# frames: the split's last piece and its last 64-token tile are ragged) and
+# llama-3.2-vision-11b's (G 4, hd 128, 1,600 image patches), at one lane and
+# at 8.  Every slot is valid (valid_len = C), so the kernel reads each lane to
+# its end; the cache is the first B lanes of a B + 1 lane buffer whose last
+# lane is NaN, so a read past a lane's end shows.
+CROSS_SHAPES = [(1, 16, 1, 64, 1500), (8, 16, 1, 64, 1500),
+                (1, 8, 4, 128, 1600), (8, 8, 4, 128, 1600)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", CROSS_SHAPES,
+                         ids=["whisper-B1", "whisper-B8", "vlm-B1", "vlm-B8"])
+def test_cuda_dense_kernel_at_cross_shapes(shape, dtype):
+    _need_cuda()
+    B, KV, G, hd, C = shape
+    q, k, v, _ = _dense_inputs((B + 1, KV, G, hd, C), dtype, seed=7)
+    k[B], v[B] = float("nan"), float("nan")
+    q, k, v = q[:B].contiguous(), k[:B], v[:B]
+    vl = torch.full((B,), C, dtype=torch.int32, device="cuda")
+    before = kernel.launches["decode_attention"]
+    out = kernel.decode_attention(q, k, v, vl)
+    torch.cuda.synchronize()
+    assert kernel.launches["decode_attention"] == before + 1
+    want = ref.decode_attention_ref(q, k, v, vl)
+    assert bool(out.isfinite().all())
+    err = float((out.float() - want.float()).abs().max())
+    assert err < _split_limit(dtype, want), (shape, dtype, err)
+
+
+def _open_gates(tree, value=0.7):
+    """Every VLM ``xgate`` set to ``value``, in place: the gate starts at 0,
+    and tanh(0) = 0 would hide the cross-attention output."""
+    for name, leaf in tree.items():
+        if isinstance(leaf, dict):
+            _open_gates(leaf, value)
+        elif name == "xgate":
+            leaf.fill_(value)
+    return tree
+
+
+@pytest.mark.parametrize("name", ["whisper_medium", "llama_3_2_vision_11b"])
+def test_cuda_cross_attention_model_matches_cpu(name):
+    """The reduced audio and VLM models (f32, gates open) on the card and on
+    the CPU: a full-forward admission over embeddings drawn from a seed, then
+    8 teacher-forced decode steps; every step runs the dense kernel once per
+    self- and once per cross-attention layer, and the logits agree within
+    1e-4."""
+    from repro_torch.models import model as M
+    _need_cuda()
+    cfg = get_config(name).reduced(n_periods=2 if name == "whisper_medium" else 1)
+    params = _open_gates(init_params(cfg, seed=0, device="cpu"))
+    gparams = M.tree_to(params, "cuda")
+    T, key = ((cfg.encoder_seq, "encoder_embeds") if cfg.arch_type == "audio"
+              else (cfg.image_seq, "image_embeds"))
+    gen = torch.Generator().manual_seed(3)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (2, 12), generator=gen),
+             key: torch.randn((2, T, cfg.d_model), generator=gen)}
+    caches = {dev: M.forward_full(cfg, prm, M.tree_to(batch, dev), capacity=24)[2]
+              for dev, prm in (("cpu", params), ("cuda", gparams))}
+    per_step = sum({"dec": 2, "attn": 1, "xattn": 1}[k.partition("+")[0]]
+                   for k in cfg.block_pattern) * cfg.n_periods
+    before = kernel.launches["decode_attention"]
+    tok, err = torch.tensor([[1], [2]]), 0.0
+    for _ in range(8):
+        lc, _ = M.decode_step(cfg, params, caches["cpu"], tok)
+        lg, _ = M.decode_step(cfg, gparams, caches["cuda"], tok.cuda())
+        err = max(err, float((lg.cpu() - lc).abs().max()))
+        tok = lc.argmax(-1, keepdim=True)
+    torch.cuda.synchronize()
+    assert kernel.launches["decode_attention"] - before == 8 * per_step
+    assert err < 1e-4, err
