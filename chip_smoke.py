@@ -133,6 +133,25 @@ Phases (each raises on failure; any failure exits non-zero with no result line):
               self-attention calls of each are kept and held to the plain
               version.  Then both reduced (f32, gates open): admission and 8
               teacher-forced decode steps, logits card vs CPU.
+12. train  -- the training plane: (a) flash attention forward and backward
+              (the port's autograd Function) at qwen3-1.7b's layer shape (B 1,
+              KV 8, G 2, S 4,096, hd 128), causal and with a 1,024-token
+              window, f32 and bf16, against plain attention under autograd in
+              f32 on the same inputs; fwd+bwd timed beside SDPA's; (b) one
+              GRPO step at qwen3-1.7b full width (B 2, S 4,096, remat on,
+              advantages +-1): the loss and every gradient finite, every leaf
+              with a gradient moved, AdamW moments f32, the step's wall and
+              peak memory; (c) HeddleTrainer at full width on two paged
+              workers: train(2), an update on records with a reward spread
+              (the workers' tensors unchanged until the next sync), then
+              train_async(3 updates, staleness <= 2, epochs [1, 2]); the
+              paged kernel's count zeroed before and read after, every
+              400th live call kept and held to the plain version; (d) the
+              train CLI as a process of its own with no --device: on the
+              card; (e) the legacy per-sequence worker against the dense
+              worker (qwen3 reduced, 2 layers, f32): equal tokens, the dense
+              kernel's launches counted, every 8th live call kept and held
+              to the plain version.
 
 float32 matrix products run in full float32: TF32 is switched off for matmuls
 and cuDNN.  The next-to-last line is one JSON object describing each kernel;
@@ -1893,6 +1912,323 @@ def phase_encoders(torch, smi):
     return {"launches": sum(n for n, _ in runs), "max_abs_err": max(e for _, e in runs)}
 
 
+# ---------------------------------------------------------------- phase 12
+# qwen3-1.7b's layer shape for flash attention: B 1, KV 8, G 2, S 4,096, hd 128
+FLASH_SHAPE = (1, 8, 2, 4096, 128)
+FLASH_TOL = {"float32": (1e-5, 5e-5),       # (output, gradients) x max(1, max |plain|):
+             "bfloat16": (4e-3, 6e-3)}      # f32 sums in another order; bf16 inputs, outputs
+#                                             (bf16: 1.6-2.4x the largest errors measured on
+#                                             an H100, 2.4e-3 / 3.7e-3 of max |plain|)
+TRAIN_S = 4096                              # the GRPO step's sequence (B 2, remat on)
+TRAIN_LR = 1e-2                             # large enough to move every bf16 leaf in one step
+TRAIN_CAPTURE = 400                         # keep every 400th paged-kernel call of (c)
+LEGACY_CAPTURE = 8                          # keep every 8th dense-kernel call of (e)
+
+
+def _plain_attention(torch, q, k, v, window):
+    """Causal (optionally windowed) GQA attention in f32 as one softmax:
+    q (B, KV, G, S, hd), k/v (B, T, KV, hd)."""
+    S, T = q.shape[3], k.shape[1]
+    s = torch.einsum("bkgqd,btkd->bkgqt", q.float(), k.float()) / math.sqrt(q.shape[-1])
+    i = torch.arange(S, device=q.device)[:, None]
+    j = torch.arange(T, device=q.device)[None, :]
+    mask = i >= j
+    if window:
+        mask &= i - j < window
+    s = s.masked_fill(~mask, -1e30)
+    return torch.einsum("bkgqt,btkd->bkgqd", torch.softmax(s, -1), v.float())
+
+
+def _train_flash(torch):
+    """(a) flash forward and backward at qwen3's layer shape, causal and with
+    a 1,024-token window, f32 and bf16, against plain attention under
+    autograd in f32 on the same inputs; fwd+bwd timed beside SDPA's."""
+    from repro_torch.models import layers as TL
+    from repro_torch.models.flash import flash_attention
+
+    B, KV, G, S, hd = FLASH_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    base = [torch.randn(shape, generator=gen, device="cuda")
+            for shape in ((B, KV, G, S, hd), (B, S, KV, hd), (B, S, KV, hd), (B, KV, G, S, hd))]
+    pos = torch.arange(S, device="cuda")
+    scale = 1 / math.sqrt(hd)
+    for window in (0, 1024):
+        for dtype in ("float32", "bfloat16"):
+            q, k, v, dout = (t.to(getattr(torch, dtype)) for t in base)
+            leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+            got = flash_attention(*leaves, pos, pos, scale, True, window, TL._QBLK, TL._KBLK)
+            grads = torch.autograd.grad(got, leaves, dout)
+            ref_leaves = [t.float().requires_grad_() for t in (q, k, v)]
+            want = _plain_attention(torch, *ref_leaves, window)
+            want_grads = torch.autograd.grad(want, ref_leaves, dout.float())
+            tol_out, tol_grad = FLASH_TOL[dtype]
+            errs = []
+            for name, a, b, tol in (("out", got, want, tol_out),
+                                    *(("d" + n, a, b, tol_grad)
+                                      for n, a, b in zip("qkv", grads, want_grads))):
+                scale_ref = max(1.0, float(b.detach().abs().max()))
+                err = float((a.float() - b).detach().abs().max())
+                if not (err <= tol * scale_ref and bool(a.isfinite().all())):
+                    raise AssertionError(f"[train] flash {dtype} window {window} {name}: "
+                                         f"max|err| {err:.3e} > {tol} x {scale_ref:.3g}")
+                errs.append(f"{name} {err:.2e} (max|ref| {scale_ref:.3g})")
+            log(f"[train] flash B {B}, KV {KV}, G {G}, S {S}, hd {hd}, causal, window "
+                f"{window}, {dtype}: against plain attention in f32 under autograd: "
+                f"{', '.join(errs)}; limits {tol_out} / {tol_grad} x max(1, max|ref|)")
+            del got, grads, want, want_grads, ref_leaves
+            if window == 0:
+                def flash_step(_):
+                    o = flash_attention(*leaves, pos, pos, scale, True, 0, TL._QBLK, TL._KBLK)
+                    torch.autograd.grad(o, leaves, dout)
+
+                qh = q.reshape(B, KV * G, S, hd).detach().requires_grad_()
+                kh, vh = (t.permute(0, 2, 1, 3).repeat_interleave(G, 1).contiguous()
+                          .requires_grad_() for t in (k, v))
+                douth = dout.reshape(B, KV * G, S, hd)
+
+                def sdpa_step(_):
+                    o = torch.nn.functional.scaled_dot_product_attention(qh, kh, vh,
+                                                                         is_causal=True)
+                    torch.autograd.grad(o, (qh, kh, vh), douth)
+
+                # ~1,100 launches a call: more than the launch queue holds behind
+                # a spin kernel, so the stream is not held (the ops are long)
+                ms, host = event_ms(torch, flash_step, 3, n_warm=2, hold=False)
+                lib_ms, _ = event_ms(torch, sdpa_step, 10)
+                flops = 4 * B * KV * G * S * S * hd          # the forward's two products
+                log(f"[train] flash fwd+bwd {dtype}: {ms:.3f} ms (host {host:.3f} ms to "
+                    f"enqueue); SDPA fwd+bwd (is_causal, K/V expanded to {KV * G} heads) "
+                    f"{lib_ms:.3f} ms; bound of fwd+bwd (3.5 x the forward's {flops / 1e9:.1f} "
+                    f"GFLOP, no causal skip; its products run in f32, at 67 TFLOP/s) "
+                    f"{3.5 * flops / PEAK_FLOPS['float32'] * 1e3:.3f} ms")
+            del leaves
+    torch.cuda.empty_cache()
+
+
+def _train_step(torch):
+    """(b) one GRPO step at qwen3-1.7b full width: B 2, S 4,096, remat on,
+    advantages +-1, old logprobs from the policy's own forward.  The loss and
+    every gradient finite, every leaf with a gradient moved, f32 moments."""
+    import gc
+    from repro_torch.models import model as M
+    from repro_torch.rl import grpo as G
+    from repro_torch.rl.optimizer import AdamW
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg, params = _full_width(torch)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    B, S = 2, TRAIN_S
+    tokens = torch.randint(0, cfg.vocab, (B, S), generator=gen, device="cuda",
+                           dtype=torch.int32)
+    mask = torch.zeros(B, S, device="cuda")
+    mask[0, 64:S - 1] = 1.0                                 # rows of unequal length, so
+    mask[1, 64:S - 257] = 1.0                               # the loss is not 0 at ratio 1
+    batch = {"tokens": tokens, "loss_mask": mask,
+             "advantages": torch.tensor([1.0, -1.0], device="cuda")}
+    with torch.no_grad():
+        (logits, _), old_ms = sync_ms(torch, lambda: M.forward_full(cfg, params,
+                                                                    {"tokens": tokens}))
+        batch["old_logprobs"] = G.token_logprobs(logits, tokens)
+    del logits
+    opt = AdamW(lr=TRAIN_LR)
+    state = opt.init(params)
+    before_gib = torch.cuda.max_memory_allocated() / 2**30
+    gcfg = G.GRPOConfig(group_size=2)
+    (loss, metrics, grads), grad_ms = sync_ms(torch, lambda: G.value_and_grad(
+        lambda p: G.grpo_loss(cfg, gcfg, p, batch), params))
+    grad_peak = torch.cuda.max_memory_allocated() / 2**30
+    (new, state), opt_ms = sync_ms(torch, lambda: opt.update(grads, state, params))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if not bool(torch.isfinite(loss)):
+        raise AssertionError(f"[train] step: loss {float(loss)}")
+    leaves = list(zip(M.tree_leaves(params), M.tree_leaves(grads), M.tree_leaves(new)))
+    for p, g, n in leaves:
+        if not bool(g.isfinite().all()):
+            raise AssertionError("[train] step: a non-finite gradient")
+        if bool(g.ne(0).any()) and torch.equal(n, p):
+            raise AssertionError(f"[train] step: a leaf {tuple(p.shape)} with a gradient "
+                                 "did not move")
+    if any(m.dtype != torch.float32 for m in M.tree_leaves(state.mu)):
+        raise AssertionError("[train] step: AdamW moments are not f32")
+    tokens_step = B * S
+    flops = 6 * M.param_count(params) * tokens_step
+    log(f"[train] GRPO step at full width ({cfg.name}, B {B}, S {S}, remat on, bf16): loss "
+        f"{float(loss):+.5f}, pg_loss {float(metrics['pg_loss']):+.5f}, approx_kl "
+        f"{float(metrics['approx_kl']):+.3e}; {len(leaves)} leaves, every gradient finite, "
+        f"every leaf with a gradient moved (lr {TRAIN_LR}); moments f32")
+    log(f"[train] step wall {grad_ms + opt_ms:.1f} ms (loss and gradients {grad_ms:.1f}, "
+        f"AdamW {opt_ms:.1f}; old-policy forward {old_ms:.1f}); {tokens_step} tokens, "
+        f"{tokens_step / ((grad_ms + opt_ms) / 1e3):.0f} tokens/s; 6 x params x tokens = "
+        f"{flops / 1e12:.1f} TFLOP ({flops / PEAK_FLOPS['bfloat16'] * 1e3:.1f} ms at the bf16 "
+        f"peak); peak allocated {before_gib:.2f} GiB before the step, {grad_peak:.2f} GiB "
+        f"through the backward, {peak:.2f} GiB through AdamW")
+    del params, grads, new, state, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _train_trainer(torch):
+    """(c) HeddleTrainer at qwen3-1.7b full width, two paged workers on the
+    card: two synchronous iterations, an update on records with a reward
+    spread (the workers keep their tensors until the next rollout's sync),
+    then three asynchronous updates.  The paged kernel's count is zeroed
+    before and read after; kept live calls held to the plain version."""
+    import gc
+    from repro_torch.kernels import decode_attention as kernel
+    from repro_torch.models import model as M
+    from repro_torch.rl import data as D
+    from repro_torch.rl.loop import HeddleTrainer, RolloutRecord, TrainerConfig
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg, params = _full_width(torch)
+    tr = HeddleTrainer(cfg, TrainerConfig(seed=SEED), params=params, device="cuda")
+    del params
+    times = {}
+    with _Capture(kernel, "paged_decode_attention", TRAIN_CAPTURE) as capture:
+        _reset_launches()                                   # the path starts here
+        hist, times["train(2)"] = sync_ms(torch, lambda: tr.train(2, tasks_per_iter=2))
+        task = D.sample_tasks(1, seed=SEED)[0]
+        p = task.prompt_tokens()
+        records = [RolloutRecord(p + [D.TOOL_CALL, 20, D.EOS], 4, 1.0, 1),
+                   RolloutRecord(p + [7, D.EOS], 4, 0.0, 1),
+                   RolloutRecord(p + [D.TOOL_CALL, D.EOS], 4, 0.25, 1),
+                   RolloutRecord(p + [11, 12, D.EOS], 4, 0.0, 1)]
+        held = [list(M.tree_leaves(w.params)) for w in tr.workers]
+        snap = [t.clone() for t in held[0]]
+        pre = list(M.tree_leaves(tr.params))
+        m, times["update"] = sync_ms(torch, lambda: tr.update(records))
+        if m["pg_loss"] == 0:
+            raise AssertionError(f"[train] trainer: no policy loss on a reward spread: {m}")
+        for w, leaves in zip(tr.workers, held):
+            now = list(M.tree_leaves(w.params))
+            if any(a is not b for a, b in zip(now, leaves)):
+                raise AssertionError("[train] trainer: a worker's tensors were replaced "
+                                     "before the sync")
+        if not all(torch.equal(a, b) for a, b in zip(held[0], snap)):
+            raise AssertionError("[train] trainer: the update wrote into the workers' tensors")
+        if all(torch.equal(a, b) for a, b in zip(M.tree_leaves(tr.params), pre)):
+            raise AssertionError("[train] trainer: the update did not move the policy")
+        del snap, held, pre
+        async_hist, times["train_async(3)"] = sync_ms(torch, lambda: tr.train_async(
+            n_updates=3, groups_per_update=2, max_staleness=2, backlog_groups=4))
+        launches = _read_launches(torch)                    # the path ends
+    if len(async_hist) != 3 or max(h["staleness"] for h in async_hist) > 2 or \
+            [h["weight_epoch"] for h in async_hist[:-1]] != [1.0, 2.0]:
+        raise AssertionError(f"[train] train_async: {async_hist}")
+    for h in hist + [m] + async_hist:
+        if not all(math.isfinite(v) for v in h.values()):
+            raise AssertionError(f"[train] trainer: non-finite metrics {h}")
+    n = launches["paged_decode_attention"]
+    if n == 0 or launches["mamba_scan"] or launches["decode_attention"]:
+        raise AssertionError(f"[train] trainer: launches {launches}")
+    steps = sum(w.decode_steps for w in tr.workers)
+    log(f"[train] HeddleTrainer ({cfg.name} full width, 2 paged workers, group 4, "
+        f"capacity 96): " + ", ".join(f"{k} {v / 1e3:.2f} s" for k, v in times.items())
+        + f"; rewards {[h['mean_reward'] for h in hist]}, spread update pg_loss "
+        f"{m['pg_loss']:+.4f}; async staleness {[h['staleness'] for h in async_hist]}, "
+        f"epochs {[h.get('weight_epoch') for h in async_hist]}; decode steps {steps}; "
+        f"paged_decode_attention launches {n}; peak allocated "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    log("[train] the workers kept their tensors, bit for bit, through the update until "
+        "the next rollout's sync")
+    err = _hold_kept(torch, "train", capture.kept, TRAIN_CAPTURE)
+    del tr, capture
+    gc.collect()
+    torch.cuda.empty_cache()
+    return n, err
+
+
+def _train_cli(torch):
+    """(d) the train CLI as a process of its own with no --device: on the card."""
+    import os
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    cli = subprocess.run([sys.executable, "-m", "repro_torch.launch.train", "--arch",
+                          "smollm-135m", "--iters", "2"], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=600)
+    lines = cli.stdout.strip().splitlines()
+    if cli.returncode != 0 or not any(" on cuda " in ln for ln in lines) or \
+            not any(ln.startswith("iter    2") for ln in lines):
+        raise AssertionError(f"[train] train CLI exited {cli.returncode}:\n"
+                             f"{cli.stdout[-2000:]}\n{cli.stderr[-2000:]}")
+    for ln in lines:
+        log(f"[train] train CLI: {ln}")
+    log(f"[train] train CLI (a process of its own, smollm-135m reduced to 2 layers, "
+        f"f32): exit 0 in {time.perf_counter() - t0:.1f} s")
+
+
+def _train_legacy(torch):
+    """(e) the legacy per-sequence worker against the port's dense worker on
+    the card (qwen3 reduced, 2 layers, f32; same prompts and keys): equal
+    tokens through prefill, decode, extend and more decode.  The dense
+    kernel's launches of the legacy worker alone are counted, and its kept
+    live calls held to the plain version (the dense worker runs the same
+    kernel, so equal tokens alone would not show a fault of it)."""
+    from repro_torch.configs import get_config
+    from repro_torch.engine.legacy import LegacyRolloutWorker
+    from repro_torch.kernels import decode_attention as kernel
+    from repro_torch.engine.sampler import SamplerConfig
+    from repro_torch.engine.worker import RolloutWorker
+    from repro_torch.models.model import init_params
+
+    cfg = get_config("qwen3_1_7b").reduced(n_periods=2)
+    params = init_params(cfg, seed=SEED, device="cuda")
+    sampler = SamplerConfig(1.0, 0.9)
+    legacy = LegacyRolloutWorker(cfg, params, capacity=128, sampler=sampler, seed=SEED,
+                                 device="cuda")
+    dense = RolloutWorker(cfg, params, capacity=128, max_slots=4, sampler=sampler, seed=SEED,
+                          paged=False, device="cuda")
+    prompts = {1: list(range(5, 45)), 2: list(range(7, 30)), 3: list(range(100, 160))}
+    script = [("prefill", 1), ("prefill", 2), ("decode", [1, 2], 16), ("prefill", 3),
+              ("decode", [1, 2, 3], 8), ("extend", 2, [300, 301, 302, 303]),
+              ("decode", [2, 3], 12), ("decode", [1, 2, 3], 8)]
+    runs = {}
+    for tag, w in (("legacy", legacy), ("dense", dense)):
+        with _Capture(kernel, "decode_attention", LEGACY_CAPTURE) as capture:
+            _reset_launches()
+            outs = []
+            for op in script:
+                if op[0] == "prefill":
+                    w.prefill(op[1], prompts[op[1]])
+                elif op[0] == "extend":
+                    w.extend(op[1], op[2])
+                else:
+                    outs.append(w.decode(op[1], op[2]))
+            runs[tag] = (outs, _read_launches(torch), capture.kept)
+    if runs["legacy"][0] != runs["dense"][0]:
+        raise AssertionError(f"[train] legacy tokens differ from the dense worker's:\n"
+                             f"{runs['legacy'][0]}\n{runs['dense'][0]}")
+    n = runs["legacy"][1]["decode_attention"]
+    want = cfg.n_layers * (legacy.decode_steps + 4)         # a step a tool token
+    if n != want:
+        raise AssertionError(f"[train] legacy: decode_attention launched {n} times, "
+                             f"want {want} ({legacy.decode_steps} steps + 4 tool tokens)")
+    log(f"[train] legacy worker ({cfg.name} reduced, 2 layers, f32): tokens equal to the "
+        f"dense worker's through prefill, decode, extend and decode "
+        f"({sum(len(t) for o in runs['legacy'][0] for t in o.values())} tokens); "
+        f"decode_attention launches {n} = 2 x ({legacy.decode_steps} steps + 4 tool tokens)")
+    err = _hold_kept(torch, "legacy", runs["legacy"][2], LEGACY_CAPTURE)
+    return n, err
+
+
+def phase_train(torch, smi):
+    """The training plane on the card: flash forward and backward at
+    qwen3's layer shape, one GRPO step at full width, HeddleTrainer sync and
+    async at full width, the train CLI, and the legacy worker."""
+    log(f"[train] {smi}")
+    _train_flash(torch)
+    _train_step(torch)
+    launches, err = _train_trainer(torch)
+    _train_cli(torch)
+    legacy, legacy_err = _train_legacy(torch)
+    return {"launches": launches, "max_abs_err": err, "legacy_launches": legacy,
+            "legacy_max_abs_err": legacy_err}
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         print("chip_smoke: src/repro_torch not found next to this script", file=sys.stderr)
@@ -1923,6 +2259,7 @@ def main() -> int:
                                  f"{runtime}")
         families = timed("families", phase_families, torch, info["smi"])
         encoders = timed("encoders", phase_encoders, torch, info["smi"])
+        train = timed("train", phase_train, torch, info["smi"])
     except Exception:                                  # a failed phase fails the run
         traceback.print_exc()
         return 1
@@ -1936,6 +2273,7 @@ def main() -> int:
          "runtime_max_abs_err": runtime["max_abs_err"]["paged_decode_attention"],
          "families_launches": families["paged"],
          "families_max_abs_err": families["max_abs_err"]["paged_decode_attention"],
+         "train_launches": train["launches"], "train_max_abs_err": train["max_abs_err"],
          **rows["paged_decode_attention"]["bfloat16"]},
         {"name": "decode_attention", "route": "cuda",
          "source": f"{csrc}/decode_attention.cu",
@@ -1946,6 +2284,8 @@ def main() -> int:
          "families_max_abs_err": families["max_abs_err"]["decode_attention"],
          "encoders_launches": encoders["launches"],
          "encoders_max_abs_err": encoders["max_abs_err"],
+         "legacy_launches": train["legacy_launches"],
+         "legacy_max_abs_err": train["legacy_max_abs_err"],
          **rows["decode_attention"]["bfloat16"]},
         {"name": "mamba_scan", "route": "cuda",
          "source": f"{csrc}/mamba_scan.cu",

@@ -39,6 +39,17 @@ def mamba_scan(dt: torch.Tensor, b_in: torch.Tensor, c_in: torch.Tensor, x: torc
     """Fused selective scan: dt (B,S,di) f32, b_in/c_in (B,S,N), x (B,S,di),
     a_log (di,N).  Returns (y (B,S,di) f32, last state (B,di,N) f32).  The
     projections ``b_in``/``c_in`` are usually column slices of one product;
-    they are made contiguous here, as the kernel reads them."""
+    they are made contiguous here, as the kernel reads them.
+
+    It has no backward: under grad mode with any input requiring grad it
+    raises ``NotImplementedError`` on every device (the kernel's outputs carry
+    no ``grad_fn``, so the gradients would be silently wrong; the plain
+    version could differentiate, but then the device would change what the
+    model computes)."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (dt, b_in, c_in, x, a_log)):
+        raise NotImplementedError(
+            "mamba_scan has no backward: training through the Mamba mixer is queued "
+            "(ROADMAP.md Queue 1, slice 6 item 3: a backward for the selective scan)")
     return scan_kernel.mamba_scan(dt.contiguous(), b_in.contiguous(), c_in.contiguous(),
                                   x.contiguous(), a_log.contiguous())

@@ -20,10 +20,12 @@ Open-loop serving (Poisson ingress, tenant SLOs, admission control):
     PYTHONPATH=src python -m repro_torch.launch.serve --requests 24 --arrival poisson \
         --qps 4 --tenants 'gold:0.25:30,best:0.75:10' [--admission on|off]
 
-``--stream`` (rollout-as-a-service) needs the RL service plane, which the port
-does not have yet; ``--dry-run`` compiles for a TPU pod and has no GPU
-counterpart.  Both stop with an error, and so does an audio or VLM
-``--arch``: the rollout worker admits token prompts only.
+Rollout-as-a-service (streaming harvest + in-flight weight sync):
+    PYTHONPATH=src python -m repro_torch.launch.serve --requests 16 --stream 4
+
+``--dry-run`` compiles for a TPU pod and has no GPU counterpart; it stops
+with an error, and so does an audio or VLM ``--arch``: the rollout worker
+admits token prompts only.
 """
 
 from __future__ import annotations
@@ -45,9 +47,8 @@ def _validate_args(ap, args):
             ap.error(f"{flag} must be >= 1 (got {value})")
     if args.steps < 0:
         ap.error(f"--steps must be >= 0 (got {args.steps})")
-    if args.stream:
-        ap.error("--stream needs the rollout service (rl/service.py), which is "
-                 "not ported yet")
+    if args.stream < 0:
+        ap.error(f"--stream must be >= 0 (got {args.stream})")
     if args.dry_run:
         ap.error("--dry-run lowers for a TPU pod mesh; it has no GPU counterpart")
     if args.tool_latency <= 0:
@@ -139,6 +140,41 @@ def build_runtime(args, cfg, params):
                         serving=serving, device=args.device)
 
 
+def _run_service(args, runtime):
+    """The --stream demo: rollout-as-a-service over the built runtime.
+
+    Streams FINISHED trajectories as they harvest (no makespan barrier) and
+    publishes a weight epoch every N harvests; each worker adopts the new
+    epoch only once its resident lanes drain, so every printed stamp names
+    the policy that actually generated that trajectory.
+    """
+    from repro_torch.rl.service import RolloutService
+
+    svc = RolloutService(runtime.backend, runtime.controller, runtime.cfg,
+                         faults=runtime.faults)
+    svc.submit(runtime.trajs)
+    total = len(runtime.trajs)
+    t0 = time.time()
+    harvested = 0
+    for traj in svc.stream():
+        harvested += 1
+        line = (f"[{svc.now:8.3f}s] harvest {harvested:3d}/{total}  "
+                f"traj {traj.traj_id:4d}  worker {traj.worker_id}  "
+                f"epoch stamp {traj.weight_epoch}")
+        if harvested % args.stream == 0 and harvested < total:
+            epoch = svc.sync_weights()
+            line += f"  -> published weight epoch {epoch}"
+        print(line)
+    res = svc.close()
+    dt = time.time() - t0
+    print(f"\nstreamed {harvested} harvests in {dt:.1f}s wall; "
+          f"published {svc.epoch} weight epochs, "
+          f"applied per worker {svc.applied_epochs}")
+    print(f"virtual makespan {res.makespan:.2f}s, preemptions "
+          f"{res.preemptions}, tool-interval migrations {res.migrations}")
+    return 0
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--arch", default="qwen3-1.7b")
@@ -202,7 +238,10 @@ def main(argv=None):
                     help="also persist tool-boundary checkpoints to this "
                          "directory (crash-atomic npz, one per trajectory)")
     ap.add_argument("--stream", type=int, default=0,
-                    help="rollout-as-a-service; not ported yet (an error)")
+                    help="run as a rollout service: stream each trajectory the "
+                         "moment it finishes (no makespan barrier) and publish "
+                         "an in-flight weight sync every N harvests — workers "
+                         "cut over as their resident lanes drain (0 = off)")
     ap.add_argument("--dry-run", action="store_true",
                     help="TPU pod compile; no GPU counterpart (an error)")
     ap.add_argument("--device", default=None,
@@ -229,6 +268,9 @@ def main(argv=None):
     params = M.init_params(cfg, seed=args.seed, device=device)
     runtime = build_runtime(args, cfg, params)
     controller = runtime.controller
+
+    if args.stream > 0:
+        return _run_service(args, runtime)
 
     t0 = time.time()
     res = runtime.run()

@@ -546,9 +546,12 @@ def mlstm_full(p: dict, x: torch.Tensor, cfg: ModelConfig) -> tuple[torch.Tensor
         dec_q = torch.exp(mst[..., None] + fcum - m_out)      # inter-chunk decay per query
         inter = torch.einsum("bhsd,bhde->bhse", qi, Cst) * dec_q[..., None]
         n_inter = torch.einsum("bhsd,bhd->bhs", qi, nst) * dec_q
-        # intra weights D[t1, t2] = exp(i_t2 + fcum_t1 - fcum_t2 - m_out_t1), t2 <= t1
-        dmat = torch.exp((ii - fcum)[..., None, :] + (fcum - m_out)[..., :, None])
-        dmat = torch.where(causal, dmat, torch.zeros((), dtype=F32, device=x.device))
+        # intra weights D[t1, t2] = exp(i_t2 + fcum_t1 - fcum_t2 - m_out_t1), t2 <= t1;
+        # masked before the exp (exp(-inf) = 0): above the diagonal the exponent
+        # can overflow, and inf times where()'s zero gradient is NaN under
+        # autograd (the JAX package masks after the exp: Queue 3 of ROADMAP.md)
+        dlog = (ii - fcum)[..., None, :] + (fcum - m_out)[..., :, None]
+        dmat = torch.exp(torch.where(causal, dlog, float("-inf")))
         sd = torch.einsum("bhsd,bhtd->bhst", qi, ki) * dmat
         intra = torch.einsum("bhst,bhtd->bhsd", sd, vi)
         n_vec = n_inter + sd.sum(-1)

@@ -39,6 +39,7 @@ import math
 from typing import Any
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
@@ -219,6 +220,13 @@ def tree_leaves(tree):
             yield from tree_leaves(v)
     else:
         yield tree
+
+
+def tree_map(fn, tree, *rest):
+    """``fn`` over the leaves of nested dicts of one structure."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
+    return fn(tree, *rest)
 
 
 def tree_to(tree, device):
@@ -412,7 +420,8 @@ def _layer_full(cfg, kind, p, x, positions, lane, enc_out=None):
     return x, aux
 
 
-def forward_full(cfg: ModelConfig, params, batch: dict, capacity: int | None = None):
+def forward_full(cfg: ModelConfig, params, batch: dict, capacity: int | None = None,
+                 remat: bool = False, return_hidden: bool = False):
     """Full-sequence forward.  batch["tokens"]: (B, S); audio configs also take
     ``batch["encoder_embeds"]`` (B, T, d) and VLM configs
     ``batch["image_embeds"]`` (B, T, d), in the model's dtype.
@@ -421,7 +430,11 @@ def forward_full(cfg: ModelConfig, params, batch: dict, capacity: int | None = N
     aux_loss, cache), where the dense cache of ``capacity`` slots decodes from
     position S onward (with the cross K/V over the T embeddings, for audio
     and VLM).  ``aux_loss`` sums the MoE layers' load-balance losses (0
-    without MoE).
+    without MoE).  ``remat=True`` checkpoints each period under autograd
+    (only the residual stream between periods is kept; the period is run
+    again in the backward).  ``return_hidden=True`` returns the final-normed
+    hidden states (B, S, d) in place of the logits, for the chunked
+    cross-entropy of ``rl/grpo.py``, which never forms the full logits.
     """
     tokens = batch["tokens"]
     B, S = tokens.shape
@@ -433,14 +446,24 @@ def forward_full(cfg: ModelConfig, params, batch: dict, capacity: int | None = N
     enc_out = _cross_source(cfg, params, batch)
     cache = None if capacity is None else init_cache(
         cfg, B, capacity, dev, start_pos=S, enc_len=None if enc_out is None else enc_out.shape[1])
-    aux = torch.zeros((), dtype=F32, device=dev)
-    for pi in range(cfg.n_periods):
+
+    def period(pi, x, aux):
         for i, kind in enumerate(cfg.block_pattern):
             key = f"{i:02d}_{kind}"
             lane = None if cache is None else _period(cache["blocks"][key], pi)
             x, a = _layer_full(cfg, kind, _period(params["blocks"][key], pi), x, positions,
                                lane, enc_out)
             aux = aux + a
+        return x, aux
+
+    aux = torch.zeros((), dtype=F32, device=dev)
+    for pi in range(cfg.n_periods):
+        if remat:
+            x, aux = torch.utils.checkpoint.checkpoint(period, pi, x, aux, use_reentrant=False)
+        else:
+            x, aux = period(pi, x, aux)
+    if return_hidden:
+        return L.block_norm(cfg, params["final_norm"], x), aux
     logits = _logits(cfg, params, x)
     return (logits, aux) if cache is None else (logits, aux, cache)
 

@@ -11,13 +11,20 @@ import contextlib
 import copy
 import itertools
 
+import jax
+import jax.numpy as jnp
+import numpy as np
 import pytest
 import torch
 
 import repro.core.trajectory as jax_trajectory
 import repro_torch.core.trajectory as port_trajectory
+from repro.configs import get_config as jax_config
 from repro.engine import runtime as JR
+from repro.models import model as JM
+from repro_torch.configs import get_config
 from repro_torch.engine import runtime as TR
+from repro_torch.params import from_jax
 
 SEED = 5          # the seeded long-tail workload of the reference's trace tests
 # a CLI subprocess's environment: one intra-op thread, as ``one_torch_thread``
@@ -73,3 +80,29 @@ def one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(threads)
+
+
+def to_np(t) -> np.ndarray:
+    """A tensor or a JAX array as a float32 numpy array."""
+    if isinstance(t, torch.Tensor):
+        return t.detach().float().numpy()
+    return np.asarray(jnp.asarray(t, jnp.float32))
+
+
+def tree_paths(tree, prefix=""):
+    """{"a/b/c": leaf} of a nested dict."""
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(tree_paths(v, f"{prefix}/{k}" if prefix else k))
+        return out
+    return {prefix: tree}
+
+
+def jax_and_port(name, **kw):
+    """(JAX config, port config, JAX params from PRNGKey(0), the same params
+    as CPU tensors) of ``name`` reduced with ``kw``."""
+    jcfg = jax_config(name).reduced(**kw)
+    cfg = get_config(name).reduced(**kw)
+    jparams = JM.init_params(jcfg, jax.random.PRNGKey(0))
+    return jcfg, cfg, jparams, from_jax(jax.tree.map(np.asarray, jparams), device="cpu")

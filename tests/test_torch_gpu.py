@@ -602,3 +602,112 @@ def test_cuda_cross_attention_model_matches_cpu(name):
     torch.cuda.synchronize()
     assert kernel.launches["decode_attention"] - before == 8 * per_step
     assert err < 1e-4, err
+
+
+# ------------------------------------------------------------------ training plane
+# f32 on both sides; the card sums in another order than the CPU: outputs
+# within 1e-5, gradients within 5e-5 (flash) and 1e-4 (a whole GRPO loss,
+# through every layer) of max(1, max |CPU value|)
+
+def _flash_inputs(S, T, seed, B=1, KV=2, G=2, hd=64):
+    gen = torch.Generator().manual_seed(seed)
+    return [torch.randn(shape, generator=gen) for shape in
+            ((B, KV, G, S, hd), (B, T, KV, hd), (B, T, KV, hd), (B, KV, G, S, hd))]
+
+
+@pytest.mark.parametrize("S,T,window,blocks", [(100, 100, 17, (32, 48)),
+                                               (33, 70, 0, (32, 48)),
+                                               (2048, 2048, 0, (512, 1024)),
+                                               (2048, 2048, 512, (512, 1024))])
+def test_cuda_flash_forward_and_backward_match_cpu(S, T, window, blocks):
+    """The flash autograd Function on the card against the CPU: output and
+    dq/dk/dv, ragged blocks and the model's blocks past FLASH_THRESHOLD."""
+    from repro_torch.models.flash import flash_attention
+    _need_cuda()
+    q, k, v, dout = _flash_inputs(S, T, S + window)
+    qp, kp = torch.arange(S), torch.arange(T)
+    res = {}
+    for dev in ("cpu", "cuda"):
+        leaves = [t.to(dev).requires_grad_() for t in (q, k, v)]
+        out = flash_attention(*leaves, qp.to(dev), kp.to(dev), 0.125, True, window, *blocks)
+        grads = torch.autograd.grad(out, leaves, dout.to(dev))
+        res[dev] = [t.detach().cpu() for t in (out, *grads)]
+    for name, c, g, tol in zip(("out", "dq", "dk", "dv"), res["cpu"], res["cuda"],
+                               (1e-5, 5e-5, 5e-5, 5e-5)):
+        assert torch.isfinite(g).all()
+        assert float((g - c).abs().max()) <= tol * max(1.0, float(c.abs().max())), name
+
+
+def test_cuda_grpo_gradients_match_cpu():
+    """One reduced GRPO loss (smollm, f32, remat on) on the card and on the
+    CPU from the same params and batch: loss, metrics and every gradient."""
+    from repro_torch.models import model as M
+    from repro_torch.rl import grpo as G
+    _need_cuda()
+    cfg = get_config("smollm_135m").reduced(n_periods=2)
+    params = init_params(cfg, seed=0, device="cpu")
+    gen = torch.Generator().manual_seed(1)
+    tokens = torch.randint(5, cfg.vocab, (4, 40), generator=gen, dtype=torch.int32)
+    batch = {"tokens": tokens, "loss_mask": (torch.arange(40) >= 4).float().expand(4, 40),
+             "advantages": torch.tensor([1.0, -1.0, 0.5, -0.5]),
+             "old_logprobs": -6.0 + 0.3 * torch.randn((4, 40), generator=gen)}
+    res = {}
+    for dev in ("cpu", "cuda"):
+        prm = M.tree_to(params, dev)
+        res[dev] = G.value_and_grad(
+            lambda p: G.grpo_loss(cfg, G.GRPOConfig(group_size=2), p, M.tree_to(batch, dev)),
+            prm)
+    (lc, mc, gc), (lg, mg, gg) = res["cpu"], res["cuda"]
+    assert abs(float(lg) - float(lc)) <= 1e-5
+    for k in mc:
+        assert abs(float(mg[k]) - float(mc[k])) <= 1e-5, k
+    for c, g in zip(M.tree_leaves(gc), M.tree_leaves(gg)):
+        g = g.cpu()
+        assert torch.isfinite(g).all()
+        assert float((g - c).abs().max()) <= 1e-4 * max(1.0, float(c.abs().max()))
+
+
+def test_cuda_scan_refuses_autograd():
+    """The scan kernel has no backward: under grad mode with an input that
+    requires grad the wrapper raises before launching, on the card as on the
+    CPU; without grad it launches."""
+    from repro_torch.kernels import ops
+    _need_cuda()
+    B, S, di, N = 1, 8, 64, 16
+    args = [torch.rand(B, S, di, device="cuda"), torch.randn(B, S, N, device="cuda"),
+            torch.randn(B, S, N, device="cuda"), torch.randn(B, S, di, device="cuda"),
+            torch.zeros(di, N, device="cuda")]
+    before = scan_kernel.launches["mamba_scan"]
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        ops.mamba_scan(args[0].requires_grad_(), *args[1:])
+    assert scan_kernel.launches["mamba_scan"] == before
+    with torch.no_grad():
+        y, _ = ops.mamba_scan(*args)
+    torch.cuda.synchronize()
+    assert scan_kernel.launches["mamba_scan"] == before + 1 and torch.isfinite(y).all()
+
+
+@pytest.mark.parametrize("temperature", [0.0, 1.0])
+def test_cuda_legacy_worker_matches_cpu(temperature):
+    """The legacy per-sequence worker on the card (the dense kernel in every
+    decode step and every absorbed tool token) against the CPU: the same
+    tokens."""
+    from repro_torch.engine.legacy import LegacyRolloutWorker
+    from repro_torch.engine.sampler import SamplerConfig
+    _need_cuda()
+    cfg = get_config("qwen3_1_7b").reduced(n_periods=2)
+    params = init_params(cfg, seed=0, device="cpu")
+    out = {}
+    for dev in ("cpu", "cuda"):
+        w = LegacyRolloutWorker(cfg, params, capacity=64, device=dev,
+                                sampler=SamplerConfig(temperature=temperature, top_p=0.9))
+        before = kernel.launches["decode_attention"]
+        w.prefill(1, list(range(5, 25)))
+        w.prefill(2, list(range(3, 14)))
+        toks = [w.decode([1, 2], 6)]
+        w.extend(1, [101, 102, 103])
+        toks.append(w.decode([1, 2], 5))
+        out[dev] = toks
+        launched = kernel.launches["decode_attention"] - before
+    assert launched == cfg.n_layers * (11 + 3)
+    assert out["cuda"] == out["cpu"]

@@ -27,7 +27,8 @@ def _imports(path: Path) -> list[str]:
 
 
 ENTRY_POINTS = ("engine/worker.py", "core/orchestrator.py", "engine/runtime.py",
-                "launch/serve.py")
+                "launch/serve.py", "engine/legacy.py", "rl/loop.py", "rl/service.py",
+                "launch/train.py")
 
 
 def test_port_files_exist():

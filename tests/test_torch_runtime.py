@@ -364,14 +364,16 @@ def test_serve_cli_refuses_the_cpu_by_default():
     assert "CUDA" in out.stderr and "served" not in out.stdout
 
 
-@pytest.mark.parametrize("flag", [["--stream", "4"], ["--dry-run"]])
+@pytest.mark.parametrize("flag", [["--stream", "-1"], ["--dry-run"]])
 def test_serve_cli_refuses_unported_modes(flag, capsys):
+    """The TPU dry-run has no GPU counterpart; ``--stream`` is ported
+    (tests/test_torch_service.py) and refuses only a negative interval."""
     from repro_torch.launch import serve
 
     with pytest.raises(SystemExit) as err:
         serve.main(["--device", "cpu", *flag])
     assert err.value.code == 2
-    assert ("not ported" if flag[0] == "--stream" else "no GPU counterpart") in \
+    assert ("--stream must be >= 0" if flag[0] == "--stream" else "no GPU counterpart") in \
         capsys.readouterr().err
 
 
