@@ -20,7 +20,11 @@ Phases (each raises on failure; any failure exits non-zero with no result line):
               sliding-window ring's; the selective scan at a jamba Mamba
               layer's admission (B 1, S 2,048, di 8,192, N 16), all-f32, at
               S 1,500 and at B 2 (no PyTorch call computes a scan), with
-              the copy widths its wrapper chose.  Each
+              the copy widths its wrapper chose; its backward kernel at the
+              same four shapes (gradients of y and of the last state drawn),
+              each of the five gradients held to the plain backward, two
+              runs bit-equal, timed at the main shape and all-f32 beside the
+              plain backward, its scratch bytes logged.  Each
               decode row also logs the split the wrapper chose (n_split, L,
               blocks), the achieved GB/s, the share of the bound and the
               host's time to enqueue one call.  The paged kernel is also
@@ -55,7 +59,12 @@ Phases (each raises on failure; any failure exits non-zero with no result line):
               paged and on the dense worker: wall time, device-busy time and
               launches per step, and the kernels that take the device's time
               (torch.profiler), beside the step's bound (weights and KV read
-              once).
+              once).  Then the paper's F(batch) on the card
+              (engine/profiler.py: profile_decode, then
+              interference_from_profile, the two halves of
+              measured_interference; dense decode_step, capacity 2,048,
+              context 1,024, batch 1-24, 8 steps after 2): each batch's raw
+              per-step time, every one finite and > 0, and F.
 7. jamba   -- jamba-v0.1-52b at its published widths cut to one period (8
               layers: 7 Mamba, 1 attention, 4 MoE; bf16, 13.3 B params, random
               weights from the seed): two paged workers and a dense one serve
@@ -148,10 +157,22 @@ Phases (each raises on failure; any failure exits non-zero with no result line):
               paged kernel's count zeroed before and read after, every
               400th live call kept and held to the plain version; (d) the
               train CLI as a process of its own with no --device: on the
-              card; (e) the legacy per-sequence worker against the dense
+              card (it and (f)(iii) run beside (e) and (f)(i), which time
+              nothing, and end before (f)(ii)); (e) the legacy per-sequence worker against the dense
               worker (qwen3 reduced, 2 layers, f32): equal tokens, the dense
               kernel's launches counted, every 8th live call kept and held
-              to the plain version.
+              to the plain version; (f) training through the Mamba mixer:
+              (i) jamba reduced (1 period, f32), the GRPO loss and every
+              gradient on the card (the scan's forward and backward kernels)
+              against the CPU (plain versions); (ii) one jamba period at its
+              published widths (phase 7's config and seed, built anew after
+              the others are freed): the GRPO loss and gradients at B 1, S
+              2,048, remat on (no AdamW: its f32 moments alone are 106 GB),
+              every gradient finite and every leaf reached, wall and peak
+              memory, the scan kernels' launches counted (backward 7, one a
+              Mamba layer; forward 7 x the forwards the step runs); (iii)
+              the train CLI on jamba reduced as a process of its own with no
+              --device (one iteration, one group of 2): on the card.
 
 float32 matrix products run in full float32: TF32 is switched off for matmuls
 and cuDNN.  The next-to-last line is one JSON object describing each kernel;
@@ -263,6 +284,9 @@ def phase_build():
         if "registers" in line and "mamba_scan_kernel" in entry:   # <T, N>
             log(f"[build]   mamba_scan_kernel<{re.search(r'kernelI(.*?)EEEv', entry).group(1)}>: "
                 f"{line.split(':', 1)[1].strip()}")
+        bwd = re.search(r"(scan_bwd_(?:states|kernel))I(.*?)EEEv", entry)
+        if "registers" in line and bwd:
+            log(f"[build]   {bwd.group(1)}<{bwd.group(2)}>: {line.split(':', 1)[1].strip()}")
 
 
 # ---------------------------------------------------------------- phase 3
@@ -532,6 +556,7 @@ def phase_kernels(torch):
                                 dtype=torch.int32))
             rows[label][name] = _dense_row(torch, gen, label, name, P, B, C, KV, G, hd, vl)
     rows["mamba_scan"] = _scan_rows(torch, gen)
+    rows["mamba_scan_bwd"] = _scan_bwd_rows(torch)
     # drawn after the rows above, whose inputs stay those of earlier runs:
     # qwen2-moe-a2.7b's runtime decode (phase 10), 24 lanes, MHA (KV 16, G
     # 1), lanes of 512 slots, one pool a layer (24); logged only
@@ -668,6 +693,90 @@ def _scan_rows(torch, gen):
                                       [t.data_ptr() for t in (*args[:4], got[0])])
         log(msg + "; copy widths " + ", ".join(f"{k} {plan[k]}" for k in scan_kernel.PLAN_KEYS))
         del args, got, want
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _scan_bwd_bound(B, S, di, N, item):
+    """The least time for one backward of the scan: the larger of the bytes
+    (dt, g_y, d dt in f32 and x, dx in ``item`` bytes a (b, t, d); B, C, dB,
+    dC in ``item`` bytes a (b, t, n); A_log, dA_log and g_h in f32; each
+    once), the exponentials (one per (t, d, n)) on the special-function units,
+    and 19 f32 flops per (t, d, n) at the f32 peak: the adjoint's 7 products
+    and 5 FMAs (2 flops each) per state in csrc/mamba_scan_bwd.cu, and the
+    two sums over channels of dB and dC.  Returns (bound ms, bound_by, bytes,
+    each of the three times in ms)."""
+    nbytes = (B * S * di * (3 * 4 + 2 * item) + 4 * B * S * N * item + 2 * di * N * 4
+              + B * di * N * 4)
+    n = B * S * di * N
+    times = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3, "exp": n / SFU_PER_S * 1e3,
+             "flops": 19 * n / PEAK_FLOPS["float32"] * 1e3}
+    bound = max(times.values())
+    return bound, "bytes" if times["bytes"] >= bound else "operations", nbytes, times
+
+
+def _hold_scan_bwd(torch, label, got, want):
+    """Each of the five gradients within SCAN_TOL x max(1, max |plain|) of the
+    plain backward computed in f32; a bf16 gradient (dB, dC, dx) also within
+    half a bf16 ulp of each value, the rounding of its cast.  Returns the
+    largest |err| and a log string."""
+    errs, worst = [], 0.0
+    for part, g, w in zip(("d_dt", "dB", "dC", "dx", "dA_log"), got, want):
+        scale = max(1.0, float(w.abs().max())) if w.numel() else 1.0
+        limit = SCAN_TOL * scale * torch.ones_like(w)
+        if g.dtype == torch.bfloat16:
+            limit += torch.ldexp(torch.ones_like(w), torch.frexp(w).exponent - 9)
+        diff = (g.float() - w).abs()
+        err = float(diff.max()) if w.numel() else 0.0
+        if not bool(g.float().isfinite().all()) or not bool((diff <= limit).all()):
+            raise AssertionError(f"mamba_scan_bwd {label} {part}: max |err| {err} "
+                                 f"(scale {scale})")
+        worst = max(worst, err)
+        errs.append(f"{part} {err:.3e} ({err / scale:.1e} of {scale:.3g})")
+    return worst, "max|err| " + ", ".join(errs)
+
+
+def _scan_bwd_rows(torch):
+    """The scan's backward kernel against the plain backward at the forward
+    rows' shapes, its inputs from a generator of its own (the rows drawn
+    after it keep their inputs): y's and the last state's gradients drawn
+    (N(0, 1)); two runs bit-equal; the main shape and all-f32 timed (held
+    events, 20 calls; the plain backward unheld over 2)."""
+    from repro_torch.kernels import mamba_scan as scan_kernel
+    from repro_torch.kernels import ref
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    di, N = 8192, 16
+    rows = {}
+    for label, B, S, name in SCAN_SHAPES:
+        args = _scan_inputs(torch, gen, B, S, name)
+        g_y = torch.randn((B, S, di), generator=gen, device="cuda")
+        g_h = torch.randn((B, di, N), generator=gen, device="cuda")
+        got = scan_kernel.mamba_scan_bwd(*args, g_y, g_h)
+        again = scan_kernel.mamba_scan_bwd(*args, g_y, g_h)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"mamba_scan_bwd {label}: two runs differ")
+        want = ref.mamba_scan_bwd_ref(*(t.float() for t in args), g_y, g_h)
+        err, msg = _hold_scan_bwd(torch, label, got, want)
+        del again, want
+        bound, bound_by, nbytes, times = _scan_bwd_bound(B, S, di, N, args[1].element_size())
+        msg = (f"[kernels] mamba_scan_bwd {label}: B={B} S={S} di={di} N={N}, dt/g_y/g_h f32, "
+               f"x/B/C {name}; {msg}; two runs bit-equal; scratch "
+               f"{scan_kernel.bwd_scratch_bytes(B, S, di, N) / 1e6:.1f} MB")
+        if label in ("main", "f32"):
+            ms = event_ms(torch, lambda i: scan_kernel.mamba_scan_bwd(*args, g_y, g_h), 20)[0]
+            plain_ms = event_ms(torch, lambda i: ref.mamba_scan_bwd_ref(*args, g_y, g_h), 2,
+                                n_warm=1, hold=False)[0]
+            rows[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                          "library_ms": None, "bound_ms": bound, "bound_by": bound_by}
+            msg += (f"; kernel {ms:.4f} ms ({bound / ms:.1%} of the bound), plain "
+                    f"{plain_ms:.2f} ms, library none (no PyTorch call computes a selective "
+                    f"scan's backward); bound {bound:.4f} ms ({bound_by}: bytes "
+                    f"{nbytes / 1e6:.1f} MB {times['bytes']:.4f} ms, {B * S * di * N / 1e6:.1f} "
+                    f"M exp2 on the SFUs {times['exp']:.4f} ms, 19 f32 flops a (t, d, n) "
+                    f"{times['flops']:.4f} ms)")
+        log(msg)
+        del args, got, g_y, g_h
     torch.cuda.empty_cache()
     return rows
 
@@ -948,10 +1057,33 @@ def _profile_step(torch, cfg, params, paged):
     torch.cuda.empty_cache()
 
 
+INTERFERENCE_BATCHES = (1, 2, 4, 8, 16, 24)
+
+
+def _interference(torch, cfg, params):
+    """The paper's F(batch) on the card through the port's profiler (dense
+    ``decode_step``, capacity 2,048, context 1,024, 8 steps after 2 warm-up
+    steps): the two halves of ``measured_interference``, so that the raw
+    per-step times of ``profile_decode`` are logged beside F."""
+    from repro_torch.engine import profiler
+    t0 = time.perf_counter()
+    raw = profiler.profile_decode(cfg, params, batch_sizes=INTERFERENCE_BATCHES,
+                                  capacity=2048, context=1024, steps=8, warmup=2)
+    F = profiler.interference_from_profile(raw)
+    if sorted(raw) != list(INTERFERENCE_BATCHES) or \
+            not all(math.isfinite(t) and t > 0 for t in raw.values()):
+        raise AssertionError(f"[profile] F(batch): profile {raw}")
+    log(f"[profile] F(batch) ({cfg.name} full width, dense decode_step, capacity 2048, "
+        f"context 1024, 8 steps after 2; {time.perf_counter() - t0:.1f} s): "
+        + ", ".join(f"b {b}: {raw[b] * 1e3:.3f} ms a step, F {F(b):.4f}"
+                    for b in INTERFERENCE_BATCHES))
+
+
 def phase_profile(torch):
     cfg, params = _full_width(torch)
     for paged in (True, False):
         _profile_step(torch, cfg, params, paged)
+    _interference(torch, cfg, params)
     del params
     torch.cuda.empty_cache()
 
@@ -1058,7 +1190,8 @@ def phase_jamba(torch):
     launches = _read_launches(torch)                        # jamba path ends
     paged_steps = sum(w.decode_steps + w.absorbed_tokens for w in (w0, w1))
     dense_steps = wd.decode_steps + wd.absorbed_tokens
-    want = {"mamba_scan": n_mamba * admissions, "paged_decode_attention": paged_steps,
+    want = {"mamba_scan": n_mamba * admissions, "mamba_scan_bwd": 0,
+            "paged_decode_attention": paged_steps,
             "decode_attention": dense_steps}            # one attention layer a period
     if launches != want:
         raise AssertionError(f"jamba launches {launches}, want {want}")
@@ -2123,7 +2256,8 @@ def _train_trainer(torch):
         if not all(math.isfinite(v) for v in h.values()):
             raise AssertionError(f"[train] trainer: non-finite metrics {h}")
     n = launches["paged_decode_attention"]
-    if n == 0 or launches["mamba_scan"] or launches["decode_attention"]:
+    if n == 0 or launches["mamba_scan"] or launches["mamba_scan_bwd"] or \
+            launches["decode_attention"]:
         raise AssertionError(f"[train] trainer: launches {launches}")
     steps = sum(w.decode_steps for w in tr.workers)
     log(f"[train] HeddleTrainer ({cfg.name} full width, 2 paged workers, group 4, "
@@ -2142,23 +2276,47 @@ def _train_trainer(torch):
     return n, err
 
 
-def _train_cli(torch):
-    """(d) the train CLI as a process of its own with no --device: on the card."""
+def _start_cli(arch="smollm-135m", iters=2, *extra):
+    """(d), (f)(iii) the train CLI as a process of its own with no --device
+    (on the card), started in the background; ``_finish_cli`` waits for it
+    and checks it."""
     import os
-    t0 = time.perf_counter()
+    import tempfile
     env = dict(os.environ, PYTHONPATH=str(SRC))
-    cli = subprocess.run([sys.executable, "-m", "repro_torch.launch.train", "--arch",
-                          "smollm-135m", "--iters", "2"], cwd=ROOT, env=env,
-                         capture_output=True, text=True, timeout=600)
-    lines = cli.stdout.strip().splitlines()
-    if cli.returncode != 0 or not any(" on cuda " in ln for ln in lines) or \
-            not any(ln.startswith("iter    2") for ln in lines):
-        raise AssertionError(f"[train] train CLI exited {cli.returncode}:\n"
-                             f"{cli.stdout[-2000:]}\n{cli.stderr[-2000:]}")
+    out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
+    proc = subprocess.Popen([sys.executable, "-m", "repro_torch.launch.train", "--arch",
+                             arch, "--iters", str(iters), *extra], cwd=ROOT, env=env,
+                            stdout=out, stderr=err, text=True)
+    return proc, out, err, (arch, iters, extra), time.perf_counter()
+
+
+def _stop(proc):
+    if proc.poll() is None:
+        proc.kill()
+        proc.wait()
+
+
+def _finish_cli(cli):
+    proc, out, err, (arch, iters, extra), t0 = cli
+    try:
+        rc = proc.wait(timeout=max(1.0, 600 - (time.perf_counter() - t0)))
+    finally:
+        _stop(proc)
+    out.seek(0)
+    err.seek(0)
+    stdout, stderr = out.read(), err.read()
+    out.close()
+    err.close()
+    lines = stdout.strip().splitlines()
+    if rc != 0 or not any(" on cuda " in ln for ln in lines) or \
+            not any(ln.startswith(f"iter {iters:4d}") and "nan" not in ln for ln in lines):
+        raise AssertionError(f"[train] train CLI exited {rc}:\n"
+                             f"{stdout[-2000:]}\n{stderr[-2000:]}")
     for ln in lines:
         log(f"[train] train CLI: {ln}")
-    log(f"[train] train CLI (a process of its own, smollm-135m reduced to 2 layers, "
-        f"f32): exit 0 in {time.perf_counter() - t0:.1f} s")
+    log(f"[train] train CLI (a process of its own, {arch} reduced to 2 periods, "
+        f"f32{', ' + ' '.join(extra) if extra else ''}): exit 0 in "
+        f"{time.perf_counter() - t0:.1f} s, run beside the other CLI, (e) and (f)(i)")
 
 
 def _train_legacy(torch):
@@ -2215,18 +2373,150 @@ def _train_legacy(torch):
     return n, err
 
 
+def _jamba_grads_card_vs_cpu(torch):
+    """(f)(i) jamba reduced (1 period, f32): the GRPO loss (remat on), its
+    metrics and every gradient on the card (the scan's forward and backward
+    kernels) against the CPU (their plain versions), from the same params and
+    batch, within 1e-4 x max(1, max |CPU value|)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.rl import grpo as G
+    cfg = get_config("jamba_v0_1_52b").reduced()
+    params = M.init_params(cfg, seed=SEED, device="cpu")
+    gen = torch.Generator().manual_seed(SEED + 1)
+    tokens = torch.randint(5, cfg.vocab, (4, 40), generator=gen, dtype=torch.int32)
+    batch = {"tokens": tokens, "loss_mask": (torch.arange(40) >= 4).float().expand(4, 40),
+             "advantages": torch.tensor([1.0, -1.0, 0.5, -0.5]),
+             "old_logprobs": -6.0 + 0.3 * torch.randn((4, 40), generator=gen)}
+    res, launches = {}, {}
+    t0 = time.perf_counter()
+    for dev in ("cpu", "cuda"):
+        _reset_launches()
+        res[dev] = G.value_and_grad(
+            lambda p: G.grpo_loss(cfg, G.GRPOConfig(group_size=2), p, M.tree_to(batch, dev)),
+            M.tree_to(params, dev))
+        launches[dev] = _read_launches(torch)
+    (lc, mc, gc), (lg, mg, gg) = res["cpu"], res["cuda"]
+    worst = abs(float(lg) - float(lc))
+    if worst > 1e-4 * max(1.0, abs(float(lc))):
+        raise AssertionError(f"[train] jamba reduced: loss {float(lg)} vs {float(lc)}")
+    for k in mc:
+        if abs(float(mg[k]) - float(mc[k])) > 1e-4 * max(1.0, abs(float(mc[k]))):
+            raise AssertionError(f"[train] jamba reduced: {k} {mg[k]} vs {mc[k]}")
+    leaves = list(zip(M.tree_leaves(gc), M.tree_leaves(gg)))
+    rel = 0.0
+    for c, g in leaves:
+        g = g.cpu()
+        scale = max(1.0, float(c.abs().max()))
+        err = float((g - c).abs().max())
+        if not bool(g.isfinite().all()) or err > 1e-4 * scale:
+            raise AssertionError(f"[train] jamba reduced: a gradient {tuple(c.shape)} off by "
+                                 f"{err} (scale {scale})")
+        rel = max(rel, err / scale)
+    n_mamba = cfg.n_periods * sum(k.startswith("mamba") for k in cfg.block_pattern)
+    want = {"mamba_scan": 2 * n_mamba, "mamba_scan_bwd": n_mamba}   # forward, remat's re-run
+    got = {k: launches["cuda"][k] for k in want}
+    if got != want or any(launches["cpu"].values()):
+        raise AssertionError(f"[train] jamba reduced: launches {launches}, want {want} on cuda")
+    log(f"[train] jamba reduced (1 period, f32, B 4, S 40): GRPO loss {float(lg):+.6f} (CPU "
+        f"{float(lc):+.6f}), {len(leaves)} gradient leaves card vs CPU within "
+        f"{rel:.2e} of max(1, max|CPU|) (limit 1e-4); card launches {got}; "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
+def _jamba_step(torch):
+    """(f)(ii) the GRPO loss and gradients of one jamba period at its
+    published widths (13.3 B params, bf16): B 1, S 2,048, remat on, advantage
+    +1, old logprobs from the policy's own forward.  No AdamW: its f32
+    moments alone take 106 GB.  Every gradient finite, every leaf reached;
+    the scan kernels' launches counted from the old-policy forward on."""
+    import gc
+    from repro_torch.models import model as M
+    from repro_torch.rl import grpo as G
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg, params = _jamba_model(torch)
+    n_mamba = cfg.n_periods * sum(k.startswith("mamba") for k in cfg.block_pattern)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    B, S = 1, 2048
+    tokens = torch.randint(0, cfg.vocab, (B, S), generator=gen, device="cuda",
+                           dtype=torch.int32)
+    mask = torch.zeros(B, S, device="cuda")
+    mask[:, 64:S - 1] = 1.0
+    batch = {"tokens": tokens, "loss_mask": mask,
+             "advantages": torch.ones(B, device="cuda")}
+    _reset_launches()                                       # the path starts here
+    with torch.no_grad():
+        (logits, _), old_ms = sync_ms(torch, lambda: M.forward_full(cfg, params,
+                                                                    {"tokens": tokens}))
+        batch["old_logprobs"] = G.token_logprobs(logits, tokens)
+    del logits
+    before_gib = torch.cuda.max_memory_allocated() / 2**30
+    (loss, metrics, grads), grad_ms = sync_ms(torch, lambda: G.value_and_grad(
+        lambda p: G.grpo_loss(cfg, G.GRPOConfig(group_size=1), p, batch), params))
+    launches = _read_launches(torch)                        # the path ends
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if not bool(torch.isfinite(loss)):
+        raise AssertionError(f"[train] jamba step: loss {float(loss)}")
+    leaves = list(M.tree_leaves(grads))
+    for g in leaves:
+        if not bool(g.isfinite().all()):
+            raise AssertionError("[train] jamba step: a non-finite gradient")
+    dead = [tuple(g.shape) for g in leaves if not bool(g.ne(0).any())]
+    if dead:
+        raise AssertionError(f"[train] jamba step: leaves with a zero gradient {dead}")
+    # the old-policy forward, the loss's forward, remat's re-run in the backward
+    want = {"mamba_scan": 3 * n_mamba, "mamba_scan_bwd": n_mamba,
+            "paged_decode_attention": 0, "decode_attention": 0}
+    if launches != want:
+        raise AssertionError(f"[train] jamba step: launches {launches}, want {want}")
+    tokens_step = B * S
+    flops = 6 * M.param_count(params) * tokens_step
+    log(f"[train] jamba GRPO loss and gradients at its published widths ({cfg.name}, 1 period "
+        f"of 4, {M.param_count(params) / 1e9:.3f} B params, bf16; B {B}, S {S}, remat on, "
+        f"advantage +1): loss {float(loss):+.5f}, pg_loss {float(metrics['pg_loss']):+.5f}, "
+        f"aux {float(metrics['aux_loss']):.4f}; {len(leaves)} leaves, every gradient finite "
+        f"and nonzero; launches {launches} (mamba_scan = {n_mamba} x 3 forwards: the "
+        f"old-policy forward, the loss's, remat's re-run; mamba_scan_bwd = {n_mamba})")
+    log(f"[train] jamba step wall: loss and gradients {grad_ms:.1f} ms (old-policy forward "
+        f"{old_ms:.1f} ms); {tokens_step / (grad_ms / 1e3):.0f} tokens/s; 6 x params x tokens "
+        f"= {flops / 1e12:.1f} TFLOP ({flops / PEAK_FLOPS['bfloat16'] * 1e3:.1f} ms at the bf16 "
+        f"peak); peak allocated {before_gib:.2f} GiB after the old-policy forward, "
+        f"{peak:.2f} GiB through the backward (weights {_nbytes(params) / 1e9:.2f} GB, "
+        f"gradients {_nbytes(grads) / 1e9:.2f} GB)")
+    del params, grads, batch, loss
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def phase_train(torch, smi):
     """The training plane on the card: flash forward and backward at
     qwen3's layer shape, one GRPO step at full width, HeddleTrainer sync and
-    async at full width, the train CLI, and the legacy worker."""
+    async at full width, the train CLI, the legacy worker, and training
+    through the Mamba mixer (jamba reduced card vs CPU, one full-width period's
+    loss and gradients, the CLI on jamba)."""
     log(f"[train] {smi}")
     _train_flash(torch)
     _train_step(torch)
     launches, err = _train_trainer(torch)
-    _train_cli(torch)
-    legacy, legacy_err = _train_legacy(torch)
+    # the two CLI processes run beside (e) and (f)(i), which time nothing;
+    # both end before (f)(ii), whose wall and peak are read
+    clis = [_start_cli(),
+            _start_cli("jamba-v0.1-52b", 1, "--tasks-per-iter", "1", "--group-size", "2")]
+    try:
+        legacy, legacy_err = _train_legacy(torch)
+        _jamba_grads_card_vs_cpu(torch)
+        for cli in clis:
+            _finish_cli(cli)
+    finally:
+        for cli in clis:
+            _stop(cli[0])
+    jamba = _jamba_step(torch)
     return {"launches": launches, "max_abs_err": err, "legacy_launches": legacy,
-            "legacy_max_abs_err": legacy_err}
+            "legacy_max_abs_err": legacy_err, "jamba_launches": jamba}
 
 
 def main() -> int:
@@ -2290,7 +2580,15 @@ def main() -> int:
         {"name": "mamba_scan", "route": "cuda",
          "source": f"{csrc}/mamba_scan.cu",
          "replaces": "src/repro/kernels/mamba_scan.py:55",
-         "launches": jamba_launches["mamba_scan"], **rows["mamba_scan"]["bfloat16"]},
+         "launches": jamba_launches["mamba_scan"],
+         "train_launches": train["jamba_launches"]["mamba_scan"],
+         **rows["mamba_scan"]["bfloat16"]},
+        {"name": "mamba_scan_bwd", "route": "cuda",
+         "source": f"{csrc}/mamba_scan_bwd.cu",
+         "replaces": "src/repro/models/layers.py:530 (the VJP of _mamba_scan_fused, which "
+                     "jax.grad takes through plain JAX; no Pallas backward)",
+         "launches": train["jamba_launches"]["mamba_scan_bwd"],
+         **rows["mamba_scan_bwd"]["bfloat16"]},
     ]
     log(f"[device] {info['smi']}")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -32,12 +32,12 @@ emission), ``commit_migration``/``abort_migration``, ``on_finish``,
 ``record_worker_stats``.
 
 The loop also carries the asynchronous rollout-as-a-service plane (the JAX
-package's ``rl.service``, not ported yet; docs/training.md): with
-``stream_harvest`` on, ``run_stream()`` yields each FINISHED trajectory through a
-``harvest`` event instead of barriering on the makespan, ``inject()`` admits new
-work mid-run,
-and ``publish_weights()`` schedules an in-flight weight sync — each worker
-cuts over to the new policy epoch only once its resident lanes drain, so every
+package's ``rl.service``, ported as ``repro_torch/rl/service.py``;
+docs/training.md): with ``stream_harvest`` on, ``run_stream()`` yields each
+FINISHED trajectory through a ``harvest`` event instead of barriering on the
+makespan, ``inject()`` admits new work mid-run, and ``publish_weights()``
+schedules an in-flight weight sync — each worker cuts over to the new policy
+epoch only once its resident lanes drain, so every
 trajectory finishes on the weights that admitted it (the ``weight_epoch``
 stamp, enforced by the sanitizer).
 """

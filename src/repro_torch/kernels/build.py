@@ -100,4 +100,4 @@ class Library:
 
 
 KERNELS = Library("kernels", ("paged_decode_attention.cu", "decode_attention.cu",
-                              "mamba_scan.cu"))
+                              "mamba_scan.cu", "mamba_scan_bwd.cu"))

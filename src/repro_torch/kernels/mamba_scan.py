@@ -1,13 +1,16 @@
-"""Selective scan: the hand-written Hopper kernel and its wrapper.
+"""Selective scan: the hand-written Hopper kernels and their wrappers.
 
 ``mamba_scan`` (``csrc/mamba_scan.cu``) replaces the TPU kernel
-``repro/kernels/mamba_scan.py::mamba_scan_pallas``.  It is compiled by
-``nvcc`` on first use into the port's one kernel library (``build.py``) and
-called through ``ctypes`` on PyTorch's current stream.
+``repro/kernels/mamba_scan.py::mamba_scan_pallas``.  ``mamba_scan_bwd``
+(``csrc/mamba_scan_bwd.cu``) is its backward, the port's own: the JAX package
+differentiates its plain chunked scan (``repro/models/layers.py:530``) and
+has no Pallas backward.  Both are compiled by ``nvcc`` on first use into the
+port's one kernel library (``build.py``) and called through ``ctypes`` on
+PyTorch's current stream.
 
-On CPU tensors the wrapper returns the plain version (``ref.py``); on CUDA
-tensors it launches the kernel or raises.  ``launches["mamba_scan"]`` counts
-the kernel's launches, and nothing else.
+On CPU tensors each wrapper returns the plain version (``ref.py``); on CUDA
+tensors it launches the kernel or raises.  ``launches["mamba_scan"]`` and
+``launches["mamba_scan_bwd"]`` count the kernels' launches, and nothing else.
 
 ``_scan_plan`` chooses, from the shapes and addresses alone, the copy width
 of each operand into and out of the kernel's shared-memory tile ring; the
@@ -21,10 +24,10 @@ import torch
 from repro_torch.kernels import ref
 from repro_torch.kernels.build import KERNELS
 
-launches = {"mamba_scan": 0}
+launches = {"mamba_scan": 0, "mamba_scan_bwd": 0}
 
 _SUFFIX = {torch.bfloat16: "bf16", torch.float32: "f32"}
-_STATE_DIMS = (4, 8, 16, 32)          # N built (csrc/mamba_scan.cu's launch)
+_STATE_DIMS = (4, 8, 16, 32)          # N built (both kernels' launch)
 PLAN_KEYS = ("w_dt", "w_x", "w_b", "w_c", "w_y")
 
 
@@ -50,25 +53,23 @@ def _scan_plan(S: int, di: int, N: int, item: int, ptrs) -> dict:
             "w_y": _copy_width(y_p, 4 * di, 4)}
 
 
-def mamba_scan(dt: torch.Tensor, b_in: torch.Tensor, c_in: torch.Tensor, x: torch.Tensor,
-               a_log: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """dt (B,S,di), b_in and c_in (B,S,N), x (B,S,di), a_log (di,N).  Returns
-    (y (B,S,di) f32, last state (B,di,N) f32).  The kernel takes dt and a_log
-    in f32 and x, b_in, c_in all in bf16 or all in f32, contiguous."""
-    name = "mamba_scan"
+def _check(name: str, dt, b_in, c_in, x, a_log, **grads) -> tuple[int, int, int, int]:
+    """Raise unless the kernel takes these CUDA tensors: dt and a_log (and the
+    gradients ``grads``, None allowed) f32, x, b_in and c_in of one dtype,
+    bfloat16 or float32, all contiguous on dt's device.  Returns (B, S, di, N)."""
     dev = dt.device
-    if dev.type == "cpu":
-        return ref.mamba_scan_ref(dt, b_in, c_in, x, a_log)
     if dev.type != "cuda":
         raise ValueError(f"{name}: no kernel for device {dev}")
-    tensors = {"dt": dt, "b_in": b_in, "c_in": c_in, "x": x, "a_log": a_log}
+    tensors = {"dt": dt, "b_in": b_in, "c_in": c_in, "x": x, "a_log": a_log,
+               **{n: t for n, t in grads.items() if t is not None}}
     for n, t in tensors.items():
         if t.device != dev:
             raise ValueError(f"{name}: {n} is on {t.device}, dt on {dev}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: {n} must be contiguous (strides {t.stride()})")
-    if dt.dtype != torch.float32 or a_log.dtype != torch.float32:
-        raise TypeError(f"{name}: dt and a_log must be float32")
+    if any(t.dtype != torch.float32 for n, t in tensors.items()
+           if n not in ("b_in", "c_in", "x")):
+        raise TypeError(f"{name}: dt, a_log and the gradients must be float32")
     if x.dtype not in _SUFFIX or b_in.dtype != x.dtype or c_in.dtype != x.dtype:
         raise TypeError(f"{name}: x, b_in and c_in must share one dtype, bfloat16 or float32")
     if dt.dim() != 3 or x.shape != dt.shape:
@@ -78,8 +79,25 @@ def mamba_scan(dt: torch.Tensor, b_in: torch.Tensor, c_in: torch.Tensor, x: torc
     if b_in.shape != (B, S, N) or c_in.shape != (B, S, N) or a_log.shape != (di, N):
         raise ValueError(f"{name}: b_in/c_in (B,S,N) or a_log (di,N) do not fit dt "
                          f"{tuple(dt.shape)}")
+    want = {"g_y": (B, S, di), "g_h": (B, di, N)}
+    for n, t in grads.items():
+        if t is not None and t.shape != want[n]:
+            raise ValueError(f"{name}: {n} {tuple(t.shape)}, want {want[n]}")
     if N not in _STATE_DIMS:
         raise ValueError(f"{name}: state size N = {N} not built ({_STATE_DIMS})")
+    return B, S, di, N
+
+
+def mamba_scan(dt: torch.Tensor, b_in: torch.Tensor, c_in: torch.Tensor, x: torch.Tensor,
+               a_log: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """dt (B,S,di), b_in and c_in (B,S,N), x (B,S,di), a_log (di,N).  Returns
+    (y (B,S,di) f32, last state (B,di,N) f32).  The kernel takes dt and a_log
+    in f32 and x, b_in, c_in all in bf16 or all in f32, contiguous."""
+    name = "mamba_scan"
+    if dt.device.type == "cpu":
+        return ref.mamba_scan_ref(dt, b_in, c_in, x, a_log)
+    B, S, di, N = _check(name, dt, b_in, c_in, x, a_log)
+    dev = dt.device
     y = torch.empty((B, S, di), dtype=torch.float32, device=dev)
     h = torch.empty((B, di, N), dtype=torch.float32, device=dev)
     plan = _scan_plan(S, di, N, x.element_size(),
@@ -94,3 +112,44 @@ def mamba_scan(dt: torch.Tensor, b_in: torch.Tensor, c_in: torch.Tensor, x: torc
         raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
     launches[name] += 1
     return y, h
+
+
+def bwd_scratch_bytes(B: int, S: int, di: int, N: int) -> int:
+    """Bytes of f32 scratch the backward kernel takes: the state entering each
+    tile of 512 / N steps (B, tiles, di, N), the per-channel-tile partials of
+    dB and dC (B, S, ceil(di / 32), N) each, and dA_log's per-row partials
+    (B, di, N) (``csrc/mamba_scan_bwd.cu``)."""
+    tiles = -(-S // (512 // N))
+    return 4 * B * (tiles * di * N + 2 * S * -(-di // 32) * N + di * N)
+
+
+def mamba_scan_bwd(dt: torch.Tensor, b_in: torch.Tensor, c_in: torch.Tensor,
+                   x: torch.Tensor, a_log: torch.Tensor, g_y: torch.Tensor | None,
+                   g_h: torch.Tensor | None) -> tuple[torch.Tensor, ...]:
+    """Backward of ``mamba_scan``: its inputs and the gradients of its outputs,
+    g_y (B,S,di) and g_h (B,di,N) in f32, either None for zeros.  Returns (d
+    dt, dB, dC, dx, dA_log): d dt and dA_log f32, the others in x's dtype.
+    The same dtype and contiguity contract as ``mamba_scan``."""
+    name = "mamba_scan_bwd"
+    if dt.device.type == "cpu":
+        return ref.mamba_scan_bwd_ref(dt, b_in, c_in, x, a_log, g_y, g_h)
+    B, S, di, N = _check(name, dt, b_in, c_in, x, a_log, g_y=g_y, g_h=g_h)
+    dev = dt.device
+    d_dt = torch.empty((B, S, di), dtype=torch.float32, device=dev)
+    d_x = torch.empty_like(x)
+    d_b, d_c = torch.empty_like(b_in), torch.empty_like(c_in)
+    d_alog = torch.empty((di, N), dtype=torch.float32, device=dev)
+    scratch = torch.empty(bwd_scratch_bytes(B, S, di, N) // 4, dtype=torch.float32,
+                          device=dev)
+    fn = KERNELS.function(f"{name}_{_SUFFIX[x.dtype]}", 13, 4)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(dt.data_ptr(), b_in.data_ptr(), c_in.data_ptr(), x.data_ptr(),
+                 a_log.data_ptr(), None if g_y is None else g_y.data_ptr(),
+                 None if g_h is None else g_h.data_ptr(), d_dt.data_ptr(), d_b.data_ptr(),
+                 d_c.data_ptr(), d_x.data_ptr(), d_alog.data_ptr(), scratch.data_ptr(),
+                 B, S, di, N, stream)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
+    launches[name] += 1
+    return d_dt, d_b, d_c, d_x, d_alog

@@ -34,22 +34,30 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return kernels.decode_attention(q, k, v, _valid_len(q, valid_len))
 
 
+class _MambaScan(torch.autograd.Function):
+    """The scan with its backward: the forward kernel (or plain version) runs
+    as without autograd and saves only its five inputs; the backward kernel
+    recomputes the states from them (``kernels/mamba_scan.py::mamba_scan_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, dt, b_in, c_in, x, a_log):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(dt, b_in, c_in, x, a_log)
+        return scan_kernel.mamba_scan(dt, b_in, c_in, x, a_log)
+
+    @staticmethod
+    def backward(ctx, g_y, g_h):
+        grads = [None if g is None else g.float().contiguous() for g in (g_y, g_h)]
+        return scan_kernel.mamba_scan_bwd(*ctx.saved_tensors, *grads)
+
+
 def mamba_scan(dt: torch.Tensor, b_in: torch.Tensor, c_in: torch.Tensor, x: torch.Tensor,
                a_log: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Fused selective scan: dt (B,S,di) f32, b_in/c_in (B,S,N), x (B,S,di),
     a_log (di,N).  Returns (y (B,S,di) f32, last state (B,di,N) f32).  The
     projections ``b_in``/``c_in`` are usually column slices of one product;
-    they are made contiguous here, as the kernel reads them.
-
-    It has no backward: under grad mode with any input requiring grad it
-    raises ``NotImplementedError`` on every device (the kernel's outputs carry
-    no ``grad_fn``, so the gradients would be silently wrong; the plain
-    version could differentiate, but then the device would change what the
-    model computes)."""
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (dt, b_in, c_in, x, a_log)):
-        raise NotImplementedError(
-            "mamba_scan has no backward: training through the Mamba mixer is queued "
-            "(ROADMAP.md Queue 1, slice 6 item 3: a backward for the selective scan)")
-    return scan_kernel.mamba_scan(dt.contiguous(), b_in.contiguous(), c_in.contiguous(),
-                                  x.contiguous(), a_log.contiguous())
+    they are made contiguous here, as the kernel reads them.  Under autograd
+    the gradients of all five inputs come from the backward kernel on CUDA
+    tensors and from the plain backward on CPU tensors."""
+    return _MambaScan.apply(dt.contiguous(), b_in.contiguous(), c_in.contiguous(),
+                            x.contiguous(), a_log.contiguous())

@@ -71,3 +71,56 @@ def mamba_scan_ref(dt: torch.Tensor, b_in: torch.Tensor, c_in: torch.Tensor,
         ys.append(torch.einsum("bdn,bn->bd", h, c_in[:, t].to(F32)))
     y = torch.stack(ys, dim=1) if ys else torch.zeros((B, 0, di), dtype=F32, device=dt.device)
     return y, h
+
+
+def mamba_scan_bwd_ref(dt: torch.Tensor, b_in: torch.Tensor, c_in: torch.Tensor,
+                       x: torch.Tensor, a_log: torch.Tensor, g_y: torch.Tensor | None,
+                       g_h: torch.Tensor | None = None):
+    """The selective scan's backward, one time step after another in f32.
+
+    Takes ``mamba_scan_ref``'s inputs and the gradients of its two outputs,
+    ``g_y`` (B, S, di) and ``g_h`` (B, di, N), either None for zeros.  With
+    a_t = exp(dt_t A) and u_t = dt_t x_t it recomputes every state h_t
+    (B S di N floats: a reference for small shapes), then runs the adjoint
+    lambda_t = dL/dh_t backwards in time:
+
+        lambda_{S-1} = g_y,S-1 (x) C_{S-1} + g_h
+        lambda_t     = g_y,t (x) C_t + a_{t+1} lambda_{t+1}
+        dC_t[n]  = sum_d g_y,t[d] h_t[d, n]      dB_t[n] = sum_d lambda_t[d, n] u_t[d]
+        dx_t[d]  = dt_t[d] sum_n lambda_t[d, n] B_t[n]
+        ddt_t[d] = sum_n lambda_t[d, n] (A[d, n] a_t h_{t-1} + x_t[d] B_t[n])
+        dA_log   = A sum_{b, t} lambda_t dt_t a_t h_{t-1}
+
+    Returns (d dt, dB, dC, dx, dA_log): d dt and dA_log in f32, the others
+    in their inputs' dtypes (summed in f32, cast once at the end).
+    """
+    B, S, di = dt.shape
+    N = a_log.shape[-1]
+    dev = dt.device
+    A = -torch.exp(a_log.to(F32))
+    dtf, xf, bf, cf = (t.to(F32) for t in (dt, x, b_in, c_in))
+    gy = torch.zeros((B, S, di), dtype=F32, device=dev) if g_y is None else g_y.to(F32)
+    u = dtf * xf
+    h = torch.zeros((B, di, N), dtype=F32, device=dev)
+    states = [h]                                       # states[t + 1] = h_t
+    for t in range(S):
+        h = torch.exp(dtf[:, t, :, None] * A) * h + u[:, t, :, None] * bf[:, t, None, :]
+        states.append(h)
+    d_dt = torch.empty((B, S, di), dtype=F32, device=dev)
+    d_x = torch.empty((B, S, di), dtype=F32, device=dev)
+    d_b = torch.empty((B, S, N), dtype=F32, device=dev)
+    d_c = torch.empty((B, S, N), dtype=F32, device=dev)
+    d_a = torch.zeros((di, N), dtype=F32, device=dev)
+    carry = torch.zeros((B, di, N), dtype=F32, device=dev) if g_h is None else g_h.to(F32)
+    for t in reversed(range(S)):
+        a_t = torch.exp(dtf[:, t, :, None] * A)
+        lam = gy[:, t, :, None] * cf[:, t, None, :] + carry
+        d_c[:, t] = torch.einsum("bdn,bd->bn", states[t + 1], gy[:, t])
+        d_b[:, t] = torch.einsum("bdn,bd->bn", lam, u[:, t])
+        du = torch.einsum("bdn,bn->bd", lam, bf[:, t])
+        d_x[:, t] = dtf[:, t] * du
+        q = lam * a_t * states[t]
+        d_dt[:, t] = torch.einsum("bdn,dn->bd", q, A) + xf[:, t] * du
+        d_a += torch.einsum("bdn,bd->dn", q, dtf[:, t])
+        carry = a_t * lam
+    return (d_dt, d_b.to(b_in.dtype), d_c.to(c_in.dtype), d_x.to(x.dtype), A * d_a)

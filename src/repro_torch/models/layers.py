@@ -434,9 +434,11 @@ def mamba_full(p: dict, x: torch.Tensor, cfg: ModelConfig
                ) -> tuple[torch.Tensor, dict]:
     """Full-sequence Mamba mixer.  x: (B, S, d).  The selective scan goes
     through ``ops.mamba_scan`` (the hand-written kernel on CUDA tensors),
-    which also returns the last state.  Returns (out (B, S, d), state
-    {"h": (B, di, N) f32, "conv": (B, W-1, di)}), the state a decode step
-    continues from."""
+    which also returns the last state, and under autograd through its
+    backward (the hand-written backward kernel on CUDA tensors), where the
+    JAX package differentiates its chunked scan.  Returns (out (B, S, d),
+    state {"h": (B, di, N) f32, "conv": (B, W-1, di)}), the state a decode
+    step continues from."""
     B, S, _ = x.shape
     xi = x @ p["m_in"]                                                # (B, S, di)
     z = x @ p["m_z"]

@@ -106,3 +106,26 @@ def jax_and_port(name, **kw):
     cfg = get_config(name).reduced(**kw)
     jparams = JM.init_params(jcfg, jax.random.PRNGKey(0))
     return jcfg, cfg, jparams, from_jax(jax.tree.map(np.asarray, jparams), device="cpu")
+
+
+def spread_records(task, rec_cls, D):
+    """Hand-made records with a reward spread (the shape of
+    tests/test_system.py's update test), lengths differing within each pair
+    so that the policy loss is not zero at a ratio of 1; ``D`` is either
+    package's ``rl.data``."""
+    p = task.prompt_tokens()
+    return [rec_cls(p + [D.TOOL_CALL, 20, D.EOS], 4, 1.0, 1),
+            rec_cls(p + [7, D.EOS], 4, 0.0, 1),
+            rec_cls(p + [D.TOOL_CALL, D.EOS], 4, 0.25, 1),
+            rec_cls(p + [11, 12, D.EOS], 4, 0.0, 1)]
+
+
+def hold_params(got, want, lr):
+    """Whole-update tolerance: within 2 x lr, 99.9% of elements within 1e-5."""
+    off, total = 0, 0
+    for k, g in tree_paths(got).items():
+        d = np.abs(to_np(g) - want[k])
+        assert d.max() <= 2 * lr, k
+        off += int((d > 1e-5).sum())
+        total += d.size
+    assert off <= 1e-3 * total, f"{off} of {total} elements off by more than 1e-5"

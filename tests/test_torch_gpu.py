@@ -11,12 +11,16 @@ plain version rounds probabilities to bf16 before the value product).  The
 selective scan is held at 1e-4 of max(1, max |reference|): both versions
 compute in f32 from the same inputs, and differ by the kernel's exp2 of a
 pre-scaled A and its fused multiply-adds, compounded over the sequence.
+Its backward is held the same way against the plain backward computed in
+f32; the gradients it returns in bf16 (dB, dC, dx) also within half a bf16
+ulp of each value, the rounding of their cast.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from _torch_hold import hold_bf16_cast
 from repro_torch.configs import get_config
 from repro_torch.engine.paging import check_block_conservation
 from repro_torch.engine.worker import RolloutWorker
@@ -638,13 +642,16 @@ def test_cuda_flash_forward_and_backward_match_cpu(S, T, window, blocks):
         assert float((g - c).abs().max()) <= tol * max(1.0, float(c.abs().max())), name
 
 
-def test_cuda_grpo_gradients_match_cpu():
-    """One reduced GRPO loss (smollm, f32, remat on) on the card and on the
-    CPU from the same params and batch: loss, metrics and every gradient."""
+@pytest.mark.parametrize("name", ["smollm_135m", "jamba_v0_1_52b"])
+def test_cuda_grpo_gradients_match_cpu(name):
+    """One reduced GRPO loss (f32, remat on) on the card and on the CPU from
+    the same params and batch: loss, metrics and every gradient.  On jamba
+    the card runs the scan's forward and backward kernels, the CPU their
+    plain versions."""
     from repro_torch.models import model as M
     from repro_torch.rl import grpo as G
     _need_cuda()
-    cfg = get_config("smollm_135m").reduced(n_periods=2)
+    cfg = get_config(name).reduced(n_periods=2)
     params = init_params(cfg, seed=0, device="cpu")
     gen = torch.Generator().manual_seed(1)
     tokens = torch.randint(5, cfg.vocab, (4, 40), generator=gen, dtype=torch.int32)
@@ -667,24 +674,124 @@ def test_cuda_grpo_gradients_match_cpu():
         assert float((g - c).abs().max()) <= 1e-4 * max(1.0, float(c.abs().max()))
 
 
-def test_cuda_scan_refuses_autograd():
-    """The scan kernel has no backward: under grad mode with an input that
-    requires grad the wrapper raises before launching, on the card as on the
-    CPU; without grad it launches."""
+# (B, S, di, N) of the backward: S ragged against every N's tile (512 / N
+# steps), di masked (not a multiple of 32), S 0 and 1, and the main path's
+# admission shape
+SCAN_BWD_SHAPES = [
+    (1, 1, 101, 8),
+    (2, 70, 100, 16),
+    (1, 130, 33, 8),
+    (3, 300, 98, 4),
+    (1, 37, 64, 32),
+    (2, 0, 98, 16),
+    (1, 2048, 8192, 16),
+]
+
+
+def _bwd_inputs(shape, dtype, seed=0):
+    args = _scan_inputs(shape, dtype, seed)
+    B, S, di, N = shape
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    return args, torch.randn((B, S, di), generator=gen, device="cuda"), \
+        torch.randn((B, di, N), generator=gen, device="cuda")
+
+
+def _check_bwd(got, args, g_y, g_h, label):
+    """Each gradient within SCAN_TOL x max(1, max |plain|) of the plain
+    backward on f32 copies of the inputs; a bf16 gradient also within half a
+    bf16 ulp of each value, the rounding of its cast."""
+    want = ref.mamba_scan_bwd_ref(*(t.float() for t in args), g_y, g_h)
+    for name, g, w, a in zip(("d_dt", "d_b", "d_c", "d_x", "d_alog"), got, want,
+                             (*args[:4], args[4])):
+        assert g.dtype == (torch.float32 if name in ("d_dt", "d_alog") else a.dtype)
+        hold_bf16_cast(g, w, SCAN_TOL, (label, name))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", SCAN_BWD_SHAPES)
+def test_cuda_scan_bwd_matches_plain(shape, dtype):
+    _need_cuda()
+    args, g_y, g_h = _bwd_inputs(shape, dtype)
+    before = scan_kernel.launches["mamba_scan_bwd"]
+    got = scan_kernel.mamba_scan_bwd(*args, g_y, g_h)
+    torch.cuda.synchronize()
+    assert scan_kernel.launches["mamba_scan_bwd"] == before + 1
+    _check_bwd(got, args, g_y, g_h, (shape, dtype))
+
+
+@pytest.mark.parametrize("which", ["no_g_y", "no_g_h"])
+def test_cuda_scan_bwd_takes_absent_gradients_as_zero(which):
+    _need_cuda()
+    args, g_y, g_h = _bwd_inputs((2, 70, 100, 16), "bfloat16")
+    g_y, g_h = (None, g_h) if which == "no_g_y" else (g_y, None)
+    got = scan_kernel.mamba_scan_bwd(*args, g_y, g_h)
+    torch.cuda.synchronize()
+    _check_bwd(got, args, g_y, g_h, which)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n", [1, 2, 3])
+def test_cuda_scan_bwd_unaligned_inputs_match_plain(n, dtype):
+    """Inputs and gradients that start 1-3 elements into their buffers."""
+    _need_cuda()
+    args, g_y, g_h = _bwd_inputs((2, 130, 96, 16), dtype)
+    args = tuple(_offset(t, n) for t in args)
+    g_y, g_h = _offset(g_y, n), _offset(g_h, n)
+    got = scan_kernel.mamba_scan_bwd(*args, g_y, g_h)
+    torch.cuda.synchronize()
+    _check_bwd(got, args, g_y, g_h, (n, dtype))
+
+
+def test_cuda_scan_bwd_is_deterministic():
+    """No float atomics: two runs on the same inputs are bit-equal."""
+    _need_cuda()
+    args, g_y, g_h = _bwd_inputs((2, 300, 200, 16), "bfloat16")
+    first = scan_kernel.mamba_scan_bwd(*args, g_y, g_h)
+    second = scan_kernel.mamba_scan_bwd(*args, g_y, g_h)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def test_cuda_scan_bwd_wrapper_raises_on_unsupported_input():
+    _need_cuda()
+    args, g_y, g_h = _bwd_inputs((1, 9, 64, 16), "bfloat16")
+    launches = dict(scan_kernel.launches)
+    with pytest.raises(TypeError):                 # the gradients are f32
+        scan_kernel.mamba_scan_bwd(*args, g_y.bfloat16(), g_h)
+    with pytest.raises(ValueError):                # g_h's shape
+        scan_kernel.mamba_scan_bwd(*args, g_y, g_h[:, :32].contiguous())
+    with pytest.raises(ValueError):                # not contiguous
+        scan_kernel.mamba_scan_bwd(*args, g_y.transpose(1, 2).contiguous().transpose(1, 2),
+                                   g_h)
+    with pytest.raises(ValueError):                # on another device
+        scan_kernel.mamba_scan_bwd(*args, g_y, g_h.cpu())
+    assert scan_kernel.launches == launches
+
+
+def test_cuda_scan_under_autograd_runs_the_backward_kernel(monkeypatch):
+    """On CUDA tensors ``ops.mamba_scan`` under autograd launches the forward
+    kernel once and the backward kernel once a backward, and the plain
+    backward never runs; the gradients are the plain backward's."""
     from repro_torch.kernels import ops
     _need_cuda()
-    B, S, di, N = 1, 8, 64, 16
-    args = [torch.rand(B, S, di, device="cuda"), torch.randn(B, S, N, device="cuda"),
-            torch.randn(B, S, N, device="cuda"), torch.randn(B, S, di, device="cuda"),
-            torch.zeros(di, N, device="cuda")]
-    before = scan_kernel.launches["mamba_scan"]
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        ops.mamba_scan(args[0].requires_grad_(), *args[1:])
-    assert scan_kernel.launches["mamba_scan"] == before
-    with torch.no_grad():
-        y, _ = ops.mamba_scan(*args)
-    torch.cuda.synchronize()
-    assert scan_kernel.launches["mamba_scan"] == before + 1 and torch.isfinite(y).all()
+    args, g_y, g_h = _bwd_inputs((2, 70, 100, 16), "bfloat16")
+    want_args = [t.clone() for t in args]
+    plain = ref.mamba_scan_bwd_ref
+
+    def refuse(*a, **k):
+        raise AssertionError("the plain backward ran on CUDA tensors")
+
+    monkeypatch.setattr(ref, "mamba_scan_bwd_ref", refuse)
+    before = dict(scan_kernel.launches)
+    for step in range(2):
+        leaves = [t.clone().requires_grad_() for t in args]
+        y, h = ops.mamba_scan(*leaves)
+        got = torch.autograd.grad((y, h), leaves, (g_y, g_h))
+        torch.cuda.synchronize()
+        assert scan_kernel.launches["mamba_scan_bwd"] == before["mamba_scan_bwd"] + step + 1
+        assert scan_kernel.launches["mamba_scan"] == before["mamba_scan"] + step + 1
+    monkeypatch.setattr(ref, "mamba_scan_bwd_ref", plain)
+    _check_bwd(got, want_args, g_y, g_h, "autograd")
 
 
 @pytest.mark.parametrize("temperature", [0.0, 1.0])

@@ -1,6 +1,6 @@
-"""GRPO's loss and gradients in the port against the JAX package's, the
-chunked mLSTM's gradients against its own recurrence, and the refusal to
-differentiate through the Mamba scan.
+"""GRPO's loss and gradients in the port against the JAX package's (jamba
+through the Mamba scan's backward too), and the chunked mLSTM's gradients
+against its own recurrence.
 
 Weights are the JAX package's ``init_params`` carried across with
 ``from_jax``; configs are ``reduced(n_periods=1)`` (f32); batches are drawn
@@ -20,7 +20,6 @@ from _torch_parity import one_torch_thread  # noqa: F401
 from repro.models import model as JM
 from repro.rl import grpo as JG
 from repro_torch.configs import get_config
-from repro_torch.kernels import ops
 from repro_torch.models import layers as TL
 from repro_torch.models import model as M
 from repro_torch.rl import grpo as G
@@ -43,11 +42,13 @@ def _grpo_batch(jcfg, jparams, B=4, S=24, seed=2):
     return {"tokens": tokens, "loss_mask": mask, "advantages": adv, "old_logprobs": old}
 
 
-@pytest.mark.parametrize("name", ["smollm_135m", "qwen2_moe_a2_7b", "xlstm_350m"])
+@pytest.mark.parametrize("name", ["smollm_135m", "qwen2_moe_a2_7b", "xlstm_350m",
+                                  "jamba_v0_1_52b"])
 def test_grpo_loss_value_metrics_and_gradients_match_jax(name):
     """The loss (remat on), its metrics and the gradient of every parameter
-    leaf: dense, MoE with shared experts and the aux loss, and the xLSTM
-    mixers."""
+    leaf: dense, MoE with shared experts and the aux loss, the xLSTM mixers,
+    and jamba's Mamba mixers (the scan's backward; the JAX package
+    differentiates its chunked scan) beside attention and MoE."""
     jcfg, cfg, jparams, params = jax_and_port(name, n_periods=1)
     batch = _grpo_batch(jcfg, jparams)
     gcfg = G.GRPOConfig(group_size=2)
@@ -113,26 +114,26 @@ def test_mlstm_gradient_is_the_step_recurrences():
                                    atol=1e-5 * max(1.0, float(b.abs().max())))
 
 
-def test_grpo_through_the_mamba_mixer_raises():
-    """The scan kernel has no backward, so a Mamba layer under autograd
-    raises on every device (here the CPU, whose plain version could
-    differentiate); without grad the same forward runs."""
+def test_grpo_loss_on_jamba_is_the_same_without_grad():
+    """The jamba loss under ``torch.no_grad`` is finite and equals the one
+    ``value_and_grad`` returns (the scan's autograd Function runs the same
+    forward with and without a backward to come), and every leaf of the
+    caller's params is left without a gradient."""
     cfg = get_config("jamba_v0_1_52b").reduced()
     params = M.init_params(cfg, seed=0, device="cpu")
     rng = np.random.default_rng(0)
     tokens = torch.tensor(rng.integers(5, cfg.vocab, (2, 12)).astype(np.int32))
-    batch = {"tokens": tokens, "loss_mask": torch.ones(2, 12), "advantages": torch.ones(2),
-             "old_logprobs": torch.zeros(2, 12)}
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        G.value_and_grad(lambda p: G.grpo_loss(cfg, G.GRPOConfig(), p, batch), params)
+    batch = {"tokens": tokens, "loss_mask": torch.ones(2, 12),
+             "advantages": torch.tensor([1.0, -1.0]),
+             "old_logprobs": torch.tensor(rng.standard_normal((2, 12)).astype(np.float32))}
     with torch.no_grad():
         loss, _ = G.grpo_loss(cfg, G.GRPOConfig(), params, batch)
     assert torch.isfinite(loss)
-    di, N = 2 * cfg.d_model, cfg.ssm_state_dim
-    dt = torch.rand(1, 4, di, requires_grad=True)
-    with pytest.raises(NotImplementedError):
-        ops.mamba_scan(dt, torch.zeros(1, 4, N), torch.zeros(1, 4, N),
-                       torch.zeros(1, 4, di), torch.zeros(di, N))
+    grad_loss, _, grads = G.value_and_grad(
+        lambda p: G.grpo_loss(cfg, G.GRPOConfig(), p, batch), params)
+    assert float(grad_loss) == float(loss)
+    assert all(torch.isfinite(g).all() for g in M.tree_leaves(grads))
+    assert not any(t.requires_grad or t.grad is not None for t in M.tree_leaves(params))
 
 
 @pytest.mark.parametrize("masked", [True, False])

@@ -28,7 +28,8 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import ONE_THREAD_ENV, jax_and_port, to_np, tree_paths
+from _torch_parity import (ONE_THREAD_ENV, hold_params, jax_and_port, spread_records,
+                           to_np, tree_paths)
 from _torch_parity import one_torch_thread  # noqa: F401
 from repro.configs import get_config as jax_config
 from repro.models import model as JM
@@ -228,28 +229,6 @@ def test_adamw_update_leaves_its_inputs_untouched():
 TCFG = dict(group_size=2, n_workers=2, seed=0, max_steps_per_traj=2)
 
 
-def _spread_records(task, rec_cls):
-    """Hand-made records with a reward spread (the shape of
-    tests/test_system.py's update test), lengths differing within each pair
-    so that the policy loss is not zero at a ratio of 1."""
-    p = task.prompt_tokens()
-    return [rec_cls(p + [D.TOOL_CALL, 20, D.EOS], 4, 1.0, 1),
-            rec_cls(p + [7, D.EOS], 4, 0.0, 1),
-            rec_cls(p + [D.TOOL_CALL, D.EOS], 4, 0.25, 1),
-            rec_cls(p + [11, 12, D.EOS], 4, 0.0, 1)]
-
-
-def _hold_params(got, want, lr):
-    """Whole-update tolerance: within 2 x lr, 99.9% of elements within 1e-5."""
-    off, total = 0, 0
-    for k, g in tree_paths(got).items():
-        d = np.abs(to_np(g) - want[k])
-        assert d.max() <= 2 * lr, k
-        off += int((d > 1e-5).sum())
-        total += d.size
-    assert off <= 1e-3 * total, f"{off} of {total} elements off by more than 1e-5"
-
-
 @pytest.fixture(scope="module")
 def trainers():
     """The JAX trainer and the port's (on the JAX weights) through one
@@ -267,7 +246,7 @@ def trainers():
         records = tr.rollout(tasks)
         m1 = tr.update(records)
         p1 = {k: to_np(v) for k, v in tree_paths(tr.params).items()}
-        m2 = tr.update(_spread_records(tasks[0], rec_cls))
+        m2 = tr.update(spread_records(tasks[0], rec_cls, D))
         p2 = {k: to_np(v) for k, v in tree_paths(tr.params).items()}
         out[tag] = dict(records=records, m1=m1, p1=p1, m2=m2, p2=p2, trainer=tr)
     return out
@@ -289,7 +268,7 @@ def test_trainer_update_metrics_and_params_match_jax(trainers, which):
     assert t[which].keys() == j[which].keys()
     for k, v in j[which].items():
         assert abs(t[which][k] - v) <= 1e-5, k
-    _hold_params(t["p" + which[1]], j["p" + which[1]], TLoop.TrainerConfig().lr)
+    hold_params(t["p" + which[1]], j["p" + which[1]], TLoop.TrainerConfig().lr)
     if which == "m2":
         assert abs(t["m2"]["pg_loss"]) > 1e-8
         assert any(np.abs(t["p2"][k] - t["p1"][k]).max() > 0 for k in t["p2"])
@@ -305,7 +284,7 @@ def test_update_is_functional_worker_weights_wait_for_the_sync():
     w: RolloutWorker = tr.workers[0]
     before = {k: v.clone() for k, v in tree_paths(w.params).items()}
     held = tree_paths(w.params)
-    m = tr.update(_spread_records(D.sample_tasks(1, seed=0)[0], TLoop.RolloutRecord))
+    m = tr.update(spread_records(D.sample_tasks(1, seed=0)[0], TLoop.RolloutRecord, D))
     assert abs(m["pg_loss"]) > 1e-8
     for k, v in tree_paths(w.params).items():
         assert v is held[k] and torch.equal(v, before[k]), k
