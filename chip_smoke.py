@@ -9,7 +9,9 @@ Phases (each raises on failure; any failure exits non-zero with no result line):
               and count; no CUDA device is a failure.
 2. build   -- nvcc builds every kernel of the path from the sources in this
               checkout (src/repro_torch/kernels/csrc/) into one library, one
-              nvcc per source, all started together, then a link.
+              nvcc per source, all started together, then a link; the scan
+              kernels' registers, and the scan backward's two passes' dynamic
+              shared memory a block and blocks an SM, for each dtype and N.
 3. kernels -- each kernel against its plain PyTorch version at the main
               paths' shapes, in bf16 and f32 (bf16 also relative to the
               output's size), with poisoned scratch / unmapped blocks / slots
@@ -24,7 +26,8 @@ Phases (each raises on failure; any failure exits non-zero with no result line):
               same four shapes (gradients of y and of the last state drawn),
               each of the five gradients held to the plain backward, two
               runs bit-equal, timed at the main shape and all-f32 beside the
-              plain backward, its scratch bytes logged.  Each
+              plain backward and split into its three launches
+              (torch.profiler), its scratch bytes logged.  Each
               decode row also logs the split the wrapper chose (n_split, L,
               blocks), the achieved GB/s, the share of the bound and the
               host's time to enqueue one call.  The paged kernel is also
@@ -287,6 +290,21 @@ def phase_build():
         bwd = re.search(r"(scan_bwd_(?:states|kernel))I(.*?)EEEv", entry)
         if "registers" in line and bwd:
             log(f"[build]   {bwd.group(1)}<{bwd.group(2)}>: {line.split(':', 1)[1].strip()}")
+    _log_bwd_occupancy()
+
+
+def _log_bwd_occupancy():
+    """The scan backward's two passes for each dtype and built N: dynamic
+    shared memory a block and the blocks an SM that it allows on this card."""
+    import torch
+    from repro_torch.kernels import mamba_scan as scan_kernel
+    for dtype in (torch.bfloat16, torch.float32):
+        for N in scan_kernel._STATE_DIMS:
+            occ = scan_kernel.bwd_occupancy(dtype, N)
+            log(f"[build]   mamba_scan_bwd {str(dtype)[6:]} N {N}: scan_bwd_states "
+                f"{occ['states_smem']} B shared, {occ['states_blocks_per_sm']} blocks an SM; "
+                f"scan_bwd_kernel {occ['kernel_smem']} B shared, "
+                f"{occ['kernel_blocks_per_sm']} blocks an SM")
 
 
 # ---------------------------------------------------------------- phase 3
@@ -736,12 +754,40 @@ def _hold_scan_bwd(torch, label, got, want):
     return worst, "max|err| " + ", ".join(errs)
 
 
+BWD_LAUNCHES = ("scan_bwd_states", "scan_bwd_kernel", "scan_bwd_reduce")
+
+
+def launch_split(torch, fn, n_iter, names):
+    """Mean device ms per launch of each kernel in ``names`` (substrings of
+    the kernels' names) over ``n_iter`` calls under torch.profiler, after
+    warm-up; each call must launch each kernel once."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for i in range(3):
+        fn(i)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for i in range(n_iter):
+            fn(i)
+        torch.cuda.synchronize()
+    split = {}
+    for name in names:
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA and name in e.key]
+        count = sum(e.count for e in events)
+        if count != n_iter:
+            raise RuntimeError(f"torch.profiler saw {count} launches of {name}, not {n_iter}")
+        split[name] = sum(e.self_device_time_total for e in events) / 1e3 / count
+    return split
+
+
 def _scan_bwd_rows(torch):
     """The scan's backward kernel against the plain backward at the forward
     rows' shapes, its inputs from a generator of its own (the rows drawn
     after it keep their inputs): y's and the last state's gradients drawn
     (N(0, 1)); two runs bit-equal; the main shape and all-f32 timed (held
-    events, 20 calls; the plain backward unheld over 2)."""
+    events, 20 calls; the plain backward unheld over 2) and split into its
+    three launches (torch.profiler, 20 calls)."""
     from repro_torch.kernels import mamba_scan as scan_kernel
     from repro_torch.kernels import ref
     gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
@@ -767,9 +813,14 @@ def _scan_bwd_rows(torch):
             ms = event_ms(torch, lambda i: scan_kernel.mamba_scan_bwd(*args, g_y, g_h), 20)[0]
             plain_ms = event_ms(torch, lambda i: ref.mamba_scan_bwd_ref(*args, g_y, g_h), 2,
                                 n_warm=1, hold=False)[0]
+            split = launch_split(torch, lambda i: scan_kernel.mamba_scan_bwd(*args, g_y, g_h),
+                                 20, BWD_LAUNCHES)
             rows[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                          "library_ms": None, "bound_ms": bound, "bound_by": bound_by}
-            msg += (f"; kernel {ms:.4f} ms ({bound / ms:.1%} of the bound), plain "
+                          "library_ms": None, "bound_ms": bound, "bound_by": bound_by,
+                          "split_ms": split}
+            msg += (f"; kernel {ms:.4f} ms ({bound / ms:.1%} of the bound; by launch under "
+                    f"torch.profiler " + ", ".join(f"{k} {v:.4f}" for k, v in split.items())
+                    + f" ms), plain "
                     f"{plain_ms:.2f} ms, library none (no PyTorch call computes a selective "
                     f"scan's backward); bound {bound:.4f} ms ({bound_by}: bytes "
                     f"{nbytes / 1e6:.1f} MB {times['bytes']:.4f} ms, {B * S * di * N / 1e6:.1f} "

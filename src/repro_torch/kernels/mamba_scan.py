@@ -12,12 +12,14 @@ On CPU tensors each wrapper returns the plain version (``ref.py``); on CUDA
 tensors it launches the kernel or raises.  ``launches["mamba_scan"]`` and
 ``launches["mamba_scan_bwd"]`` count the kernels' launches, and nothing else.
 
-``_scan_plan`` chooses, from the shapes and addresses alone, the copy width
-of each operand into and out of the kernel's shared-memory tile ring; the
-launch passes its choice to the kernel.
+``_scan_plan`` and ``_scan_bwd_plan`` choose, from the shapes and addresses
+alone, the copy width of each operand into and out of the kernels'
+shared-memory tile rings; the launch passes the choice to the kernel.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -29,6 +31,7 @@ launches = {"mamba_scan": 0, "mamba_scan_bwd": 0}
 _SUFFIX = {torch.bfloat16: "bf16", torch.float32: "f32"}
 _STATE_DIMS = (4, 8, 16, 32)          # N built (both kernels' launch)
 PLAN_KEYS = ("w_dt", "w_x", "w_b", "w_c", "w_y")
+BWD_PLAN_KEYS = ("w_dt", "w_x", "w_b", "w_c", "w_gy", "w_ddt", "w_dx")
 
 
 def _copy_width(ptr: int, stride_bytes: int, item: int) -> int:
@@ -51,6 +54,20 @@ def _scan_plan(S: int, di: int, N: int, item: int, ptrs) -> dict:
             "w_b": _copy_width(b_p, item * S * N, item),
             "w_c": _copy_width(c_p, item * S * N, item),
             "w_y": _copy_width(y_p, 4 * di, 4)}
+
+
+def _scan_bwd_plan(S: int, di: int, N: int, item: int, ptrs) -> dict:
+    """The backward's copy widths in bytes: dt, x, B, C and g_y into its tile
+    ring, d_dt and d_x out of it, from the addresses ``ptrs`` = (dt, B, C, x,
+    g_y, d_dt, d_x) and the row strides (dt, g_y, d_dt f32; x, d_x, B, C
+    ``item`` bytes).  With no g_y give dt's address for it: the kernel then
+    zero-fills g_y's slots from dt's tile and reads nothing."""
+    dt_p, b_p, c_p, x_p, gy_p, ddt_p, dx_p = ptrs
+    return {"w_dt": _copy_width(dt_p, 4 * di, 4), "w_x": _copy_width(x_p, item * di, item),
+            "w_b": _copy_width(b_p, item * S * N, item),
+            "w_c": _copy_width(c_p, item * S * N, item),
+            "w_gy": _copy_width(gy_p, 4 * di, 4), "w_ddt": _copy_width(ddt_p, 4 * di, 4),
+            "w_dx": _copy_width(dx_p, item * di, item)}
 
 
 def _check(name: str, dt, b_in, c_in, x, a_log, **grads) -> tuple[int, int, int, int]:
@@ -114,13 +131,33 @@ def mamba_scan(dt: torch.Tensor, b_in: torch.Tensor, c_in: torch.Tensor, x: torc
     return y, h
 
 
+def bwd_tile(N: int) -> int:
+    """Time steps a tile of the backward kernel (``kTile`` in
+    ``csrc/mamba_scan_bwd.cu``): 32, or 16 at N 32, so that a tile's states
+    take at most 64 KB of shared memory."""
+    return min(32, 512 // N)
+
+
 def bwd_scratch_bytes(B: int, S: int, di: int, N: int) -> int:
     """Bytes of f32 scratch the backward kernel takes: the state entering each
-    tile of 512 / N steps (B, tiles, di, N), the per-channel-tile partials of
-    dB and dC (B, S, ceil(di / 32), N) each, and dA_log's per-row partials
-    (B, di, N) (``csrc/mamba_scan_bwd.cu``)."""
-    tiles = -(-S // (512 // N))
-    return 4 * B * (tiles * di * N + 2 * S * -(-di // 32) * N + di * N)
+    tile (B, tiles, di, N), the per-channel-tile partials of dB and dC (B,
+    ceil(di / 32), S, N) each, and dA_log's per-row partials (B, di, N)
+    (``csrc/mamba_scan_bwd.cu``)."""
+    tiles = -(-S // bwd_tile(N))
+    return 4 * B * (tiles * di * N + 2 * -(-di // 32) * S * N + di * N)
+
+
+def bwd_occupancy(dtype: torch.dtype, N: int) -> dict:
+    """The backward's two passes at x's ``dtype`` and state size N on the
+    current CUDA device: each one's dynamic shared memory in bytes a block and
+    the blocks an SM that this allows.  Launches nothing."""
+    out = (ctypes.c_int * 4)()
+    err = KERNELS.function("mamba_scan_bwd_occupancy", 0, 2)(
+        int(dtype == torch.float32), N, ctypes.cast(out, ctypes.c_void_p))
+    if err != 0:
+        raise RuntimeError(f"mamba_scan_bwd_occupancy failed: cudaError {err}")
+    return {"states_smem": out[0], "states_blocks_per_sm": out[1], "kernel_smem": out[2],
+            "kernel_blocks_per_sm": out[3]}
 
 
 def mamba_scan_bwd(dt: torch.Tensor, b_in: torch.Tensor, c_in: torch.Tensor,
@@ -141,14 +178,17 @@ def mamba_scan_bwd(dt: torch.Tensor, b_in: torch.Tensor, c_in: torch.Tensor,
     d_alog = torch.empty((di, N), dtype=torch.float32, device=dev)
     scratch = torch.empty(bwd_scratch_bytes(B, S, di, N) // 4, dtype=torch.float32,
                           device=dev)
-    fn = KERNELS.function(f"{name}_{_SUFFIX[x.dtype]}", 13, 4)
+    plan = _scan_bwd_plan(S, di, N, x.element_size(),
+                          [t.data_ptr() for t in (dt, b_in, c_in, x, dt if g_y is None else g_y,
+                                                  d_dt, d_x)])
+    fn = KERNELS.function(f"{name}_{_SUFFIX[x.dtype]}", 13, 4 + len(BWD_PLAN_KEYS))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(dt.data_ptr(), b_in.data_ptr(), c_in.data_ptr(), x.data_ptr(),
                  a_log.data_ptr(), None if g_y is None else g_y.data_ptr(),
                  None if g_h is None else g_h.data_ptr(), d_dt.data_ptr(), d_b.data_ptr(),
                  d_c.data_ptr(), d_x.data_ptr(), d_alog.data_ptr(), scratch.data_ptr(),
-                 B, S, di, N, stream)
+                 B, S, di, N, *(plan[k] for k in BWD_PLAN_KEYS), stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
     launches[name] += 1

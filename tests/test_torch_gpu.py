@@ -674,9 +674,13 @@ def test_cuda_grpo_gradients_match_cpu(name):
         assert float((g - c).abs().max()) <= 1e-4 * max(1.0, float(c.abs().max()))
 
 
-# (B, S, di, N) of the backward: S ragged against every N's tile (512 / N
-# steps), di masked (not a multiple of 32), S 0 and 1, and the main path's
-# admission shape
+# (B, S, di, N) of the backward: S ragged against every N's tile, di masked
+# (not a multiple of 32), S 0 and 1, and the main path's admission shape;
+# then the edges of the kernel's reverse tile ring (tiles of
+# ``mamba_scan.bwd_tile(N)`` steps, 3 in the ring) at every built N: S of 1,
+# tile - 1, tile, tile + 1 and 3 tiles +- 1, at a di of 40 whose second
+# channel tile is partly live; and a block whose only channel tile holds 5
+# live channels
 SCAN_BWD_SHAPES = [
     (1, 1, 101, 8),
     (2, 70, 100, 16),
@@ -685,6 +689,9 @@ SCAN_BWD_SHAPES = [
     (1, 37, 64, 32),
     (2, 0, 98, 16),
     (1, 2048, 8192, 16),
+    *((1, S, 40, N) for N in (4, 8, 16, 32) for tile in (scan_kernel.bwd_tile(N),)
+      for S in (1, tile - 1, tile, tile + 1, 3 * tile - 1, 3 * tile + 1)),
+    (2, 70, 5, 16),
 ]
 
 
@@ -750,6 +757,34 @@ def test_cuda_scan_bwd_is_deterministic():
     second = scan_kernel.mamba_scan_bwd(*args, g_y, g_h)
     torch.cuda.synchronize()
     assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def test_cuda_scan_bwd_refuses_a_copy_wider_than_the_alignment():
+    """The source launches nothing when a copy width passed in does not
+    divide its operand's address and row stride."""
+    from repro_torch.kernels.build import KERNELS
+    _need_cuda()
+    B, S, di, N = 1, 9, 64, 16
+    args, g_y, g_h = _bwd_inputs((B, S, di, N), "bfloat16")
+    args = (*args[:3], _offset(args[3], 1), args[4])        # x 2 bytes into its buffer
+    outs = [torch.zeros_like(t) for t in (args[0], args[1], args[2], args[3])]
+    d_alog = torch.zeros_like(args[4])
+    scratch = torch.zeros(scan_kernel.bwd_scratch_bytes(B, S, di, N) // 4, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    err = KERNELS.function("mamba_scan_bwd_bf16", 13, 11)(
+        *(t.data_ptr() for t in (*args, g_y, g_h, *outs, d_alog, scratch)), B, S, di, N,
+        *[16] * len(scan_kernel.BWD_PLAN_KEYS), stream)
+    torch.cuda.synchronize()
+    assert err != 0 and not any(t.any() for t in (*outs, d_alog, scratch))
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_cuda_scan_bwd_keeps_two_blocks_an_sm_at_the_main_shape(dtype):
+    """The shared-memory budget: at N 16 both passes leave room for two
+    blocks an SM, so the main shape's 256 blocks are resident at once."""
+    _need_cuda()
+    occ = scan_kernel.bwd_occupancy(getattr(torch, dtype), 16)
+    assert occ["kernel_blocks_per_sm"] >= 2 and occ["states_blocks_per_sm"] >= 2, occ
 
 
 def test_cuda_scan_bwd_wrapper_raises_on_unsupported_input():
