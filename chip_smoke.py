@@ -176,6 +176,26 @@ Phases (each raises on failure; any failure exits non-zero with no result line):
               Mamba layer; forward 7 x the forwards the step runs); (iii)
               the train CLI on jamba reduced as a process of its own with no
               --device (one iteration, one group of 2): on the card.
+13. tp     -- tensor-parallel rollout workers, every shard on this one card
+              (a worker of MP degree d on the mesh [cuda:0] * d): qwen3-1.7b
+              at full width (28 layers, 16/8 heads, hd 128, vocab 151,936,
+              weights from the seed), paged workers at degree 1, 2 and 4 and
+              dense ones at 1 and 2, each admitting 8 requests in 2 groups
+              (prompts of 300 and 257 tokens, radix reuse), one
+              teacher-forced step on the admitted contexts, then 32 greedy
+              decode steps.  In f32: each sharded worker's tokens equal to
+              its plane's degree-1 worker's and its logits within TP_TOL;
+              in bf16 (the f32 weights rounded): the largest logit
+              difference and the tokens equal before each lane's first
+              difference, logged, beside the same of the bf16 paged d1
+              worker against the f32 one (bf16's own error) and of each
+              dense d1 worker against its paged d1.  The decode
+              kernel's count is zeroed before each decode and must equal
+              degree x 28 x 32 after it.  Each worker's bytes a shard and its
+              step wall are logged.  A lane then moves d2 -> d1 -> d4 -> d2
+              (bf16), each package bit-equal to the first.  Last, the paged
+              kernel at the shards' shapes (KV 4 and 2, G 2) and the dense
+              one at KV 4, held and timed as in phase 3.
 
 float32 matrix products run in full float32: TF32 is switched off for matmuls
 and cuDNN.  The next-to-last line is one JSON object describing each kernel;
@@ -2570,6 +2590,176 @@ def phase_train(torch, smi):
             "legacy_max_abs_err": legacy_err, "jamba_launches": jamba}
 
 
+# ---------------------------------------------------------------- phase 13
+TP_STEPS = 32
+# f32 logits of a sharded worker against its plane's degree-1 worker, x max(1,
+# max |reference|): the shards' partial wo and MLP products are summed in
+# shard order and the shard's smaller matrix products accumulate in another
+# order (TF32 off): ~1e-7 relative at each of 56 sums into the residual
+# stream, so ~1e-5 at the logits if every one added the same way
+TP_TOL = 1e-4
+TP_KERNELS = {True: "paged_decode_attention", False: "decode_attention"}
+
+
+def _tp_worker(torch, cfg, params, d, paged):
+    from repro_torch.engine.sampler import SamplerConfig
+    from repro_torch.engine.worker import RolloutWorker
+    from repro_torch.launch.mesh import WorkerMesh
+    mesh = None if d == 1 else WorkerMesh((torch.device("cuda", 0),) * d)
+    return RolloutWorker(cfg, params, capacity=2048, page_size=16, max_slots=8,
+                         sampler=SamplerConfig(temperature=0.0), seed=SEED, mp=d, mesh=mesh,
+                         device="cuda", paged=paged)
+
+
+def _tp_drive(torch, cfg, w, groups, tag):
+    """Admit 8 requests, take one teacher-forced step on the admitted
+    contexts (every lane masked, so no ``pos`` advances: a masked lane's
+    logits are computed all the same, and its KV write lands where its
+    first decode step writes the same token), then decode TP_STEPS greedy
+    steps with the decode kernel's count zeroed before and read after.
+    Returns (tokens, logits on the host, launches, ms per step)."""
+    from repro_torch.models import model as M
+    for sid in range(8):
+        w.prefill(sid, groups[sid // 4])
+    last = torch.tensor([[w.store[sid].tokens[-1]] for sid in range(8)], device="cuda")
+    logits, _ = M.decode_step(cfg, w.params, w.pool, last, mesh=w._tp,
+                              active=torch.zeros(8, dtype=torch.bool, device="cuda"))
+    logits = logits.float().cpu()
+    if logits.shape != (8, cfg.vocab) or not bool(logits.isfinite().all()):
+        raise AssertionError(f"[tp] {tag}: logits {tuple(logits.shape)}, finite="
+                             f"{bool(logits.isfinite().all())}")
+    _reset_launches()                                       # main path starts here
+    toks, ms = sync_ms(torch, lambda: w.decode(list(range(8)), TP_STEPS))
+    launches = _read_launches(torch)                        # main path ends
+    name = TP_KERNELS[w._paged]
+    want = w.mp * cfg.n_layers * TP_STEPS
+    if launches[name] != want:
+        raise AssertionError(f"[tp] {tag}: {name} launched {launches[name]} times, not "
+                             f"{w.mp} x {cfg.n_layers} x {TP_STEPS} = {want}")
+    return toks, logits, launches[name], ms / TP_STEPS
+
+
+def _tp_against(toks, logits, ref):
+    """(max |logit difference|, max |reference logit|, tokens equal) against
+    ``ref``'s (tokens, logits); a lane's tokens count up to its first
+    difference, since a greedy lane that once differs decodes another
+    context from there on."""
+    err = float((logits - ref[1]).abs().max())
+    same = 0
+    for sid, want in ref[0].items():
+        for a, b in zip(toks[sid], want):
+            if a != b:
+                break
+            same += 1
+    return err, float(ref[1].abs().max()), same
+
+
+def _tp_bytes(w):
+    """GB a shard holds after placement: (params, pool) of each shard."""
+    params = w.params if w._tp is not None else [w.params]
+    pools = w.pool if w._tp is not None else [w.pool]
+    return [(round(_nbytes(p) / 1e9, 3), round(_nbytes(c) / 1e9, 3))
+            for p, c in zip(params, pools)]
+
+
+def _tp_dtype(torch, cfg, params, groups, launches, floor=None):
+    """Every worker of one dtype against its plane's degree-1 worker, each
+    freed before the next is built (in bf16 the paged workers at degree 1,
+    2 and 4 are kept for the migration).  ``floor``, the f32 paged d1's
+    (tokens, logits), is bf16's own error: the bf16 paged d1 is logged
+    against it.  Returns (kept workers, the paged d1's tokens and logits)."""
+    name = cfg.dtype
+    kept, paged_d1 = {}, None
+    for paged, degrees in ((True, (1, 2, 4)), (False, (1, 2))):
+        plane = "paged" if paged else "dense"
+        ref = None
+        for d in degrees:
+            tag = f"{name} {plane} d{d}"
+            w = _tp_worker(torch, cfg, params, d, paged)
+            shards = _tp_bytes(w)
+            toks, logits, n, step_ms = _tp_drive(torch, cfg, w, groups, tag)
+            launches[TP_KERNELS[paged]] += n
+            msg = (f"[tp] {tag}: a shard holds {shards[0][0]} GB of params and "
+                   f"{shards[0][1]} GB of pool ({len(shards)} shards); decode {step_ms:.2f} "
+                   f"ms a step (8 lanes, {TP_STEPS} steps), {n} {TP_KERNELS[paged]} launches")
+            if ref is None:
+                ref = (toks, logits)
+                against = floor if paged else paged_d1
+                if paged:
+                    paged_d1 = ref
+                if against is not None:        # bf16's own error; or the other plane
+                    err, scale, same = _tp_against(toks, logits, against)
+                    msg += (f"; against {'f32' if paged else 'paged'} d1: logits max |err| "
+                            f"{err:.3e} (max |ref| {scale:.3e}), {same}/{8 * TP_STEPS} tokens "
+                            f"equal before a lane's first difference")
+            else:
+                err, scale, same = _tp_against(toks, logits, ref)
+                scale = max(1.0, scale)
+                msg += (f"; against d1: logits max |err| {err:.3e} (max |ref| {scale:.3e}), "
+                        f"{same}/{8 * TP_STEPS} tokens equal before a lane's first "
+                        f"difference")
+                if name == "float32" and (err > TP_TOL * scale or toks != ref[0]):
+                    raise AssertionError(f"{msg}: tol {TP_TOL} x {scale:.3e}, tokens must "
+                                         f"be equal")
+            log(msg)
+            if paged and name == "bfloat16":
+                kept[d] = w
+            del w
+            torch.cuda.empty_cache()
+    return kept, paged_d1
+
+
+def _tp_migrate(torch, kept):
+    """One lane d2 -> d1 -> d4 -> d2: every package bit-equal to the first."""
+    from repro_torch.models.model import tree_leaves
+    chain = [kept[2], kept[1], kept[4], kept[2]]
+    pkg = chain[0].migrate_out(0)
+    first = [t.cpu() for t in tree_leaves({"pages": pkg["pages"], "state": pkg["state"]})]
+    for hop, (src, dst) in enumerate(zip(chain, chain[1:])):
+        if hop:
+            pkg = src.migrate_out(0)
+            got = [t.cpu() for t in tree_leaves({"pages": pkg["pages"],
+                                                  "state": pkg["state"]})]
+            if len(got) != len(first) or not all(torch.equal(a, b) for a, b in zip(got, first)):
+                raise AssertionError(f"[tp] the package after hop {hop} differs from the first")
+        dst.migrate_in(pkg)
+    toks = chain[-1].decode([0], 4)[0]
+    log(f"[tp] a lane of {len(chain[-1].store[0].tokens)} tokens moved d2 -> d1 -> d4 -> "
+        f"d2: {sum(t.numel() for t in first)} values of pages and state bit-equal at every "
+        f"hop; it decodes on ({toks})")
+
+
+def phase_tp(torch, smi):
+    import numpy as np
+    from dataclasses import replace
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import init_params, tree_map
+    cfg = get_config("qwen3_1_7b")
+    rng = np.random.default_rng(SEED)
+    groups = [rng.integers(0, cfg.vocab, n).tolist() for n in (300, 257)]
+    log(f"[tp] {smi}: every shard of every worker on this one card (cuda:0 x d)")
+    launches = {name: 0 for name in TP_KERNELS.values()}
+    f32 = replace(cfg, dtype="float32")
+    params = init_params(f32, seed=SEED, device="cuda")
+    _, f32_d1 = _tp_dtype(torch, f32, params, groups, launches)
+    params = tree_map(lambda t: t.to(torch.bfloat16), params)   # the same weights, rounded
+    torch.cuda.empty_cache()
+    kept, _ = _tp_dtype(torch, cfg, params, groups, launches, floor=f32_d1)
+    _tp_migrate(torch, kept)
+    del kept, params
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    rows = {"paged_decode_attention": {}, "decode_attention": {}}
+    for KV in (4, 2):
+        rows["paged_decode_attention"][f"kv{KV}"] = _paged_row(
+            torch, gen, f"paged_decode_attention tp-kv{KV}", "bfloat16", 28, 8, KV, 2, 128,
+            ps=16, num_pages=128, max_len=2048)
+    vl = torch.randint(1, 2049, (8,), generator=gen, device="cuda", dtype=torch.int32)
+    rows["decode_attention"]["kv4"] = _dense_row(torch, gen, "decode_attention tp-kv4",
+                                                 "bfloat16", 28, 8, 2048, 4, 2, 128, vl)
+    return {"launches": launches, "rows": rows}
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         print("chip_smoke: src/repro_torch not found next to this script", file=sys.stderr)
@@ -2601,6 +2791,7 @@ def main() -> int:
         families = timed("families", phase_families, torch, info["smi"])
         encoders = timed("encoders", phase_encoders, torch, info["smi"])
         train = timed("train", phase_train, torch, info["smi"])
+        tp = timed("tp", phase_tp, torch, info["smi"])
     except Exception:                                  # a failed phase fails the run
         traceback.print_exc()
         return 1
@@ -2615,6 +2806,8 @@ def main() -> int:
          "families_launches": families["paged"],
          "families_max_abs_err": families["max_abs_err"]["paged_decode_attention"],
          "train_launches": train["launches"], "train_max_abs_err": train["max_abs_err"],
+         "tp_launches": tp["launches"]["paged_decode_attention"],
+         "tp_rows": tp["rows"]["paged_decode_attention"],
          **rows["paged_decode_attention"]["bfloat16"]},
         {"name": "decode_attention", "route": "cuda",
          "source": f"{csrc}/decode_attention.cu",
@@ -2627,6 +2820,8 @@ def main() -> int:
          "encoders_max_abs_err": encoders["max_abs_err"],
          "legacy_launches": train["legacy_launches"],
          "legacy_max_abs_err": train["legacy_max_abs_err"],
+         "tp_launches": tp["launches"]["decode_attention"],
+         "tp_rows": tp["rows"]["decode_attention"],
          **rows["decode_attention"]["bfloat16"]},
         {"name": "mamba_scan", "route": "cuda",
          "source": f"{csrc}/mamba_scan.cu",

@@ -1,0 +1,337 @@
+"""Logical-axis sharding rules and the tensor-parallel split (counterpart of
+``repro/distributed/sharding.py``).
+
+The JAX package names every tensor dim with a *logical* axis, maps logical
+axes to mesh axes through a rules table, and lets GSPMD place each tensor on
+a worker's ``("data", "model")`` sub-mesh.  Eager PyTorch has no GSPMD.  The
+port keeps the reference's tables (``DEFAULT_RULES``, ``PARAM_LOGICAL_AXES``,
+``CACHE_LOGICAL_AXES``) and its rules engine as pure functions over a mesh's
+axis sizes (``{"data": 1, "model": d}``), which say where the reference puts
+each tensor, and adds the split that a worker of MP degree ``d`` executes
+itself, Megatron-style (``tp_split``):
+
+  * attention: ``wq``/``wo`` cut on the q heads and ``wk``/``wv`` on the kv
+    heads into ``d`` contiguous pieces, only when both head counts divide by
+    ``d`` (q head ``h`` reads kv head ``h // G``, so shard ``r`` holds kv heads
+    ``[r KV/d, (r+1) KV/d)`` and exactly the q heads that read them).  The K/V
+    pool and cache follow: cut on the kv-head dim, or replicated;
+  * the MLP: ``w_gate``/``w_in`` cut on ``d_ff`` (columns), ``w_out`` on its
+    rows, when ``d_ff`` divides;
+  * the vocabulary: ``tok_embed``'s rows and ``lm_head``'s columns, when the
+    vocabulary divides;
+  * everything else is replicated: the norms, ``q_norm``/``k_norm`` (they act
+    on a whole head) and attention whose heads do not divide (smollm's 3 heads
+    at degree 2), as the reference's divisibility rule degrades it.
+
+Each shard computes its partial output and the partials are summed in shard
+order (``launch.mesh.WorkerMesh.reduce``).  The placement differs from
+GSPMD's in one place: the reference's cache rule gives the model axis to the
+first divisible dim of ``k``/``v``, which is ``kv_seq``; the port cuts the
+kv heads, so that each shard's decode kernel reads whole sequences.  The
+arithmetic is the same.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, replace
+from typing import Optional, Sequence
+
+import torch
+
+# logical axis -> mesh axis (or tuple of mesh axes)
+DEFAULT_RULES: dict[str, tuple[str, ...]] = {
+    "batch": ("pod", "data"),
+    "heads": ("model",),
+    "kv_heads": ("model",),
+    "head_dim": ("model",),
+    "d_ff": ("model",),
+    "d_inner": ("model",),
+    "experts": ("model",),
+    "vocab": ("model",),
+    "kv_seq": ("model",),     # sequence-sharded decode KV (used when heads don't divide)
+    "fsdp": ("data",),        # ZeRO-3-style second param axis
+    "act_seq": ("model",),    # sequence-parallel residual stream (Megatron-SP style)
+    "dispatch": ("data",),    # MoE dispatch groups (per-data-shard capacity)
+    "d_model": (),
+    "seq": (),
+    "state": (),
+}
+
+# leaf parameter name -> logical axes of its (unstacked) dims
+PARAM_LOGICAL_AXES: dict[str, tuple[Optional[str], ...]] = {
+    "tok_embed": ("vocab", "fsdp"),
+    "lm_head": ("fsdp", "vocab"),
+    "enc_proj": ("fsdp", "d_model"),
+    # attention / cross-attention
+    "wq": ("fsdp", "heads", "head_dim"),
+    "wk": ("fsdp", "kv_heads", "head_dim"),
+    "wv": ("fsdp", "kv_heads", "head_dim"),
+    "wo": ("heads", "head_dim", "fsdp"),
+    "q_norm": ("head_dim",),
+    "k_norm": ("head_dim",),
+    "xgate": (),
+    # dense MLP
+    "w_gate": ("fsdp", "d_ff"),
+    "w_in": ("fsdp", "d_ff"),
+    "w_out": ("d_ff", "fsdp"),
+    # MoE
+    "router": ("d_model", "experts"),
+    "we_gate": ("experts", "fsdp", None),
+    "we_in": ("experts", "fsdp", None),
+    "we_out": ("experts", None, "fsdp"),
+    "ws_gate": ("fsdp", "d_ff"),
+    "ws_in": ("fsdp", "d_ff"),
+    "ws_out": ("d_ff", "fsdp"),
+    "shared_gate": ("d_model",),
+    "wd_gate": ("fsdp", "d_ff"),
+    "wd_in": ("fsdp", "d_ff"),
+    "wd_out": ("d_ff", "fsdp"),
+    # Mamba
+    "m_in": ("fsdp", "d_inner"),
+    "m_z": ("fsdp", "d_inner"),
+    "m_conv": (None, "d_inner"),
+    "m_xproj": ("d_inner", None),
+    "m_dtproj": (None, "d_inner"),
+    "m_Alog": ("d_inner", "state"),
+    "m_D": ("d_inner",),
+    "m_out": ("d_inner", "fsdp"),
+    # mLSTM
+    "l_up": ("fsdp", "d_inner"),
+    "l_z": ("fsdp", "d_inner"),
+    "l_q": ("d_inner", "heads", "head_dim"),
+    "l_k": ("d_inner", "heads", "head_dim"),
+    "l_v": ("d_inner", "heads", "head_dim"),
+    "l_ig": ("d_inner", "heads"),
+    "l_fg": ("d_inner", "heads"),
+    "l_og": ("d_inner", "d_inner"),
+    "l_down": ("d_inner", "fsdp"),
+    "l_skip": ("d_inner",),
+    # sLSTM
+    "s_w": ("fsdp", None, "heads", "head_dim"),
+    "s_r": (None, "heads", "head_dim", None),
+    "s_b": (None, "heads", "head_dim"),
+    "s_out": ("fsdp", "d_model"),
+    # norms
+    "scale": ("d_model",),
+    "bias": ("d_model",),
+}
+
+# leaf cache name -> logical axes (right-aligned against the leaf's ndim; extra
+# leading dims -- period stacking -- get None)
+CACHE_LOGICAL_AXES: dict[str, tuple[Optional[str], ...]] = {
+    "pos": ("batch",),
+    "page_table": ("batch", None),
+    "k": ("batch", "kv_seq", "kv_heads", None),
+    "v": ("batch", "kv_seq", "kv_heads", None),
+    "xk": ("batch", None, "kv_heads", None),
+    "xv": ("batch", None, "kv_heads", None),
+    "h": ("batch", "d_inner", None),
+    "conv": ("batch", None, "d_inner"),
+    "C": ("batch", None, None, None),
+    "n": ("batch", "d_inner", None),
+    "c": ("batch", "d_inner", None),
+    "m": ("batch", "d_inner"),
+}
+
+Spec = tuple  # per dim: None, a mesh axis name, or a tuple of mesh axis names
+
+
+# ---------------------------------------------------------------- the rules engine
+
+def logical_pspec(shape: Sequence[int], dims: Sequence[Optional[str]],
+                  sizes: Optional[dict[str, int]] = None,
+                  rules: Optional[dict] = None) -> Spec:
+    """Per-dim mesh axes for ``shape`` given per-dim logical names, on a mesh
+    of axis sizes ``sizes`` (None: no mesh, every dim replicated).
+
+    A mesh axis is assigned to a dim only if (a) the rules map the logical
+    name to it, (b) the axis exists in the mesh, (c) the dim size is
+    divisible by the (product of) axis size(s), and (d) the axis is not
+    already used by an earlier dim.
+    """
+    rules = DEFAULT_RULES if rules is None else rules
+    if sizes is None:
+        return (None,) * len(shape)
+    used: set[str] = set()
+    spec: list = []
+    for dim_size, logical in zip(shape, dims):
+        assigned = None
+        if logical is not None:
+            axes = tuple(a for a in rules.get(logical, ()) if a in sizes and a not in used)
+            if axes:
+                prod = 1
+                for a in axes:
+                    prod *= sizes[a]
+                if prod > 1 and dim_size % prod == 0:
+                    assigned = axes if len(axes) > 1 else axes[0]
+                    used.update(axes)
+                else:
+                    # each candidate axis alone (e.g. batch=("pod","data"))
+                    for a in axes:
+                        if sizes[a] > 1 and dim_size % sizes[a] == 0:
+                            assigned = a
+                            used.add(a)
+                            break
+        spec.append(assigned)
+    return tuple(spec)
+
+
+def _aligned(dims: tuple, ndim: int) -> tuple:
+    """Logical dims right-aligned to ``ndim``: stacked leading dims get None."""
+    if len(dims) < ndim:
+        return (None,) * (ndim - len(dims)) + dims
+    return dims[len(dims) - ndim:]
+
+
+def _map_named(fn, tree, name: str = ""):
+    """``fn(leaf name, leaf)`` over the leaves of a nested dict."""
+    if isinstance(tree, dict):
+        return {k: _map_named(fn, v, k) for k, v in tree.items()}
+    return fn(name, tree)
+
+
+def _specs(tree, table: dict, sizes: Optional[dict[str, int]]):
+    def walk(name, leaf):
+        dims = table.get(name)
+        if sizes is None or dims is None:
+            return (None,) * leaf.dim()
+        return logical_pspec(tuple(leaf.shape), _aligned(tuple(dims), leaf.dim()), sizes)
+
+    return _map_named(walk, tree)
+
+
+def param_pspecs(params, sizes: Optional[dict[str, int]] = None):
+    """Per-leaf specs of a params tree (leaf-name lookup in ``PARAM_LOGICAL_AXES``)."""
+    return _specs(params, PARAM_LOGICAL_AXES, sizes)
+
+
+def cache_pspecs(cache, sizes: Optional[dict[str, int]] = None):
+    """Per-leaf specs of a dense cache or paged pool (``CACHE_LOGICAL_AXES``)."""
+    return _specs(cache, CACHE_LOGICAL_AXES, sizes)
+
+
+def dispatch_groups(n_tokens: int, sizes: Optional[dict[str, int]] = None,
+                    rules: Optional[dict] = None) -> int:
+    """MoE dispatch-group count: one group per data shard, halved until it
+    divides ``n_tokens``.  1 without a mesh."""
+    if sizes is None:
+        return 1
+    g = 1
+    for a in (DEFAULT_RULES if rules is None else rules).get("batch", ()):
+        g *= sizes.get(a, 1)
+    while g > 1 and n_tokens % g:
+        g //= 2
+    return max(g, 1)
+
+
+# ---------------------------------------------------------------- the executed split
+
+# leaf -> (ndim of the unstacked leaf, the head count that decides the cut, the dim cut)
+_TP_LEAVES = {
+    "wq": (3, "attn", 1), "wk": (3, "attn", 1), "wv": (3, "attn", 1), "wo": (3, "attn", 0),
+    "w_gate": (2, "mlp", 1), "w_in": (2, "mlp", 1), "w_out": (2, "mlp", 0),
+    "tok_embed": (2, "vocab", 0), "lm_head": (2, "vocab", 1),
+}
+KV_LEAVES = ("k", "v", "xk", "xv")          # cache leaves (..., KV, hd): cut on dim -2
+
+
+@dataclass(frozen=True)
+class TPSplit:
+    """Which groups of leaves a worker of MP degree ``degree`` cuts into
+    ``degree`` contiguous pieces; the rest are replicated on every shard."""
+
+    degree: int
+    attn: bool      # q/kv heads (and the K/V they write)
+    mlp: bool       # d_ff
+    vocab: bool     # the vocabulary
+
+    def param_dim(self, name: str, ndim: int) -> int | None:
+        """The dim of param leaf ``name`` (``ndim`` dims, stacked or not) that
+        is cut, or None where it is replicated."""
+        rule = _TP_LEAVES.get(name)
+        if rule is None or not getattr(self, rule[1]):
+            return None
+        return rule[2] + ndim - rule[0]
+
+    def cache_dim(self, name: str, ndim: int) -> int | None:
+        """The kv-head dim of a K/V leaf when attention is cut, else None."""
+        return ndim - 2 if self.attn and name in KV_LEAVES else None
+
+
+def tp_split(cfg, degree: int) -> TPSplit:
+    """The split of ``cfg`` over ``degree`` shards (degree 1 cuts nothing)."""
+    d = int(degree)
+    if d < 1:
+        raise ValueError(f"MP degree must be >= 1, got {degree}")
+    return TPSplit(d, attn=d > 1 and cfg.n_heads % d == 0 and cfg.n_kv_heads % d == 0,
+                   mlp=d > 1 and cfg.d_ff > 0 and cfg.d_ff % d == 0,
+                   vocab=d > 1 and cfg.vocab % d == 0)
+
+
+def shard_config(cfg, split: TPSplit):
+    """The config one shard computes with: its heads, ``d_ff`` and vocabulary
+    (``head_dim`` kept explicit, since ``d_model // n_heads`` changes)."""
+    d = split.degree
+    return replace(cfg, head_dim=cfg.hd,
+                   n_heads=cfg.n_heads // d if split.attn else cfg.n_heads,
+                   n_kv_heads=cfg.n_kv_heads // d if split.attn else cfg.n_kv_heads,
+                   d_ff=cfg.d_ff // d if split.mlp else cfg.d_ff,
+                   vocab=cfg.vocab // d if split.vocab else cfg.vocab)
+
+
+def _piece(leaf: torch.Tensor, dim: int | None, r: int, d: int, device) -> torch.Tensor:
+    """Shard ``r`` of ``d`` of ``leaf`` on ``device``: its contiguous piece
+    along ``dim``, in memory of its own; a replicated leaf is moved as it is
+    (no copy where it already lies there, so shards on one device share it)."""
+    if dim is None:
+        return leaf.to(device)
+    part = leaf.chunk(d, dim=dim)[r]
+    return torch.empty(part.shape, dtype=part.dtype, device=device).copy_(part)
+
+
+def _shard(tree, dim_of, mesh) -> list:
+    d = mesh.degree
+    return [_map_named(lambda name, leaf, r=r, dev=dev:
+                       _piece(leaf, dim_of(name, leaf.dim()), r, d, dev), tree)
+            for r, dev in enumerate(mesh.devices)]
+
+
+def _gather(shards: list, dim_of, device=None):
+    """The inverse of ``_shard``: cut leaves concatenated, replicated ones
+    taken from shard 0, on ``device`` (default: shard 0's device)."""
+    def walk(name, parts):
+        dim = dim_of(name, parts[0].dim())
+        dev = parts[0].device if device is None else device
+        if dim is None:
+            return parts[0].to(dev)
+        return torch.cat([p.to(dev) for p in parts], dim=dim)
+
+    return _zip_walk(walk, shards)
+
+
+def _zip_walk(fn, trees: list, name: str = ""):
+    if isinstance(trees[0], dict):
+        return {k: _zip_walk(fn, [t[k] for t in trees], k) for k in trees[0]}
+    return fn(name, trees)
+
+
+def shard_params(params, split: TPSplit, mesh) -> list:
+    """One params tree per shard of ``mesh`` (shard ``r`` on ``mesh.devices[r]``)."""
+    return _shard(params, split.param_dim, mesh)
+
+
+def gather_params(shards: list, split: TPSplit, device=None):
+    """The full params tree back from its shards (``shard_params``'s inverse)."""
+    return _gather(shards, split.param_dim, device)
+
+
+def shard_cache(cache, split: TPSplit, mesh) -> list:
+    """One cache, lane, pool or page stack per shard: K/V leaves cut on their
+    kv-head dim when attention is cut; ``pos``, page tables and recurrent
+    state replicated."""
+    return _shard(cache, split.cache_dim, mesh)
+
+
+def gather_cache(shards: list, split: TPSplit, device=None):
+    """The full-head cache back from its shards (``shard_cache``'s inverse)."""
+    return _gather(shards, split.cache_dim, device)

@@ -1,19 +1,28 @@
-"""Heterogeneous model-parallel worker fleets (paper §6), on one device.
+"""Heterogeneous model-parallel worker fleets (paper §6).
 
 * ``FleetSpec`` — the **single source of truth** for per-worker model-parallel
   degrees.  Everything derives from one spec: the controller's degree vector,
-  the per-worker virtual token times and the placement DP's sort-and-zip
-  mapping (§6.1: workers descend by MP degree, partitions descend by length).
+  the per-worker virtual token times, the placement DP's sort-and-zip
+  mapping (§6.1: workers descend by MP degree, partitions descend by length)
+  and the meshes the workers are built on.
 
-* ``RolloutFleet`` — owns the live ``RolloutWorker`` set.  Every worker is
-  built on the one ``device`` the fleet is given (``None`` means the card), so
-  workers on one card share one copy of the params.  The *declared* degrees
-  drive the control plane; no worker is sharded (a tensor-parallel group per
-  MP degree needs several cards).  ``reconfigure`` executes the simulated-
-  annealing allocator's split/merge moves between rollout steps — workers
-  whose degree survives are reused (their radix caches stay warm), changed
-  slots are rebuilt, and the resident sequences of retired workers are moved
-  lane by lane onto the new fleet (``migrate_out`` then ``migrate_in``).
+* ``RolloutFleet`` — owns the live ``RolloutWorker`` set.  Construction carves
+  one disjoint block of ``devices`` per worker (``launch.mesh.
+  carve_worker_meshes``), and a worker of degree ``d`` > 1 holds 1/d of its
+  attention, MLP and vocabulary weights and of its kv heads on each of its
+  ``d`` devices (``distributed/sharding.py``).  ``devices`` defaults to the
+  fleet's one ``device``, which covers no degree above 1: every worker then
+  runs unsharded on it (workers on one card share one copy of the params)
+  and the *declared* degrees drive the control plane only, as in the
+  reference on a host that cannot hold the meshes.  ``reconfigure``
+  executes the simulated-annealing allocator's split/merge moves between
+  rollout steps — workers whose degree, mesh presence and device block
+  survive are reused (their radix caches stay warm), changed slots are
+  rebuilt on newly carved meshes (weights re-sharded from the fleet's
+  un-sharded copy), and the resident sequences of retired workers are moved
+  lane by lane onto the new fleet (``migrate_out`` gathers the shards to the
+  full-head layout, ``migrate_in`` cuts it for the destination's mesh, so
+  moves cross MP degrees).
 """
 
 from __future__ import annotations
@@ -24,6 +33,7 @@ from typing import Sequence
 from repro_torch.engine.sampler import SamplerConfig
 from repro_torch.device import resolve_device
 from repro_torch.engine.worker import RolloutWorker
+from repro_torch.launch.mesh import carve_worker_meshes
 from repro_torch.models import model as M
 
 
@@ -81,11 +91,14 @@ class RolloutFleet:
         sampler: SamplerConfig = SamplerConfig(),
         seed: int = 0,
         device=None,
+        devices=None,
         **worker_kwargs,
     ):
         self.cfg = cfg
         self.device = resolve_device(device)
-        self.params = M.tree_to(params, self.device)  # one copy, shared by every worker
+        # the un-sharded copy: unsharded workers share it, meshed ones cut it
+        self.params = M.tree_to(params, self.device)
+        self.devices = [self.device] if devices is None else list(devices)
         self.capacity = capacity
         self.max_slots = max_slots
         self.sampler = sampler
@@ -93,10 +106,11 @@ class RolloutFleet:
         self.worker_kwargs = dict(worker_kwargs)
         self.spec = spec
         self.reconfigurations = 0
-        self.workers = [self._build_worker(i, degree)
-                        for i, degree in enumerate(spec.degrees)]
+        meshes = carve_worker_meshes(spec.degrees, self.devices)
+        self.workers = [self._build_worker(i, degree, mesh)
+                        for i, (degree, mesh) in enumerate(zip(spec.degrees, meshes))]
 
-    def _build_worker(self, wid: int, degree: int) -> RolloutWorker:
+    def _build_worker(self, wid: int, degree: int, mesh) -> RolloutWorker:
         return RolloutWorker(
             self.cfg,
             self.params,
@@ -107,31 +121,46 @@ class RolloutFleet:
             seed=self.seed,
             mp=degree,
             device=self.device,
+            mesh=mesh,
             **self.worker_kwargs,
         )
 
     def reconfigure(self, new_spec: FleetSpec) -> dict:
         """Realize ``new_spec`` on the live fleet (split / merge / redistribute).
 
-        Worker slots whose degree is unchanged keep their engine (KV pool, radix
-        cache, retired lanes all stay warm).  Changed or new slots get a fresh
-        worker on the fleet's device — the rebuild of a split/merge move.
-        Resident sequences of every retired engine are migrated onto the new
-        fleet (same slot index when it exists, else the least-populated new
-        worker).  Returns a
+        Worker slots whose degree, mesh presence and device block are
+        unchanged keep their engine (KV pool, radix cache, retired lanes all
+        stay warm).  Changed or new slots get a fresh worker on a newly carved
+        mesh — the weight re-shard of a split/merge move.  Resident sequences
+        of every retired engine are migrated onto the new fleet (same slot
+        index when it exists, else the least-populated new worker), through
+        the host when either side is sharded.  Returns a
         report dict; the caller (runtime / controller) must re-sync
         ``controller.degrees`` from ``fleet.spec`` — ``FleetSpec`` stays the
         only authority.
         """
         old_spec, old_workers = self.spec, self.workers
+        meshes = carve_worker_meshes(new_spec.degrees, self.devices)
+        # a slot is reusable only if its degree, its mesh PRESENCE, and its
+        # device block all survive: a fleet crossing in or out of the meshed
+        # regime must re-place every worker, and an earlier split/merge
+        # shifts every later carve offset, where a reused worker keeping its
+        # old mesh would overlap a rebuilt neighbour's devices.
+        old_off = [sum(old_spec.degrees[:i]) for i in range(old_spec.n_workers)]
+        new_off = [sum(new_spec.degrees[:i]) for i in range(new_spec.n_workers)]
         reused = []
         workers = []
-        for i, degree in enumerate(new_spec.degrees):
-            if i < len(old_workers) and old_spec.degrees[i] == degree:
+        for i, (degree, mesh) in enumerate(zip(new_spec.degrees, meshes)):
+            same = i < len(old_workers) and old_spec.degrees[i] == degree
+            if same and (mesh is None) != (old_workers[i].mesh is None):
+                same = False
+            elif same and mesh is not None:
+                same = old_off[i] == new_off[i]
+            if same:
                 workers.append(old_workers[i])
                 reused.append(i)
             else:
-                workers.append(self._build_worker(i, degree))
+                workers.append(self._build_worker(i, degree, mesh))
         moves: dict[int, int] = {}  # seq_id -> destination worker index
         for i, old in enumerate(old_workers):
             if i in reused:

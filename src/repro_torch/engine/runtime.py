@@ -316,7 +316,7 @@ def make_runtime(cfg, params, batch: list[Trajectory], predictor,
                  fleet: FleetSpec | None = None, capacity: int | None = None,
                  migration_load_gap: int = 1, migration_cooldown_steps: int = 1,
                  rank_hysteresis: float = 0.2, temperature: float = 0.8,
-                 device=None, faults: FaultPlan | None = None,
+                 device=None, devices=None, faults: FaultPlan | None = None,
                  retry: RetryPolicy = RetryPolicy(),
                  serving: ServingConfig | None = None) -> "RolloutRuntime":
     """Wire controller + real worker fleet + tool environment into a RolloutRuntime.
@@ -326,7 +326,10 @@ def make_runtime(cfg, params, batch: list[Trajectory], predictor,
     worker's virtual decode clock through the controller's
     ``WorkerLatencyModel``, so long-tail partitions land on the high-MP
     workers.  Every worker runs on ``device`` (``None`` means the card, and
-    raises where there is none; pass ``device="cpu"`` for the CPU).
+    raises where there is none; pass ``device="cpu"`` for the CPU), unless
+    ``devices`` lists the devices the fleet carves into one block per worker
+    (a device may repeat): a worker of degree d > 1 is then sharded over its
+    block (``engine.fleet``).
     """
     from repro_torch.engine.sampler import SamplerConfig
     spec = fleet if fleet is not None else FleetSpec.homogeneous(n_workers)
@@ -342,7 +345,7 @@ def make_runtime(cfg, params, batch: list[Trajectory], predictor,
     fleet_obj = RolloutFleet(cfg, params, spec, capacity=cap,
                              max_slots=len(batch),
                              sampler=SamplerConfig(temperature=temperature),
-                             seed=config.seed, device=device,
+                             seed=config.seed, device=device, devices=devices,
                              paged=config.paged, page_size=config.page_size)
     env = ToolEnvironment(seed=config.seed,
                           latency_scale=config.tool_latency_scale,

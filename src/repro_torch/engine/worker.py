@@ -21,7 +21,7 @@ and a lane starts from a fresh state at every admission.
     attention layer calls a decode attention kernel;
   * preemption: a mask flip -- the lane stays resident, nothing moves;
   * migration: the lane's KV and recurrent state move device to device,
-    between layouts too;
+    between layouts too, and between MP degrees (below);
   * tool absorption: chunked prefill at the lane's current offset, or one
     masked decode step per token.
 
@@ -31,6 +31,16 @@ seq_id)``, and each decode step draws with ``fold_in(key, pos)``
 stream is independent of co-resident lanes and stable across preemption and
 migration (the key travels in the migration package).  Its logits are too,
 except under MoE: lanes of one step share each expert's capacity.
+
+A worker of MP degree ``d`` built on a mesh of ``d`` shards
+(``launch.mesh.WorkerMesh``) holds one params tree and one pool per shard,
+cut by ``distributed.sharding.tp_split``: 1/d of the attention heads, of
+``d_ff`` and of the vocabulary, and 1/d of the kv heads of every K/V
+block, on each shard's device.  The page table and ``pos`` are replicated
+on every shard; the ``PagePool`` bookkeeping is the worker's one copy.  A
+migration or checkpoint package holds the full-head layout on the host
+(the shards gathered), whatever the source's degree, and ``migrate_in``
+cuts it for the destination's mesh.
 """
 
 from __future__ import annotations
@@ -43,6 +53,8 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import (gather_cache, shard_cache, shard_config,
+                                              shard_params, tp_split)
 from repro_torch.engine import prng
 from repro_torch.engine.paging import PagePool, PagePoolExhausted
 from repro_torch.engine.sampler import SamplerConfig, sample_slots
@@ -196,21 +208,22 @@ class PrefixCacheIndex:
 
 # ---------------------------------------------------------------- decode loop
 
-def _decode_loop(cfg: ModelConfig, params, pool: dict, last: torch.Tensor,
+def _decode_loop(cfg: ModelConfig, params, pool, last: torch.Tensor,
                  live: torch.Tensor, keys: torch.Tensor, n_tokens: int,
-                 stop_token: int | None, sampler: SamplerConfig):
+                 stop_token: int | None, sampler: SamplerConfig, mesh=None):
     """``n_tokens`` masked steps over the whole pool, with no host sync inside.
 
     last: (B,) int32 last context token per lane; live: (B,) bool active mask;
     keys: (B, 2) per-sequence base keys.  Each step draws lane ``b``'s token
     with ``fold_in(keys[b], pos[b])``.  Returns (pool, last, live, emitted
     (T, B) int32), where emitted is -1 for lanes that were inactive (or had
-    already stopped) at a step.
+    already stopped) at a step.  With a ``mesh``, ``params`` and ``pool`` are
+    lists of its shards and the sampling runs on its device 0.
     """
     emitted = []
     for _ in range(n_tokens):
-        step_keys = prng.fold_in(keys, pool["pos"])
-        logits, pool = M.decode_step(cfg, params, pool, last[:, None], active=live)
+        step_keys = prng.fold_in(keys, (pool if mesh is None else pool[0])["pos"])
+        logits, pool = M.decode_step(cfg, params, pool, last[:, None], active=live, mesh=mesh)
         toks = sample_slots(step_keys, logits, sampler, active=live)
         last = torch.where(live, toks, last)
         if stop_token is not None:
@@ -274,6 +287,11 @@ class RolloutWorker:
     ``device="cpu"`` to run on the CPU (the kernels' plain versions then
     run).  ``params`` is moved to ``device`` (a no-op for tensors already
     there, so workers on one card share one copy).
+
+    ``mesh`` (``launch.mesh.WorkerMesh``) places the worker: its device 0
+    takes the place of ``device``, and a mesh of degree ``mp`` > 1 shards
+    the worker (``models.model.check_tp`` says which configs have a split).
+    ``params`` always takes the full tree; a meshed worker keeps its shards.
     """
 
     def __init__(self, cfg: ModelConfig, params, capacity: int = 256,
@@ -284,17 +302,31 @@ class RolloutWorker:
                  retired_kv_bytes: int | None = None,
                  prefix_index_nodes: int = 65_536, mp: int = 1,
                  paged: bool | None = None, page_size: int = 16,
-                 num_blocks: int | None = None, device=None):
+                 num_blocks: int | None = None, device=None, mesh=None):
         check_servable(cfg)
-        self.device = resolve_device(device)
+        self.mp = max(int(mp), 1)
+        self.mesh = mesh
+        if mesh is not None and mesh.degree not in (1, self.mp):
+            raise ValueError(f"a worker of MP degree {self.mp} was given a mesh of "
+                             f"{mesh.degree} devices")
+        # the mesh the model functions compute on: only a sharded worker has one
+        self._tp = mesh if mesh is not None and mesh.degree > 1 else None
+        if self._tp is not None:
+            M.check_tp(cfg, mesh.degree)
+            if use_chunked is False:
+                raise NotImplementedError("a sharded worker admits by chunked prefill only "
+                                          "(use_chunked=False has no split)")
+        self.device = mesh.devices[0] if mesh is not None else resolve_device(device)
+        self.split = tp_split(cfg, mesh.degree if mesh is not None else 1)
+        # the config each shard computes with (its heads, d_ff, vocabulary)
+        self.shard_cfg = shard_config(cfg, self.split) if self._tp is not None else cfg
         self.cfg = cfg
         self.capacity = capacity
         self.max_slots = max_slots
         self.worker_id = worker_id
         self.sampler = sampler
-        self.mp = max(int(mp), 1)
         self.base_key = prng.prng_key(seed + worker_id)
-        self.params = M.tree_to(params, self.device)
+        self.params = params
         # byte prices, from shapes alone (meta tensors allocate nothing): a
         # lane's dense state (pos and recurrent state), a dense lane (state +
         # K/V at full capacity) and, paged, one block across every paged layer
@@ -317,10 +349,10 @@ class RolloutWorker:
             self.pages = PagePool(self.num_blocks)
             self.block_grows = 0
             self._page_bytes = kv_per_token * ps
-            self.pool = M.init_paged_pool(cfg, max_slots, self.num_blocks, ps,
-                                          self.num_pages, self.device)
+            self.pool = self._placed(lambda c, dev: M.init_paged_pool(
+                c, max_slots, self.num_blocks, ps, self.num_pages, dev))
         else:
-            self.pool = M.init_cache(cfg, max_slots, capacity, self.device)
+            self.pool = self._placed(lambda c, dev: M.init_cache(c, max_slots, capacity, dev))
         self.store: dict[int, Sequence] = {}       # resident sequences (incl. preempted)
         self.chunk_size = chunk_size
         self._chunked = ((use_chunked if use_chunked is not None else True)
@@ -344,6 +376,48 @@ class RolloutWorker:
         self.decode_timed_lane_steps = 0
         self.decode_calls = 0
 
+    # ------------------------------------------------------------ placement
+    @property
+    def params(self):
+        """The weights: the full tree, or one tree per shard on a mesh."""
+        return self._params
+
+    @params.setter
+    def params(self, params) -> None:
+        """Adopt weights given as the full tree (construction, weight sync):
+        moved to the device, or cut for the mesh."""
+        self._params = (shard_params(params, self.split, self._tp) if self._tp is not None
+                        else M.tree_to(params, self.device))
+
+    def _placed(self, make):
+        """``make(config, device)`` for the unsharded worker, or one per shard
+        with the shard config (a pool, a lane) on each shard's device."""
+        if self._tp is None:
+            return make(self.cfg, self.device)
+        return [make(self.shard_cfg, dev) for dev in self._tp.devices]
+
+    def _shards(self, x) -> list:
+        """A pool or lane as a list of the worker's shards of it."""
+        return x if self._tp is not None else [x]
+
+    def _each(self, fn, *args) -> None:
+        """``fn(pool, *args)`` on every shard's pool."""
+        for pool in self._shards(self.pool):
+            fn(pool, *args)
+
+    def _cut(self, tree):
+        """A full-head lane, pool or page stack (on any device) as this
+        worker's shards of it: itself unsharded."""
+        return shard_cache(tree, self.split, self._tp) if self._tp is not None else tree
+
+    def _joined(self, parts: list):
+        """The full-head layout of a lane or page stack given per shard: on
+        the host for a sharded worker (the unsharded one's stays on its
+        device)."""
+        if self._tp is None:
+            return parts[0]
+        return gather_cache(parts, self.split, "cpu")
+
     # ------------------------------------------------------------ slot bookkeeping
     def _reclaim(self, slot: int) -> None:
         """A lane about to be overwritten: drop its radix refs and free its
@@ -365,10 +439,13 @@ class RolloutWorker:
         slot = self.max_slots
         if self._paged:
             # lane growth only: page-table rows and pos double, block pools stay
-            self.pool = M.grow_paged_lanes(self.cfg, self.pool, self.max_slots)
+            self._each(lambda pool: M.grow_paged_lanes(self.shard_cfg, pool, self.max_slots))
         else:
-            fresh = M.init_cache(self.cfg, self.max_slots, self.capacity, self.device)
-            self.pool = M.concat_pools(self.pool, fresh)
+            fresh = self._placed(lambda c, dev: M.init_cache(c, self.max_slots,
+                                                             self.capacity, dev))
+            pools = [M.concat_pools(a, b) for a, b in zip(self._shards(self.pool),
+                                                          self._shards(fresh))]
+            self.pool = pools if self._tp is not None else pools[0]
         self.max_slots *= 2
         self.pool_grows += 1
         self.prefix_index.invalidate(slot)
@@ -397,7 +474,7 @@ class RolloutWorker:
 
     def _sync_row(self, slot: int) -> None:
         """Mirror ``lane_pages[slot]`` into the device page table."""
-        M.paged_set_row(self.pool, slot, self._row_of(self.lane_pages.get(slot, [])))
+        self._each(M.paged_set_row, slot, self._row_of(self.lane_pages.get(slot, [])))
 
     def _free_lane_pages(self, slot: int) -> None:
         """Release every page a lane holds and point its row at scratch."""
@@ -432,7 +509,7 @@ class RolloutWorker:
 
     def _grow_blocks(self, min_extra: int) -> None:
         extra = max(min_extra, self.num_blocks)     # doubling growth
-        self.pool = M.grow_paged_blocks(self.pool, extra)
+        self._each(M.grow_paged_blocks, extra)
         self.pages.grow(self.num_blocks + extra)
         self.num_blocks += extra
         self.block_grows += 1
@@ -470,7 +547,8 @@ class RolloutWorker:
         self.prefix_index.insert(tokens, slot=slot)
 
     def _forward_lane(self, tokens: list[int], capacity: int) -> dict:
-        """A batch-1 dense lane of ``capacity`` slots from one full forward."""
+        """A batch-1 dense lane of ``capacity`` slots from one full forward
+        (unsharded workers only: a sharded one admits by chunks)."""
         arr = torch.as_tensor([tokens], dtype=torch.int64, device=self.device)
         _, _, lane = M.forward_full(self.cfg, self.params, {"tokens": arr},
                                     capacity=capacity)
@@ -482,15 +560,16 @@ class RolloutWorker:
         device, chunk-prefill the suffix into it, and write it into ``slot``.
         (``src`` may be the lane ``slot`` reclaimed: its old contents are read
         before the write.)"""
-        lane = M.init_cache(self.cfg, 1, self.capacity, self.device)
+        lane = self._placed(lambda c, dev: M.init_cache(c, 1, self.capacity, dev))
         if src is not None and reuse_n > 0:
             if src in self.retired:
                 self.retired.move_to_end(src)             # LRU touch
-            M.copy_prefix(self.pool, src, lane, reuse_n)
+            for pool, ln in zip(self._shards(self.pool), self._shards(lane)):
+                M.copy_prefix(pool, src, ln, reuse_n)
             self.reused_tokens += reuse_n
         for buf, n in self._chunks(tokens, reuse_n):
-            M.prefill_chunk(self.cfg, self.params, lane, buf, n)
-        M.write_slot(self.pool, lane, slot)
+            M.prefill_chunk(self.cfg, self.params, lane, buf, n, mesh=self._tp)
+        self._write_lane(lane, slot)
         self.prefilled_tokens += len(tokens) - reuse_n
 
     def _prefill_paged(self, slot: int, tokens: list[int], reuse_n: int,
@@ -524,17 +603,18 @@ class RolloutWorker:
         if need > len(blocks):
             blocks = blocks + self._alloc_blocks(need - len(blocks))
         self.lane_pages[slot] = blocks
-        M.paged_set_lane(self.pool, slot, self._row_of(blocks), reuse_eff)
+        self._each(M.paged_set_lane, slot, self._row_of(blocks), reuse_eff)
         if boundary is not None:
-            M.paged_copy_block(self.pool, boundary[0], boundary[1])
+            self._each(M.paged_copy_block, boundary[0], boundary[1])
         if not self._chunked:
             M.paged_write_lane(self.pool, self._forward_lane(tokens, S), slot,
                                self._row_of(blocks), S)
             self.prefilled_tokens += S
             return
-        M.paged_fresh_state(self.cfg, self.pool, slot)
+        self._each(lambda pool: M.paged_fresh_state(self.shard_cfg, pool, slot))
         for buf, n in self._chunks(tokens, reuse_eff):
-            M.prefill_chunk_paged(self.cfg, self.params, self.pool, slot, buf, n)
+            M.prefill_chunk_paged(self.cfg, self.params, self.pool, slot, buf, n,
+                                  mesh=self._tp)
         self.prefilled_tokens += S - reuse_eff
 
     def _chunks(self, tokens: list[int], start: int):
@@ -559,12 +639,13 @@ class RolloutWorker:
         if self._paged:
             self._ensure_coverage(seq.slot, len(ext))
             for buf, n in self._chunks(ext, len(seq.tokens)):
-                M.prefill_chunk_paged(self.cfg, self.params, self.pool, seq.slot, buf, n)
+                M.prefill_chunk_paged(self.cfg, self.params, self.pool, seq.slot, buf, n,
+                                      mesh=self._tp)
         else:
-            lane = M.gather_slots(self.pool, [seq.slot])
+            lane = self._gather_lane(seq.slot)
             for buf, n in self._chunks(ext, len(seq.tokens)):
-                M.prefill_chunk(self.cfg, self.params, lane, buf, n)
-            M.write_slot(self.pool, lane, seq.slot)
+                M.prefill_chunk(self.cfg, self.params, lane, buf, n, mesh=self._tp)
+            self._write_lane(lane, seq.slot)
         self.absorbed_tokens += len(tool_tokens)
         seq.tokens = ext
         self.prefix_index.insert(seq.tokens, slot=seq.slot)
@@ -581,7 +662,7 @@ class RolloutWorker:
                                device=self.device)
         for i in range(len(tool_tokens)):
             M.decode_step(self.cfg, self.params, self.pool, toks[i].expand(B, 1),
-                          active=active)
+                          active=active, mesh=self._tp)
         self.absorbed_tokens += len(tool_tokens)
         seq.tokens.extend(int(t) for t in tool_tokens)
         self.prefix_index.insert(seq.tokens, slot=seq.slot)
@@ -627,7 +708,7 @@ class RolloutWorker:
             step = min(chunk, remaining)
             self.pool, last_t, live_t, em = _decode_loop(
                 self.cfg, self.params, self.pool, last_t, live_t, keys_t,
-                step, stop_token, self.sampler)
+                step, stop_token, self.sampler, self._tp)
             parts.append(em)           # device-resident: copied to the host after the loop
             remaining -= step
             ran += step
@@ -678,26 +759,42 @@ class RolloutWorker:
             "finished": finished,
         }
 
+    def _gather_lane(self, slot: int):
+        """A copy of lane ``slot`` as a batch-1 dense lane (one per shard)."""
+        lanes = [M.gather_slots(pool, [slot]) for pool in self._shards(self.pool)]
+        return lanes if self._tp is not None else lanes[0]
+
+    def _write_lane(self, lane, slot: int) -> None:
+        """Write a batch-1 dense lane (one per shard) into lane ``slot``."""
+        for pool, ln in zip(self._shards(self.pool), self._shards(lane)):
+            M.write_slot(pool, ln, slot)
+
     def _lane_payload(self, seq: Sequence) -> dict:
-        """One lane's KV on the device, with its byte price: the resident pages
-        and dense state (paged) or the whole lane (dense)."""
+        """One lane's KV in the full-head layout, with its byte price: the
+        resident pages and dense state (paged) or the whole lane (dense).  It
+        stays on the device unsharded, and is gathered to the host from the
+        shards of a sharded worker."""
         if not self._paged:
-            return {"cache": M.gather_slots(self.pool, [seq.slot]),
+            return {"cache": self._joined([M.gather_slots(p, [seq.slot])
+                                           for p in self._shards(self.pool)]),
                     "logical_bytes": self._lane_bytes}
         keep = -(-len(seq.tokens) // self.page_size)
         blocks = self.lane_pages.get(seq.slot, [])[:keep]
-        return {"pages": M.paged_gather_pages(self.pool, blocks),
-                "state": M.paged_gather_state(self.pool, seq.slot),
+        pools = self._shards(self.pool)
+        state = M.paged_gather_state(pools[0], seq.slot)      # replicated on every shard
+        return {"pages": self._joined([M.paged_gather_pages(p, blocks) for p in pools]),
+                "state": state if self._tp is None else M.tree_to(state, "cpu"),
                 "page_size": self.page_size, "capacity": self.capacity,
                 "logical_bytes": len(blocks) * self._page_bytes + self._state_bytes}
 
     def migrate_out(self, seq_id: int) -> dict:
         """Package one lane's context and KV for transfer.
 
-        The KV stays on the device (a move between workers on one card is a
-        device-to-device copy); ``logical_bytes`` prices the resident pages +
-        dense state, or the whole dense lane.  The local copy retires into the
-        radix cache."""
+        The KV stays on the device (a move between unsharded workers on one
+        card is a device-to-device copy); a sharded worker's is gathered to
+        the host in the full-head layout.  ``logical_bytes`` prices the
+        resident pages + dense state, or the whole dense lane.  The local
+        copy retires into the radix cache."""
         seq = self.store.pop(seq_id)
         pkg = self._package_meta(seq, seq.preempted, seq.finished)
         pkg.update(self._lane_payload(seq))
@@ -723,8 +820,9 @@ class RolloutWorker:
         n = next(M.tree_leaves(pages)).shape[1] if pages else 0
         blocks = self._alloc_blocks(n) if n else []
         self.lane_pages[slot] = blocks
-        M.paged_scatter_pages(self.pool, pages, blocks)
-        M.paged_write_state(self.pool, state, slot, self._row_of(blocks))
+        for pool, pg in zip(self._shards(self.pool), self._shards(self._cut(pages))):
+            M.paged_scatter_pages(pool, pg, blocks)
+            M.paged_write_state(pool, state, slot, self._row_of(blocks))
 
     def migrate_in(self, package: dict) -> None:
         """Implant a migrated lane into a free slot (capacities must match).
@@ -733,7 +831,9 @@ class RolloutWorker:
         page size and capacity scatters its pages; a paged package on any
         other worker is flattened back to a dense lane (``pages_to_lane``); a
         dense lane lands on a paged worker through ``paged_write_lane`` and on
-        a dense worker through ``write_slot``."""
+        a dense worker through ``write_slot``.  The package's full-head KV is
+        cut for this worker's mesh, so a lane moves between any two MP
+        degrees."""
         slot = self._alloc_slot()
         if "pages" in package:
             if (self._paged and package.get("page_size") == self.page_size
@@ -744,20 +844,23 @@ class RolloutWorker:
             lane = M.pages_to_lane(package["pages"], package["state"], self.capacity)
         else:
             lane = package["cache"]
+        lane = self._cut(lane)
         if self._paged:
             need = min(-(-len(package["tokens"]) // self.page_size), self.num_pages)
             blocks = self._alloc_blocks(need)
             self.lane_pages[slot] = blocks
-            M.paged_write_lane(self.pool, lane, slot, self._row_of(blocks),
-                               len(package["tokens"]))
+            for pool, ln in zip(self._shards(self.pool), self._shards(lane)):
+                M.paged_write_lane(pool, ln, slot, self._row_of(blocks),
+                                   len(package["tokens"]))
         else:
-            for dst, src in M._lane_leaves(self.pool, lane):
-                if (dst.shape[0],) + dst.shape[2:] != (src.shape[0],) + src.shape[2:]:
-                    raise ValueError(
-                        f"migrate_in: lane shape {tuple(src.shape)} does not fit pool lane "
-                        f"{tuple(dst.shape)}: source and destination workers must share "
-                        "capacity and architecture")
-            M.write_slot(self.pool, lane, slot)
+            for pool, ln in zip(self._shards(self.pool), self._shards(lane)):
+                for dst, src in M._lane_leaves(pool, ln):
+                    if (dst.shape[0],) + dst.shape[2:] != (src.shape[0],) + src.shape[2:]:
+                        raise ValueError(
+                            f"migrate_in: lane shape {tuple(src.shape)} does not fit pool "
+                            f"lane {tuple(dst.shape)}: source and destination workers must "
+                            "share capacity and architecture")
+            self._write_lane(lane, slot)
         self._register_seq(package, slot)
 
     def _register_seq(self, package: dict, slot: int) -> None:
@@ -792,7 +895,8 @@ class RolloutWorker:
 
     def dispatch_stats(self) -> dict:
         """Admission, reuse, block-pool (paged) and decode counters (same keys
-        as the JAX worker's)."""
+        as the JAX worker's), and a meshed worker's device count
+        (``mesh_devices``)."""
         idx = self.prefix_index
         stats = {}
         if self._paged:
@@ -813,6 +917,7 @@ class RolloutWorker:
             "decode_steps": self.decode_steps,
             "pool_grows": self.pool_grows,
             "mp": self.mp,
+            **({} if self.mesh is None else {"mesh_devices": self.mesh.degree}),
             "decode_wall_s": self.decode_wall_s,
             "decode_timed_steps": self.decode_timed_steps,
             "decode_timed_lane_steps": self.decode_timed_lane_steps,

@@ -1,0 +1,78 @@
+"""Worker meshes: the devices a rollout worker of MP degree ``d`` computes on
+(counterpart of ``repro/launch/mesh.py``).
+
+The JAX package gives each worker a ``("data", "model")`` sub-mesh and lets
+GSPMD run collectives on it.  The port keeps one controlling process and
+makes the collectives explicit: a ``WorkerMesh`` is the worker's devices in
+shard order, and its ``reduce`` and ``gather`` are the two collectives the
+tensor-parallel split needs.  A device may repeat (``[cpu] * 4`` in the
+tests, ``[cuda:0] * 2`` on one card): each shard is then a separate set of
+tensors on that device.  The reference's production meshes lower for a TPU
+pod and have no counterpart here.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Sequence
+
+import torch
+
+from repro_torch.device import resolve_device
+
+
+@dataclass(frozen=True)
+class WorkerMesh:
+    """One worker's devices, in shard order (shard ``r`` on ``devices[r]``)."""
+
+    devices: tuple[torch.device, ...]
+
+    @property
+    def degree(self) -> int:
+        return len(self.devices)
+
+    def broadcast(self, x: torch.Tensor) -> list[torch.Tensor]:
+        """``x`` on every shard's device (no copy where it already lies)."""
+        return [x.to(dev) for dev in self.devices]
+
+    def reduce(self, parts: Sequence[torch.Tensor]) -> list[torch.Tensor]:
+        """The sum of the shards' partial outputs, added in shard order on
+        device 0 (in f32 for narrower dtypes, then cast back once), copied back
+        to every shard's device."""
+        acc_dtype = torch.promote_types(parts[0].dtype, torch.float32)
+        dev0 = self.devices[0]
+        total = parts[0].to(dev0, acc_dtype)
+        for p in parts[1:]:
+            total = total + p.to(dev0, acc_dtype)
+        return self.broadcast(total.to(parts[0].dtype))
+
+    def gather(self, parts: Sequence[torch.Tensor], dim: int) -> torch.Tensor:
+        """The shards' pieces concatenated along ``dim`` on device 0."""
+        return torch.cat([p.to(self.devices[0]) for p in parts], dim=dim)
+
+
+def carve_worker_meshes(degrees: Sequence[int], devices=None) -> list[WorkerMesh | None]:
+    """One mesh per rollout worker, over disjoint contiguous blocks of ``devices``.
+
+    Worker ``i`` of degree ``degrees[i]`` takes the next ``degrees[i]`` entries
+    of the device list, so a fleet like {4, 2, 1, 1} occupies eight entries
+    without overlap, and a degree-1 worker in a meshed fleet gets a one-device
+    mesh on its reserved entry.  An all-mp1 fleet gets ``None`` for every
+    worker (nothing to shard), and so does a fleet the list cannot cover
+    (``sum(degrees) > len(devices)``): the declared degrees then drive the
+    control plane only, as in the reference.  ``devices=None`` means every
+    visible card, and raises where there is none.
+    """
+    if devices is None:
+        resolve_device("cuda")
+        devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    devices = [resolve_device(d) for d in devices]
+    degrees = [int(d) for d in degrees]
+    if sum(degrees) > len(devices) or all(d == 1 for d in degrees):
+        return [None] * len(degrees)
+    meshes: list[WorkerMesh | None] = []
+    off = 0
+    for d in degrees:
+        meshes.append(WorkerMesh(tuple(devices[off:off + d])))
+        off += d
+    return meshes

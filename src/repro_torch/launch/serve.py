@@ -7,7 +7,12 @@ queues, preemptive execution, progressive prediction refresh, and tool-interval
 KV migration.  The model is ``--arch`` reduced to two periods, with random
 params from ``--seed``.  Every worker runs on ``--device`` (default: the card;
 with no CUDA device the launcher exits with an error unless given
-``--device cpu``).
+``--device cpu``).  ``--degrees`` gives the workers MP degrees, carved over
+the visible cards (or the ``--devices`` list) one contiguous block per
+worker: a worker of degree d > 1 is sharded over its d devices.  A degree
+larger than the device count is refused; a fleet the devices cannot cover
+in all, or ``--device cpu`` without ``--devices``, runs every worker
+unsharded and the degrees drive the control plane only.
 
 On the card:
     PYTHONPATH=src python -m repro_torch.launch.serve --requests 16 --steps 3 \
@@ -15,6 +20,11 @@ On the card:
 
 On the CPU:
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --requests 8 --steps 2
+
+A {2,1} fleet whose MP-2 worker is sharded, every shard on the CPU (or on one
+card, with --devices cuda:0,cuda:0,cuda:0):
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --devices cpu,cpu,cpu --degrees 2,1 --requests 8 --steps 2
 
 Open-loop serving (Poisson ingress, tenant SLOs, admission control):
     PYTHONPATH=src python -m repro_torch.launch.serve --requests 24 --arrival poisson \
@@ -81,9 +91,34 @@ def _validate_args(ap, args):
             ap.error(f"--tenants: {e}")
 
 
-def build_runtime(args, cfg, params):
+def carve_devices(ap, args, device):
+    """The devices ``--degrees`` is carved over: ``--devices``, else every
+    visible card, else (``--device cpu``) none to carve.  Refuses a degree
+    larger than their count, as the reference does."""
+    import torch
+
+    from repro_torch.device import resolve_device
+
+    if args.devices:
+        try:
+            devices = [resolve_device(d) for d in args.devices.split(",")]
+        except RuntimeError as e:                 # a bad name, or CUDA absent
+            ap.error(f"--devices: {e}")
+    elif device.type == "cuda":
+        devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    else:
+        return None
+    if args.degrees:
+        top = max(int(d) for d in args.degrees.split(","))
+        if top > len(devices):
+            ap.error(f"--degrees asks for an MP-{top} worker but only {len(devices)} "
+                     f"device(s) are given")
+    return devices
+
+
+def build_runtime(args, cfg, params, devices=None):
     """Workload + predictor + controller + worker fleet + runtime for one run,
-    on ``args.device``."""
+    on ``args.device``, the fleet carved over ``devices`` (``carve_devices``)."""
     from repro_torch.engine.fleet import FleetSpec
     from repro_torch.engine.runtime import (RuntimeConfig, build_workbench,
                                             make_runtime)
@@ -137,7 +172,7 @@ def build_runtime(args, cfg, params):
     return make_runtime(cfg, params, batch, predictor,
                         n_workers=args.workers, config=rcfg,
                         capacity=args.capacity, fleet=fleet, faults=faults,
-                        serving=serving, device=args.device)
+                        serving=serving, device=args.device, devices=devices)
 
 
 def _run_service(args, runtime):
@@ -186,9 +221,10 @@ def main(argv=None):
     ap.add_argument("--workers", type=int, default=2)
     ap.add_argument("--degrees", default="",
                     help="heterogeneous fleet: comma-separated per-worker MP "
-                         "degrees, e.g. '4,2,1,1' (§6; overrides --workers; "
-                         "the degrees drive the control plane, every worker "
-                         "runs unsharded on --device)")
+                         "degrees, e.g. '4,2,1,1' (§6; overrides --workers): "
+                         "carved over the visible cards or --devices, a "
+                         "degree-d worker sharded over d of them; a degree "
+                         "above the device count is refused")
     ap.add_argument("--steps", type=int, default=3,
                     help="agentic steps per trajectory (plans truncated here; "
                          "easy samples finish earlier; 0 = no cap, keeping the "
@@ -244,6 +280,11 @@ def main(argv=None):
                          "cut over as their resident lanes drain (0 = off)")
     ap.add_argument("--dry-run", action="store_true",
                     help="TPU pod compile; no GPU counterpart (an error)")
+    ap.add_argument("--devices", default="",
+                    help="comma-separated devices to carve --degrees over, in "
+                         "order, a device may repeat (e.g. 'cuda:0,cuda:0' "
+                         "holds two shards on one card; default: every "
+                         "visible card, none with --device cpu)")
     ap.add_argument("--device", default=None,
                     help="torch device of every worker (default: cuda; "
                          "'cpu' runs the kernels' plain versions)")
@@ -265,8 +306,9 @@ def main(argv=None):
         check_servable(cfg)
     except NotImplementedError as e:
         ap.error(str(e))
+    devices = carve_devices(ap, args, device)
     params = M.init_params(cfg, seed=args.seed, device=device)
-    runtime = build_runtime(args, cfg, params)
+    runtime = build_runtime(args, cfg, params, devices)
     controller = runtime.controller
 
     if args.stream > 0:
@@ -280,7 +322,9 @@ def main(argv=None):
         stats = ws.engine.dispatch_stats()
         served = sum(1 for t in res.trajectories
                      if t.worker_id == ws.wid and t.finished)
-        print(f"worker {ws.wid}: finished {served} trajectories, "
+        shards = (f" over {stats['mesh_devices']} devices" if stats.get("mesh_devices", 1) > 1
+                  else "")
+        print(f"worker {ws.wid} (MP {stats['mp']}{shards}): finished {served} trajectories, "
               f"{stats['decode_steps']} decode steps, "
               f"prefix reuse {stats['reused_tokens']}/"
               f"{stats['reused_tokens'] + stats['prefilled_tokens']} admit tokens, "

@@ -42,6 +42,7 @@ import torch
 import torch.utils.checkpoint
 
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import shard_config, tp_split
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
 
@@ -516,10 +517,14 @@ def _layer_step(cfg, kind, p, x, cache, pos, page_table, active):
 
 
 def decode_step(cfg: ModelConfig, params, cache: dict, tokens: torch.Tensor,
-                active: torch.Tensor | None = None):
+                active: torch.Tensor | None = None, mesh=None):
     """One decode step.  tokens: (B, 1) int; cache: a dense cache or a paged
     pool (it has a ``page_table``).  Returns (logits (B, V), cache), the cache
     updated in place.
+
+    With a ``mesh`` (``launch.mesh.WorkerMesh``), ``params`` and ``cache`` are
+    lists of its shards (``shard_params``, and one pool or cache per shard
+    with the shard's kv heads); the logits come back on the mesh's device 0.
 
     ``active``: optional (B,) bool lane mask.  Inactive lanes do not advance
     ``pos`` and keep their recurrent state; their KV write lands at the
@@ -528,6 +533,8 @@ def decode_step(cfg: ModelConfig, params, cache: dict, tokens: torch.Tensor,
     caller masks them.  (With MoE, masked lanes still compete for expert
     capacity, as in the JAX package.)
     """
+    if mesh is not None:
+        return _decode_step_tp(cfg, params, cache, tokens, active, mesh)
     pos = cache["pos"]
     page_table = cache.get("page_table")
     x = params["tok_embed"][tokens.long()]
@@ -625,17 +632,20 @@ def _layer_chunk(cfg, kind, p, x, cache, off, length):
 
 
 def prefill_chunk(cfg: ModelConfig, params, cache: dict, tokens: torch.Tensor,
-                  length: int) -> dict:
+                  length: int, mesh=None) -> dict:
     """Teacher-force a fixed-shape (1, C) chunk into a batch-1 dense lane.
 
     Rows >= ``length`` of ``tokens`` are padding.  The chunk lands at positions
     ``pos .. pos + length`` where ``pos = cache["pos"][0]`` (read on the
     device).  Updates the lane in place, advances ``pos`` by ``length`` and
     returns it.  Linear (non-ring) lanes without MoE only
-    (``supports_chunked_prefill``).
+    (``supports_chunked_prefill``).  With a ``mesh``, ``params`` and ``cache``
+    are lists of its shards (as for ``decode_step``).
     """
     if tokens.shape[0] != 1:
         raise ValueError("prefill_chunk operates on one lane (batch 1)")
+    if mesh is not None:
+        return _prefill_chunk_tp(cfg, params, cache, tokens, length, mesh)
     off = cache["pos"][0].clone()
     x = params["tok_embed"][tokens.long()]
     for pi in range(cfg.n_periods):
@@ -738,7 +748,7 @@ def _layer_chunk_paged(cfg, kind, p, x, cache, pt_row, slot, off, length):
 
 
 def prefill_chunk_paged(cfg: ModelConfig, params, pool: dict, slot: int,
-                        tokens: torch.Tensor, length: int) -> dict:
+                        tokens: torch.Tensor, length: int, mesh=None) -> dict:
     """Teacher-force a fixed-shape (1, C) chunk straight into lane ``slot``'s pages.
 
     Rows >= ``length`` of ``tokens`` are padding.  The chunk lands at positions
@@ -746,10 +756,13 @@ def prefill_chunk_paged(cfg: ModelConfig, params, pool: dict, slot: int,
     K/V scatter to the lane's mapped blocks and queries attend through the
     gathered page view (resident prefix, possibly shared pages, plus the
     chunk's own causal keys); recurrent state updates the lane's dense row.
-    Updates the pool in place and returns it.
+    Updates the pool in place and returns it.  With a ``mesh``, ``params`` and
+    ``pool`` are lists of its shards (as for ``decode_step``).
     """
     if tokens.shape[0] != 1:
         raise ValueError("prefill_chunk_paged operates on one lane (batch 1)")
+    if mesh is not None:
+        return _prefill_chunk_tp(cfg, params, pool, tokens, length, mesh, slot)
     off = pool["pos"][slot].clone()
     pt_row = pool["page_table"][slot]
     x = params["tok_embed"][tokens.long()]
@@ -907,3 +920,130 @@ def grow_paged_lanes(cfg: ModelConfig, pool: dict, extra: int) -> dict:
         for name, leaf in c.items():
             c[name] = torch.cat([leaf, fresh[name]], dim=1)
     return pool
+
+
+# ------------------------------------------------------------------ tensor parallel
+# A worker of MP degree d on a mesh of d shards (``distributed/sharding.py``):
+# each shard runs the functions above on its own params and K/V with a shard
+# config (H/d, KV/d, d_ff/d heads and widths when cut), and the partial
+# attention and MLP outputs are summed in shard order by ``mesh.reduce``.  The
+# residual stream is replicated: every shard holds the same hidden states.
+
+def check_tp(cfg: ModelConfig, degree: int) -> None:
+    """Raise unless ``cfg`` has a tensor-parallel split at MP degree
+    ``degree``: attention + dense-MLP layers, chunked prefill (no sliding
+    window).  Degree 1 takes every config."""
+    if degree <= 1:
+        return
+    outside = sorted({k for k in cfg.block_pattern
+                      if k.partition("+")[0] != "attn" or k.partition("+")[2] not in ("", "mlp")})
+    if outside or cfg.arch_type in CROSS_ARCHS or not supports_chunked_prefill(cfg):
+        raise NotImplementedError(
+            f"{cfg.name}: no tensor-parallel split at MP degree {degree} for "
+            f"{outside or 'its admission (one full-sequence forward)'}: the port splits "
+            "attention and dense-MLP layers with chunked prefill only; the Mamba "
+            "(m_xproj reduction), MoE-expert and xLSTM splits are queued in ROADMAP.md "
+            "Queue 1")
+
+
+def _tp_setup(cfg: ModelConfig, mesh):
+    check_tp(cfg, mesh.degree)
+    split = tp_split(cfg, mesh.degree)
+    return split, shard_config(cfg, split)
+
+
+def _tp_embed(split, mesh, params: list, tokens: torch.Tensor) -> list:
+    """Every shard's copy of the embedded tokens.  With the vocabulary cut,
+    each shard looks the tokens up in its slice (zero outside it) and the
+    slices are summed: one of them is non-zero, so the sum is exact."""
+    toks = mesh.broadcast(tokens.long())
+    if not split.vocab:
+        return [p["tok_embed"][t] for p, t in zip(params, toks)]
+    parts = []
+    for r, (p, t) in enumerate(zip(params, toks)):
+        n = p["tok_embed"].shape[0]
+        local = t - r * n
+        rows = p["tok_embed"][local.clamp(0, n - 1)]
+        parts.append(torch.where(((local >= 0) & (local < n))[..., None], rows,
+                                 torch.zeros_like(rows)))
+    return mesh.reduce(parts)
+
+
+def _tp_add(mesh, xs: list, outs: list, cut: bool) -> list:
+    """The residual add of a cut layer's summed partials, or of a replicated
+    layer's output (the same on every shard)."""
+    if cut:
+        outs = mesh.reduce(outs)
+    return [x + o for x, o in zip(xs, outs)]
+
+
+def _tp_layer(cfg, split, mesh, kind: str, ps: list, xs: list, attend) -> list:
+    """One attention + MLP layer on every shard: ``attend(r, h)`` is shard
+    ``r``'s attention output on its normed input (its heads' part of the
+    ``wo`` product when the heads are cut)."""
+    hs = [L.block_norm(cfg, p["norm1"], x) for p, x in zip(ps, xs)]
+    xs = _tp_add(mesh, xs, [attend(r, h) for r, h in enumerate(hs)], split.attn)
+    if kind.partition("+")[2]:
+        outs = [L.mlp(p["mlp"], L.block_norm(cfg, p["norm2"], x), cfg.activation)
+                for p, x in zip(ps, xs)]
+        xs = _tp_add(mesh, xs, outs, split.mlp)
+    return xs
+
+
+def _tp_logits(cfg, split, mesh, params: list, xs: list) -> torch.Tensor:
+    """Logits on device 0: each shard's vocabulary slice, gathered; with the
+    vocabulary replicated, shard 0's."""
+    if not split.vocab:
+        return _logits(cfg, params[0], xs[0])
+    return mesh.gather([_logits(cfg, p, x) for p, x in zip(params, xs)], -1)
+
+
+def _tp_periods(cfg, params: list, caches: list):
+    """(kind, each shard's layer params, each shard's layer cache) in order."""
+    for pi in range(cfg.n_periods):
+        for i, kind in enumerate(cfg.block_pattern):
+            key = f"{i:02d}_{kind}"
+            yield (kind, [_period(p["blocks"][key], pi) for p in params],
+                   [_period(c["blocks"][key], pi) for c in caches])
+
+
+def _decode_step_tp(cfg, params: list, caches: list, tokens, active, mesh):
+    split, scfg = _tp_setup(cfg, mesh)
+    xs = _tp_embed(split, mesh, params, tokens)
+    paged = "page_table" in caches[0]
+    for kind, ps, cs in _tp_periods(cfg, params, caches):
+        def attend(r, h, ps=ps, cs=cs):
+            pool = caches[r]
+            if paged:
+                return L.attention_decode_paged(ps[r]["mixer"], h, scfg, cs[r]["k"], cs[r]["v"],
+                                                pool["page_table"], pool["pos"])[0]
+            return L.attention_decode(ps[r]["mixer"], h, scfg, cs[r]["k"], cs[r]["v"],
+                                      pool["pos"])[0]
+        xs = _tp_layer(scfg, split, mesh, kind, ps, xs, attend)
+    logits = _tp_logits(scfg, split, mesh, params, xs)
+    acts = [None] * mesh.degree if active is None else mesh.broadcast(active)
+    for cache, a in zip(caches, acts):
+        cache["pos"] = cache["pos"] + 1 if a is None else cache["pos"] + a.to(torch.int32)
+    return logits[:, 0], caches
+
+
+def _prefill_chunk_tp(cfg, params: list, caches: list, tokens, length: int, mesh,
+                      slot: int | None = None):
+    """``prefill_chunk`` (``slot`` None: each shard's batch-1 lane) or
+    ``prefill_chunk_paged`` (lane ``slot`` of each shard's pool) on a mesh."""
+    split, scfg = _tp_setup(cfg, mesh)
+    row = 0 if slot is None else slot
+    offs = [c["pos"][row].clone() for c in caches]
+    xs = _tp_embed(split, mesh, params, tokens)
+    for kind, ps, cs in _tp_periods(cfg, params, caches):
+        def attend(r, h, ps=ps, cs=cs):
+            if slot is None:
+                return L.attention_prefill_chunk(ps[r]["mixer"], h, scfg, cs[r]["k"],
+                                                 cs[r]["v"], offs[r], length)[0]
+            return L.attention_prefill_chunk_paged(ps[r]["mixer"], h, scfg, cs[r]["k"],
+                                                   cs[r]["v"], caches[r]["page_table"][slot],
+                                                   offs[r], length)[0]
+        xs = _tp_layer(scfg, split, mesh, kind, ps, xs, attend)
+    for c in caches:
+        c["pos"][row] += length
+    return caches

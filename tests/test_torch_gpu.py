@@ -853,3 +853,97 @@ def test_cuda_legacy_worker_matches_cpu(temperature):
         launched = kernel.launches["decode_attention"] - before
     assert launched == cfg.n_layers * (11 + 3)
     assert out["cuda"] == out["cpu"]
+
+
+# ---------------------------------------------------------------- tensor parallel
+# the shapes a shard of qwen3-1.7b's decode takes at MP degree 2 and 4: KV 4
+# and 2, G 2, hd 128, 8 lanes of 2,048 slots (pages of 16)
+TP_SHARD_SHAPES = [(8, 4, 2, 128, 16, 128), (8, 2, 2, 128, 16, 128)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", TP_SHARD_SHAPES, ids=["kv4", "kv2"])
+def test_cuda_paged_kernel_at_shard_shapes(shape, dtype):
+    """The paged kernel at a shard's shape, with scratch, unmapped blocks
+    and the slots past valid_len poisoned, against its plain version."""
+    _need_cuda()
+    args = _inputs(shape, dtype, seed=3, poison=True)
+    out = kernel.paged_decode_attention(*args)
+    want = ref.paged_decode_attention_ref(*_inputs(shape, dtype, seed=3))
+    err = float((out.float() - want.float()).abs().max())
+    assert err < _split_limit(dtype, want), (shape, dtype, err)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_dense_kernel_at_shard_shape(dtype):
+    _need_cuda()
+    B, KV, G, hd, C = 8, 4, 2, 128, 2048
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    dt = getattr(torch, dtype)
+    q = torch.randn((B, KV, G, hd), generator=gen, device="cuda").to(dt)
+    k = torch.randn((B, C, KV, hd), generator=gen, device="cuda").to(dt)
+    v = torch.randn((B, C, KV, hd), generator=gen, device="cuda").to(dt)
+    vl = torch.randint(1, C + 1, (B,), generator=gen, device="cuda", dtype=torch.int32)
+    want = ref.decode_attention_ref(q, k, v, vl)
+    err = float((kernel.decode_attention(q, k, v, vl).float() - want.float()).abs().max())
+    assert err < _split_limit(dtype, want), (dtype, err)
+
+
+def _tp_script(w):
+    """Sibling admissions, decode, a tool extension, preempt and resume;
+    returns the tokens and the untimed counters (the degree aside)."""
+    prompt = [3 + i for i in range(20)]
+    out = []
+    w.prefill(1, prompt)
+    w.prefill(2, prompt)
+    w.prefill(3, [7, 11, 13, 5, 2, 9, 40, 41, 42, 43, 44])
+    out.append(w.decode([1, 2, 3], 6))
+    w.extend(1, [101, 102, 103, 104, 105])
+    w.preempt(2)
+    out.append(w.decode([1, 3], 4))
+    out.append(w.decode([2], 3))
+    skip = {"decode_wall_s", "decode_timed_steps", "decode_timed_lane_steps", "mp",
+            "mesh_devices"}
+    return out, {k: v for k, v in w.dispatch_stats().items() if k not in skip}
+
+
+@pytest.mark.parametrize("heads", [(4, 4), (8, 4)], ids=["G1", "G2"])
+@pytest.mark.parametrize("paged", [True, False], ids=["paged", "dense"])
+@pytest.mark.parametrize("degree", [2, 4])
+def test_cuda_sharded_worker_matches_degree_one(degree, paged, heads):
+    """A worker of MP degree d, every shard on the card (``[cuda:0] * d``),
+    against the card's degree-1 worker on qwen3 reduced (f32): the same
+    tokens and counters, the decode kernel launched d times a layer a step,
+    and a teacher-forced step's logits within 1e-5 (f32 sums reordered).
+    Then one of its lanes moves to a fresh degree-1 worker and decodes on
+    as the same lane of the first degree-1 worker does."""
+    from dataclasses import replace
+    from repro_torch.engine.sampler import SamplerConfig
+    from repro_torch.launch.mesh import WorkerMesh
+    from repro_torch.models import model as M
+    _need_cuda()
+    cfg = replace(get_config("qwen3_1_7b").reduced(n_periods=2), n_heads=heads[0],
+                  n_kv_heads=heads[1])
+    params = init_params(cfg, seed=0, device="cpu")
+    name = "paged_decode_attention" if paged else "decode_attention"
+    kw = dict(capacity=64, max_slots=4, page_size=8, chunk_size=8, paged=paged,
+              sampler=SamplerConfig(temperature=1.0, top_p=0.9))
+    runs = {}
+    for d in (1, degree):
+        mesh = None if d == 1 else WorkerMesh((torch.device("cuda", 0),) * d)
+        w = RolloutWorker(cfg, params, mp=d, mesh=mesh, device="cuda", **kw)
+        before = kernel.launches[name]
+        out, stats = _tp_script(w)
+        torch.cuda.synchronize()
+        assert kernel.launches[name] - before == d * cfg.n_layers * stats["decode_steps"]
+        last = torch.tensor([[w.store[s].tokens[-1]] for s in (1, 2, 3)] + [[0]],
+                            device="cuda")
+        logits, _ = M.decode_step(cfg, w.params, w.pool, last, mesh=w._tp,
+                                  active=torch.zeros(4, dtype=torch.bool, device="cuda"))
+        runs[d] = (w, out, stats, logits[:3].float().cpu())
+    (one, out1, stats1, logits1), (w, out, stats, logits) = runs[1], runs[degree]
+    assert out == out1 and stats == stats1
+    assert float((logits - logits1).abs().max()) < TOL["float32"]
+    fresh = RolloutWorker(cfg, params, worker_id=1, device="cuda", **kw)
+    fresh.migrate_in(w.migrate_out(3))             # gathered to the host, one shard again
+    assert fresh.decode([3], 4)[3] == one.decode([3], 4)[3]
