@@ -107,11 +107,11 @@ Phases (each raises on failure; any failure exits non-zero with no result line):
               own, with no --device flag: on the card.
 10. families -- the other language-model families, weights from the seed,
               each model freed before the next, peak memory logged:
-              (a) qwen2-moe-a2.7b at full width (24 layers, 60 experts top-4
-              and the gated shared experts, MHA) under the runtime on phase
-              9's workload and settings, the paged and the dense plane
-              (migration off), each trace held to the sim's, the decode
-              kernel's launches equal to 24 x the decode steps (per-token
+              (a) qwen2-moe-a2.7b at full width cut to 12 of its 24 layers
+              (60 experts top-4 and the gated shared experts, MHA) under the
+              runtime on phase 9's workload and settings, the paged and the
+              dense plane (migration off), each trace held to the sim's, the
+              decode kernel's launches equal to 12 x the decode steps (per-token
               tool absorptions included), kept live calls held to the plain
               version; (b) xlstm-350m at full width (20 mLSTM, 4 sLSTM):
               two paged workers (pure-state pools) and a dense one, two GRPO
@@ -196,6 +196,32 @@ Phases (each raises on failure; any failure exits non-zero with no result line):
               (bf16), each package bit-equal to the first.  Last, the paged
               kernel at the shards' shapes (KV 4 and 2, G 2) and the dense
               one at KV 4, held and timed as in phase 3.
+14. tp-mixers -- tensor-parallel workers of the configs that admit by one
+              whole-prompt forward on the mesh, every shard on this one card:
+              (a) jamba-v0.1-52b at its published widths (d 4,096, 32/8
+              heads, di 8,192, 16 experts top-2), weights from the seed,
+              paged workers, 8 requests in 2 groups (prompts of 1,024 and
+              700), one teacher-forced step on the admitted contexts, 32
+              greedy decode steps: in f32 the period's first four layers
+              (mamba+mlp, mamba+moe, mamba+mlp, attn+moe) at degree 1, 2
+              and 4, each sharded worker's tokens equal to d1's and its
+              logits within TP_TOL; the whole period in f32 at degree 1,
+              then its weights rounded to bf16 at degree 1, 2 and 4, the
+              logit differences logged beside the bf16 d1's from the f32
+              d1; a lane moved d2 -> d1 -> d4 -> d2, each package (K/V
+              pages, Mamba state, pos) bit-equal to the first; (b)
+              qwen2-moe-a2.7b at full width cut to 4 of 24 layers, f32, at
+              1, 2 and 4 (60 experts over 30 and 15 a shard, the shared
+              experts' width cut); (c) qwen3-1.7b at full width with a
+              2,048-token window (cut from 8,192), f32, one 2,500-token
+              prompt (the ring wraps at admission) at 1 and 2.  The counts
+              are zeroed before the admissions and before the decode: the
+              scan's launches must equal d x (Mamba layers) x admissions
+              and the decode kernel's d x (attention layers) x 32.  Last,
+              the scan at the shards' channels (di 4,096 and 2,048; B 1,
+              S 2,048, N 16; bf16 and f32) and the paged kernel at jamba's
+              shard shapes (B 8, G 4, KV 4 and 2), held and timed as in
+              phase 3.
 
 float32 matrix products run in full float32: TF32 is switched off for matmuls
 and cuDNN.  The next-to-last line is one JSON object describing each kernel;
@@ -676,12 +702,12 @@ SCAN_SHAPES = (("main", 1, 2048, "bfloat16"), ("f32", 1, 2048, "float32"),
                ("ragged S", 1, 1500, "bfloat16"), ("B 2", 2, 2048, "bfloat16"))
 
 
-def _scan_inputs(torch, gen, B, S, name):
-    """A jamba Mamba layer's scan inputs (di 8,192, N 16, the model's A_log):
-    dt f32, x/B/C in ``name``."""
+def _scan_inputs(torch, gen, B, S, name, di=8192):
+    """A jamba Mamba layer's scan inputs (di 8,192, or a shard's part of it;
+    N 16, the model's A_log): dt f32, x/B/C in ``name``."""
     import torch.nn.functional as F
     dtype = getattr(torch, name)
-    di, N = 8192, 16
+    N = 16
     a_log = torch.log(torch.arange(1, N + 1, dtype=torch.float32, device="cuda")
                       ).expand(di, N).contiguous()
     dt = F.softplus(torch.randn((B, S, di), generator=gen, device="cuda"))
@@ -1757,12 +1783,14 @@ def _families_moe(torch):
     """qwen2-moe-a2.7b at full width under the runtime, on phase 9's workload
     and settings: the paged plane and the dense plane, each trace held to the
     sim's; every decode step (a per-token tool absorption included) launches
-    the plane's decode kernel once a layer.  Returns {plane: (launches,
+    the plane's decode kernel once a layer.  The depth is cut to 12 of 24
+    layers to keep the script's time: the two runs are host-bound at ~859
+    steps each, and took 200 s at 24 layers.  Returns {plane: (launches,
     largest error of the kept live calls)}."""
     import gc
     from repro_torch.engine.runtime import RuntimeConfig, build_workbench
 
-    cfg, params = _family_model(torch, "qwen2_moe_a2_7b")
+    cfg, params = _family_model(torch, "qwen2_moe_a2_7b", n_periods=12)
     out = {}
     for plane, config in (("paged", RuntimeConfig(**RUNTIME_BASE)),
                           ("dense", RuntimeConfig(**dict(RUNTIME_BASE, paged=False,
@@ -2611,32 +2639,49 @@ def _tp_worker(torch, cfg, params, d, paged):
                          device="cuda", paged=paged)
 
 
-def _tp_drive(torch, cfg, w, groups, tag):
-    """Admit 8 requests, take one teacher-forced step on the admitted
-    contexts (every lane masked, so no ``pos`` advances: a masked lane's
-    logits are computed all the same, and its KV write lands where its
+def _n_kind(cfg, mixer):
+    """Layers of ``cfg`` whose mixer is ``mixer``."""
+    return cfg.n_periods * sum(k.partition("+")[0] == mixer for k in cfg.block_pattern)
+
+
+def _tp_drive(torch, cfg, w, prompts, tag):
+    """Admit one request a prompt, take one teacher-forced step on the
+    admitted contexts (every lane masked, so no ``pos`` advances: a masked
+    lane's logits are computed all the same, and its KV write lands where its
     first decode step writes the same token), then decode TP_STEPS greedy
-    steps with the decode kernel's count zeroed before and read after.
-    Returns (tokens, logits on the host, launches, ms per step)."""
+    steps.  The kernels' counts are zeroed before the admissions and read
+    after them, and zeroed before the decode and read after it: a whole-
+    prompt admission launches the scan d x (Mamba layers) times a prompt,
+    a decode step the decode kernel d x (attention layers) times.  Returns
+    (tokens, the lanes' logits on the host, the launches of both counts,
+    ms per decode step, ms per admission)."""
     from repro_torch.models import model as M
-    for sid in range(8):
-        w.prefill(sid, groups[sid // 4])
-    last = torch.tensor([[w.store[sid].tokens[-1]] for sid in range(8)], device="cuda")
+    _reset_launches()                                       # main path starts here
+    _, admit_ms = sync_ms(torch, lambda: [w.prefill(sid, p) for sid, p in enumerate(prompts)])
+    launches = _read_launches(torch)
+    last = torch.zeros((w.max_slots, 1), dtype=torch.long, device="cuda")
+    slots = [w.store[sid].slot for sid in range(len(prompts))]
+    for sid, slot in enumerate(slots):
+        last[slot, 0] = w.store[sid].tokens[-1]
     logits, _ = M.decode_step(cfg, w.params, w.pool, last, mesh=w._tp,
-                              active=torch.zeros(8, dtype=torch.bool, device="cuda"))
-    logits = logits.float().cpu()
-    if logits.shape != (8, cfg.vocab) or not bool(logits.isfinite().all()):
+                              active=torch.zeros(w.max_slots, dtype=torch.bool, device="cuda"))
+    logits = logits[slots].float().cpu()
+    if logits.shape != (len(prompts), cfg.vocab) or not bool(logits.isfinite().all()):
         raise AssertionError(f"[tp] {tag}: logits {tuple(logits.shape)}, finite="
                              f"{bool(logits.isfinite().all())}")
-    _reset_launches()                                       # main path starts here
-    toks, ms = sync_ms(torch, lambda: w.decode(list(range(8)), TP_STEPS))
-    launches = _read_launches(torch)                        # main path ends
+    _reset_launches()
+    toks, ms = sync_ms(torch, lambda: w.decode(list(range(len(prompts))), TP_STEPS))
+    decode = _read_launches(torch)                          # main path ends
+    launches = {k: launches[k] + decode[k] for k in launches}
     name = TP_KERNELS[w._paged]
-    want = w.mp * cfg.n_layers * TP_STEPS
-    if launches[name] != want:
-        raise AssertionError(f"[tp] {tag}: {name} launched {launches[name]} times, not "
-                             f"{w.mp} x {cfg.n_layers} x {TP_STEPS} = {want}")
-    return toks, logits, launches[name], ms / TP_STEPS
+    want = {name: w.mp * _n_kind(cfg, "attn") * TP_STEPS,
+            "mamba_scan": 0 if w._chunked else w.mp * _n_kind(cfg, "mamba") * len(prompts)}
+    got = {"mamba_scan": launches["mamba_scan"], name: decode[name]}
+    if got != want:
+        raise AssertionError(f"[tp] {tag}: launches {got} (the decode kernel's in the "
+                             f"{TP_STEPS} decode steps), want {want}: d {w.mp} x layers x "
+                             f"steps or admissions")
+    return toks, logits, launches, ms / TP_STEPS, admit_ms / len(prompts)
 
 
 def _tp_against(toks, logits, ref):
@@ -2662,71 +2707,107 @@ def _tp_bytes(w):
             for p, c in zip(params, pools)]
 
 
+def _tp_series(torch, cfg, params, prompts, degrees, launches, tag, paged=True, floor=None,
+               floor_name="the f32 d1", keep=(), ref=None):
+    """One worker a degree, each freed before the next is built (the
+    degrees in ``keep`` are returned alive), driven by ``_tp_drive``; each
+    sharded one held to the degree-1 worker: in f32 its tokens equal and its
+    logits within TP_TOL x max(1, max |logit|); in bf16 logged.  The
+    degree-1 worker is logged against ``floor`` (``floor_name``'s tokens
+    and logits): the f32 d1 for a bf16 series (bf16's own error), or the
+    other plane's d1.  Returns
+    ({degree: worker} of ``keep``, the degree-1 (tokens, logits), {degree:
+    a summary}).  ``ref``, a degree-1 (tokens, logits) from an earlier
+    series, holds a series without degree 1."""
+    kept, summary = {}, {}
+    for d in degrees:
+        w = _tp_worker(torch, cfg, params, d, paged)
+        shards = _tp_bytes(w)
+        toks, logits, counts, step_ms, admit_ms = _tp_drive(torch, cfg, w, prompts,
+                                                           f"{tag} d{d}")
+        for k, n in counts.items():
+            launches[k] = launches.get(k, 0) + n
+        msg = (f"[tp] {tag} d{d}: a shard holds {shards[0][0]} GB of params and "
+               f"{shards[0][1]} GB of pool ({len(shards)} shards); admission {admit_ms:.1f} "
+               f"ms a prompt, decode {step_ms:.2f} ms a step ({len(prompts)} lanes, "
+               f"{TP_STEPS} steps); launches {counts}")
+        summary[d] = {"params_gb": shards[0][0], "pool_gb": shards[0][1],
+                      "step_ms": step_ms, "admit_ms": admit_ms}
+        if ref is None:
+            ref = (toks, logits)
+            if floor is not None:
+                err, scale, same = _tp_against(toks, logits, floor)
+                summary[d]["err_floor"] = err
+                msg += (f"; against {floor_name}: logits max |err| {err:.3e} (max |ref| "
+                        f"{scale:.3e}), {same}/{len(prompts) * TP_STEPS} tokens equal before "
+                        f"a lane's first difference")
+        else:
+            err, scale, same = _tp_against(toks, logits, ref)
+            scale = max(1.0, scale)
+            summary[d]["err_d1"] = err
+            msg += (f"; against d1: logits max |err| {err:.3e} (max |ref| {scale:.3e}), "
+                    f"{same}/{len(prompts) * TP_STEPS} tokens equal before a lane's first "
+                    f"difference")
+            if cfg.dtype == "float32" and (err > TP_TOL * scale or toks != ref[0]):
+                raise AssertionError(f"{msg}: tol {TP_TOL} x {scale:.3e}, tokens must be "
+                                     f"equal")
+        log(msg)
+        if d in keep:
+            kept[d] = w
+        del w
+        torch.cuda.empty_cache()
+    return kept, ref, summary
+
+
 def _tp_dtype(torch, cfg, params, groups, launches, floor=None):
-    """Every worker of one dtype against its plane's degree-1 worker, each
-    freed before the next is built (in bf16 the paged workers at degree 1,
-    2 and 4 are kept for the migration).  ``floor``, the f32 paged d1's
-    (tokens, logits), is bf16's own error: the bf16 paged d1 is logged
-    against it.  Returns (kept workers, the paged d1's tokens and logits)."""
-    name = cfg.dtype
-    kept, paged_d1 = {}, None
-    for paged, degrees in ((True, (1, 2, 4)), (False, (1, 2))):
-        plane = "paged" if paged else "dense"
-        ref = None
-        for d in degrees:
-            tag = f"{name} {plane} d{d}"
-            w = _tp_worker(torch, cfg, params, d, paged)
-            shards = _tp_bytes(w)
-            toks, logits, n, step_ms = _tp_drive(torch, cfg, w, groups, tag)
-            launches[TP_KERNELS[paged]] += n
-            msg = (f"[tp] {tag}: a shard holds {shards[0][0]} GB of params and "
-                   f"{shards[0][1]} GB of pool ({len(shards)} shards); decode {step_ms:.2f} "
-                   f"ms a step (8 lanes, {TP_STEPS} steps), {n} {TP_KERNELS[paged]} launches")
-            if ref is None:
-                ref = (toks, logits)
-                against = floor if paged else paged_d1
-                if paged:
-                    paged_d1 = ref
-                if against is not None:        # bf16's own error; or the other plane
-                    err, scale, same = _tp_against(toks, logits, against)
-                    msg += (f"; against {'f32' if paged else 'paged'} d1: logits max |err| "
-                            f"{err:.3e} (max |ref| {scale:.3e}), {same}/{8 * TP_STEPS} tokens "
-                            f"equal before a lane's first difference")
-            else:
-                err, scale, same = _tp_against(toks, logits, ref)
-                scale = max(1.0, scale)
-                msg += (f"; against d1: logits max |err| {err:.3e} (max |ref| {scale:.3e}), "
-                        f"{same}/{8 * TP_STEPS} tokens equal before a lane's first "
-                        f"difference")
-                if name == "float32" and (err > TP_TOL * scale or toks != ref[0]):
-                    raise AssertionError(f"{msg}: tol {TP_TOL} x {scale:.3e}, tokens must "
-                                         f"be equal")
-            log(msg)
-            if paged and name == "bfloat16":
-                kept[d] = w
-            del w
-            torch.cuda.empty_cache()
+    """Every worker of one dtype against its plane's degree-1 worker (in
+    bf16 the paged workers at degree 1, 2 and 4 are kept for the
+    migration).  ``floor``, the f32 paged d1's (tokens, logits), is bf16's
+    own error: the bf16 paged d1 is logged against it, and the dense d1
+    against the paged d1.  Returns (kept workers, the paged d1's tokens and
+    logits)."""
+    prompts = [groups[sid // 4] for sid in range(8)]
+    keep = (1, 2, 4) if cfg.dtype == "bfloat16" else ()
+    kept, paged_d1, _ = _tp_series(torch, cfg, params, prompts, (1, 2, 4), launches,
+                                   f"{cfg.dtype} paged", floor=floor, keep=keep)
+    _tp_series(torch, cfg, params, prompts, (1, 2), launches, f"{cfg.dtype} dense",
+               paged=False, floor=paged_d1, floor_name="the paged d1")
     return kept, paged_d1
+
+
+def _release(w):
+    for sid in list(w.store):
+        w.release(sid)
+
+
+def _package(torch, pkg):
+    from repro_torch.models.model import tree_leaves
+    return [t.cpu() for t in tree_leaves({"pages": pkg["pages"], "state": pkg["state"]})]
+
+
+def _hop(torch, pkg, dst, first, name):
+    """Land ``pkg`` on ``dst`` and take it out again: the package out must
+    be bit-equal to ``first``, the first package's tensors.  Returns it."""
+    _release(dst)
+    dst.migrate_in(pkg)
+    pkg = dst.migrate_out(0)
+    got = _package(torch, pkg)
+    if len(got) != len(first) or not all(torch.equal(a, b) for a, b in zip(got, first)):
+        raise AssertionError(f"[tp] the package out of {name} differs from the first")
+    return pkg
 
 
 def _tp_migrate(torch, kept):
     """One lane d2 -> d1 -> d4 -> d2: every package bit-equal to the first."""
-    from repro_torch.models.model import tree_leaves
-    chain = [kept[2], kept[1], kept[4], kept[2]]
-    pkg = chain[0].migrate_out(0)
-    first = [t.cpu() for t in tree_leaves({"pages": pkg["pages"], "state": pkg["state"]})]
-    for hop, (src, dst) in enumerate(zip(chain, chain[1:])):
-        if hop:
-            pkg = src.migrate_out(0)
-            got = [t.cpu() for t in tree_leaves({"pages": pkg["pages"],
-                                                  "state": pkg["state"]})]
-            if len(got) != len(first) or not all(torch.equal(a, b) for a, b in zip(got, first)):
-                raise AssertionError(f"[tp] the package after hop {hop} differs from the first")
-        dst.migrate_in(pkg)
-    toks = chain[-1].decode([0], 4)[0]
-    log(f"[tp] a lane of {len(chain[-1].store[0].tokens)} tokens moved d2 -> d1 -> d4 -> "
-        f"d2: {sum(t.numel() for t in first)} values of pages and state bit-equal at every "
-        f"hop; it decodes on ({toks})")
+    pkg = kept[2].migrate_out(0)
+    first = _package(torch, pkg)
+    for d in (1, 4, 2):
+        pkg = _hop(torch, pkg, kept[d], first, f"d{d}")
+    kept[2].migrate_in(pkg)
+    toks = kept[2].decode([0], 4)[0]
+    log(f"[tp] a lane of {len(pkg['tokens'])} tokens moved d2 -> d1 -> d4 -> d2: "
+        f"{sum(t.numel() for t in first)} values of pages and state bit-equal at every hop; "
+        f"it decodes on ({toks})")
 
 
 def phase_tp(torch, smi):
@@ -2738,7 +2819,7 @@ def phase_tp(torch, smi):
     rng = np.random.default_rng(SEED)
     groups = [rng.integers(0, cfg.vocab, n).tolist() for n in (300, 257)]
     log(f"[tp] {smi}: every shard of every worker on this one card (cuda:0 x d)")
-    launches = {name: 0 for name in TP_KERNELS.values()}
+    launches = {}
     f32 = replace(cfg, dtype="float32")
     params = init_params(f32, seed=SEED, device="cuda")
     _, f32_d1 = _tp_dtype(torch, f32, params, groups, launches)
@@ -2757,6 +2838,162 @@ def phase_tp(torch, smi):
     vl = torch.randint(1, 2049, (8,), generator=gen, device="cuda", dtype=torch.int32)
     rows["decode_attention"]["kv4"] = _dense_row(torch, gen, "decode_attention tp-kv4",
                                                  "bfloat16", 28, 8, 2048, 4, 2, 128, vl)
+    return {"launches": launches, "rows": rows}
+
+
+# ---------------------------------------------------------------- phase 14
+TP_JAMBA_PROMPTS = (1024, 700)      # two groups of 4, admitted by whole-prompt forward
+TP_WINDOW = 2048                    # qwen3's ring, cut from 8,192; one prompt wraps it
+TP_RING_PROMPT = 2500
+TP_MOE_LAYERS = 4                   # qwen2-moe cut from 24 layers
+
+
+def _tp_model(torch, name, dtype, **cut):
+    """``name`` at its published widths with ``cut`` (periods, layers, a
+    window) in ``dtype``, weights from the seed on the card."""
+    from dataclasses import replace
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import init_params, param_count
+    cfg = replace(get_config(name), dtype=dtype, **cut)
+    params, ms = sync_ms(torch, lambda: init_params(cfg, seed=SEED, device="cuda"))
+    log(f"[tp-mixers] {cfg.name} {dtype}, {cut}: {cfg.n_layers} layers "
+        f"({' '.join(cfg.block_pattern)}), {param_count(params) / 1e9:.3f} B params, "
+        f"{_nbytes(params) / 1e9:.2f} GB (init {ms:.0f} ms)")
+    return cfg, params
+
+
+def _to_bf16(torch, tree):
+    """Round every floating leaf of ``tree`` to bf16 in place, leaf by leaf,
+    so that the f32 copy of one leaf at most lives beside the bf16 tree (the
+    router, A_log and D stay f32, as the model keeps them)."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            _to_bf16(torch, v)
+        elif v.dtype == torch.float32 and k not in ("router", "m_Alog", "m_D"):
+            tree[k] = v.to(torch.bfloat16)
+            del v
+    torch.cuda.empty_cache()
+
+
+def _tp_scan_rows(torch, gen):
+    """The scan kernel at the shards' channel counts of a jamba Mamba layer
+    (di 4,096 at MP 2, 2,048 at MP 4; B 1, S 2,048, N 16), bf16 and f32
+    x/B/C: held to its plain version and timed as phase 3's rows, with the
+    blocks its grid gets (32 channels a block)."""
+    from repro_torch.kernels import mamba_scan as scan_kernel
+    from repro_torch.kernels import ref
+    B, S, N = 1, 2048, 16
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rows = {}
+    for di in (4096, 2048):
+        for name in ("bfloat16", "float32"):
+            args = _scan_inputs(torch, gen, B, S, name, di)
+            got = scan_kernel.mamba_scan(*args)
+            torch.cuda.synchronize()
+            want = ref.mamba_scan_ref(*args)
+            err = 0.0
+            for part, g, w in zip(("y", "h_S"), got, want):
+                limit = SCAN_TOL * max(1.0, float(w.abs().max()))
+                e = float((g - w).abs().max())
+                _check_err(f"mamba_scan tp-di{di} {part}", name, [g], e, limit)
+                err = max(err, e)
+            bound, bound_by, nbytes, times = _scan_bound(B, S, di, N, args[1].element_size())
+            ms = event_ms(torch, lambda i: scan_kernel.mamba_scan(*args), 20)[0]
+            plain_ms = event_ms(torch, lambda i: ref.mamba_scan_ref(*args), 2, n_warm=1,
+                                hold=False)[0]
+            rows.setdefault(f"di{di}", {})[name] = {
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+                "bound_ms": bound, "bound_by": bound_by}
+            plan = scan_kernel._scan_plan(S, di, N, args[1].element_size(),
+                                          [t.data_ptr() for t in (*args[:4], got[0])])
+            log(f"[kernels] mamba_scan tp-di{di} {name}: B={B} S={S} di={di} N={N}, "
+                f"{-(-di // 32) * B} blocks on {sms} SMs; max|err| {err:.3e}; kernel "
+                f"{ms:.4f} ms ({bound / ms:.1%} of the bound), plain {plain_ms:.2f} ms; bound "
+                f"{bound:.4f} ms ({bound_by}: bytes {nbytes / 1e6:.1f} MB {times['bytes']:.4f} "
+                f"ms, exp {times['exp']:.4f} ms); copy widths "
+                + ", ".join(f"{k} {plan[k]}" for k in scan_kernel.PLAN_KEYS))
+            del args, got, want
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_tp_mixers(torch, smi):
+    """Tensor-parallel workers of the hybrid, MoE and ring configs, every
+    shard on this one card: (a) jamba at its published widths, one period
+    (bf16 at degree 1, 2, 4 with a lane moved d2 -> d1 -> d4 -> d2; f32 on
+    the period's first four layers; the f32 d1 of the whole period as
+    bf16's own error), (b) qwen2-moe cut to 4 layers in f32, (c) qwen3 with
+    a 2,048-token window in f32, (d) the kernels at the shards' shapes.
+    Returns the launches of the three kernels and the rows."""
+    from dataclasses import replace
+
+    import numpy as np
+    log(f"[tp-mixers] {smi}: every shard of every worker on this one card (cuda:0 x d)")
+    launches = {}
+    summary = {}
+    rng = np.random.default_rng(SEED + 14)
+    # (a) jamba, f32 on the first four layers: d2 and d4 held to d1
+    cfg, params = _tp_model(torch, "jamba_v0_1_52b", "float32", n_periods=1,
+                            block_pattern=("mamba+mlp", "mamba+moe", "mamba+mlp", "attn+moe"))
+    groups = [rng.integers(0, cfg.vocab, n).tolist() for n in TP_JAMBA_PROMPTS]
+    prompts = [groups[sid // 4] for sid in range(8)]
+    _, _, summary["jamba-4-f32"] = _tp_series(torch, cfg, params, prompts, (1, 2, 4),
+                                              launches, "jamba 4 layers f32")
+    del params
+    torch.cuda.empty_cache()
+    # (a) jamba, one period: the f32 d1, then the same weights rounded to
+    # bf16 at d1, d2 and d4, a lane moved d2 -> d1 -> d4 -> d2 between them
+    # (three copies of the weights do not fit: d2 is freed before d4 is built)
+    cfg, params = _tp_model(torch, "jamba_v0_1_52b", "float32", n_periods=1)
+    _, f32_d1, summary["jamba-f32"] = _tp_series(torch, cfg, params, prompts, (1,), launches,
+                                                 "jamba f32")
+    _to_bf16(torch, params)
+    cfg = replace(cfg, dtype="bfloat16")
+    kept, d1, summary["jamba-bf16"] = _tp_series(torch, cfg, params, prompts, (1, 2),
+                                                 launches, "jamba bf16", floor=f32_d1,
+                                                 keep=(1, 2))
+    pkg = kept[2].migrate_out(0)
+    first = _package(torch, pkg)
+    del kept[2]
+    torch.cuda.empty_cache()
+    pkg = _hop(torch, pkg, kept[1], first, "d1")
+    w4, _, more = _tp_series(torch, cfg, params, prompts, (4,), launches, "jamba bf16",
+                             keep=(4,), ref=d1)
+    summary["jamba-bf16"].update(more)
+    pkg = _hop(torch, pkg, w4.pop(4), first, "d4")
+    del kept
+    w2 = _tp_worker(torch, cfg, params, 2, True)
+    pkg = _hop(torch, pkg, w2, first, "d2")
+    w2.migrate_in(pkg)
+    toks = w2.decode([0], 4)[0]
+    log(f"[tp-mixers] jamba bf16: a lane of {len(pkg['tokens'])} tokens moved d2 -> d1 -> d4 "
+        f"-> d2: {sum(t.numel() for t in first)} values of pages, Mamba state and pos "
+        f"bit-equal at every hop; it decodes on ({toks})")
+    del w2, pkg, params
+    torch.cuda.empty_cache()
+    # (b) qwen2-moe, 4 of 24 layers, f32: 60 experts over 2 and 4 shards
+    cfg, params = _tp_model(torch, "qwen2_moe_a2_7b", "float32", n_periods=TP_MOE_LAYERS)
+    groups = [rng.integers(0, cfg.vocab, n).tolist() for n in (300, 257)]
+    _, _, summary["qwen2-moe-f32"] = _tp_series(
+        torch, cfg, params, [groups[sid // 4] for sid in range(8)], (1, 2, 4), launches,
+        "qwen2-moe 4 layers f32")
+    del params
+    torch.cuda.empty_cache()
+    # (c) qwen3 with a 2,048-token window, f32: one 2,500-token prompt wraps the ring
+    cfg, params = _tp_model(torch, "qwen3_1_7b", "float32", sliding_window=TP_WINDOW)
+    _, _, summary["qwen3-ring-f32"] = _tp_series(
+        torch, cfg, params, [rng.integers(0, cfg.vocab, TP_RING_PROMPT).tolist()], (1, 2),
+        launches, "qwen3 ring f32", paged=False)
+    del params
+    torch.cuda.empty_cache()
+    # (d) the kernels at the shards' shapes
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    rows = {"mamba_scan": _tp_scan_rows(torch, gen), "paged_decode_attention": {}}
+    for KV in (4, 2):
+        rows["paged_decode_attention"][f"jamba-kv{KV}"] = _paged_row(
+            torch, gen, f"paged_decode_attention tp-jamba-kv{KV}", "bfloat16", 8, 8, KV, 4, 128,
+            ps=16, num_pages=128, max_len=2048)
+    log(f"[tp-mixers] summary {json.dumps(summary)}")
     return {"launches": launches, "rows": rows}
 
 
@@ -2792,6 +3029,7 @@ def main() -> int:
         encoders = timed("encoders", phase_encoders, torch, info["smi"])
         train = timed("train", phase_train, torch, info["smi"])
         tp = timed("tp", phase_tp, torch, info["smi"])
+        tp_mixers = timed("tp-mixers", phase_tp_mixers, torch, info["smi"])
     except Exception:                                  # a failed phase fails the run
         traceback.print_exc()
         return 1
@@ -2806,8 +3044,10 @@ def main() -> int:
          "families_launches": families["paged"],
          "families_max_abs_err": families["max_abs_err"]["paged_decode_attention"],
          "train_launches": train["launches"], "train_max_abs_err": train["max_abs_err"],
-         "tp_launches": tp["launches"]["paged_decode_attention"],
-         "tp_rows": tp["rows"]["paged_decode_attention"],
+         "tp_launches": (tp["launches"]["paged_decode_attention"]
+                         + tp_mixers["launches"]["paged_decode_attention"]),
+         "tp_rows": {**tp["rows"]["paged_decode_attention"],
+                     **tp_mixers["rows"]["paged_decode_attention"]},
          **rows["paged_decode_attention"]["bfloat16"]},
         {"name": "decode_attention", "route": "cuda",
          "source": f"{csrc}/decode_attention.cu",
@@ -2820,7 +3060,8 @@ def main() -> int:
          "encoders_max_abs_err": encoders["max_abs_err"],
          "legacy_launches": train["legacy_launches"],
          "legacy_max_abs_err": train["legacy_max_abs_err"],
-         "tp_launches": tp["launches"]["decode_attention"],
+         "tp_launches": (tp["launches"]["decode_attention"]
+                         + tp_mixers["launches"]["decode_attention"]),
          "tp_rows": tp["rows"]["decode_attention"],
          **rows["decode_attention"]["bfloat16"]},
         {"name": "mamba_scan", "route": "cuda",
@@ -2828,6 +3069,8 @@ def main() -> int:
          "replaces": "src/repro/kernels/mamba_scan.py:55",
          "launches": jamba_launches["mamba_scan"],
          "train_launches": train["jamba_launches"]["mamba_scan"],
+         "tp_launches": tp_mixers["launches"]["mamba_scan"],
+         "tp_rows": tp_mixers["rows"]["mamba_scan"],
          **rows["mamba_scan"]["bfloat16"]},
         {"name": "mamba_scan_bwd", "route": "cuda",
          "source": f"{csrc}/mamba_scan_bwd.cu",

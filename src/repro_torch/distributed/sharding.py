@@ -19,9 +19,27 @@ itself, Megatron-style (``tp_split``):
     rows, when ``d_ff`` divides;
   * the vocabulary: ``tok_embed``'s rows and ``lm_head``'s columns, when the
     vocabulary divides;
+  * Mamba on ``d_inner``, when it divides: ``m_in``, ``m_z``, ``m_conv`` and
+    ``m_dtproj`` by columns, ``m_Alog`` and ``m_D`` by rows, and ``m_xproj``
+    and ``m_out`` on their ``d_inner`` rows.  A shard's ``m_xproj`` product
+    is a partial of the (dt, B, C) projection, which is summed before the
+    scan; the scan then runs on the shard's channels.  The state follows:
+    ``h`` (..., di, N) cut on ``di`` and ``conv`` (..., W-1, di) too;
+  * MoE experts on ``experts``, when the count divides: shard ``r`` holds
+    experts ``[r E/d, (r+1) E/d)``.  The router stays replicated, and every
+    shard routes over all E experts (capacity and drops as one device
+    computes them), then runs and combines only its own;
+  * the shared experts' and the dense residual's ``d_ff`` (``ws_*``,
+    ``wd_*``), when every such width divides; ``shared_gate`` stays
+    replicated (the gate scales a sum, so it scales each partial);
   * everything else is replicated: the norms, ``q_norm``/``k_norm`` (they act
-    on a whole head) and attention whose heads do not divide (smollm's 3 heads
-    at degree 2), as the reference's divisibility rule degrades it.
+    on a whole head), the router, and attention whose heads do not divide
+    (smollm's 3 heads at degree 2), as the reference's divisibility rule
+    degrades it.
+
+A cache leaf's cut is decided by the layer it belongs to, not by its name
+alone: Mamba's ``h`` is cut on ``d_inner`` and sLSTM's ``h`` is not (the
+reference's table maps both names to one entry and notes the collision).
 
 Each shard computes its partial output and the partials are summed in shard
 order (``launch.mesh.WorkerMesh.reduce``).  The placement differs from
@@ -33,10 +51,12 @@ arithmetic is the same.
 
 from __future__ import annotations
 
-from dataclasses import dataclass, replace
+from dataclasses import dataclass
 from typing import Optional, Sequence
 
 import torch
+
+from repro_torch.models.config import ShardConfig
 
 # logical axis -> mesh axis (or tuple of mesh axes)
 DEFAULT_RULES: dict[str, tuple[str, ...]] = {
@@ -183,16 +203,20 @@ def _aligned(dims: tuple, ndim: int) -> tuple:
     return dims[len(dims) - ndim:]
 
 
-def _map_named(fn, tree, name: str = ""):
-    """``fn(leaf name, leaf)`` over the leaves of a nested dict."""
+def _map_named(fn, tree, path: tuple = ()):
+    """``fn(path of keys, leaf)`` over the leaves of a nested dict."""
     if isinstance(tree, dict):
-        return {k: _map_named(fn, v, k) for k, v in tree.items()}
-    return fn(name, tree)
+        return {k: _map_named(fn, v, path + (k,)) for k, v in tree.items()}
+    return fn(path, tree)
+
+
+def _name(path: tuple) -> str:
+    return path[-1] if path else ""
 
 
 def _specs(tree, table: dict, sizes: Optional[dict[str, int]]):
-    def walk(name, leaf):
-        dims = table.get(name)
+    def walk(path, leaf):
+        dims = table.get(_name(path))
         if sizes is None or dims is None:
             return (None,) * leaf.dim()
         return logical_pspec(tuple(leaf.shape), _aligned(tuple(dims), leaf.dim()), sizes)
@@ -226,13 +250,28 @@ def dispatch_groups(n_tokens: int, sizes: Optional[dict[str, int]] = None,
 
 # ---------------------------------------------------------------- the executed split
 
-# leaf -> (ndim of the unstacked leaf, the head count that decides the cut, the dim cut)
+# leaf -> (ndim of the unstacked leaf, the group that decides the cut, the dim cut)
 _TP_LEAVES = {
     "wq": (3, "attn", 1), "wk": (3, "attn", 1), "wv": (3, "attn", 1), "wo": (3, "attn", 0),
     "w_gate": (2, "mlp", 1), "w_in": (2, "mlp", 1), "w_out": (2, "mlp", 0),
     "tok_embed": (2, "vocab", 0), "lm_head": (2, "vocab", 1),
+    "m_in": (2, "ssm", 1), "m_z": (2, "ssm", 1), "m_conv": (2, "ssm", 1),
+    "m_dtproj": (2, "ssm", 1), "m_Alog": (2, "ssm", 0), "m_D": (1, "ssm", 0),
+    "m_xproj": (2, "ssm", 0), "m_out": (2, "ssm", 0),
+    "we_gate": (3, "experts", 0), "we_in": (3, "experts", 0), "we_out": (3, "experts", 0),
+    "ws_gate": (2, "moe_ff", 1), "ws_in": (2, "moe_ff", 1), "ws_out": (2, "moe_ff", 0),
+    "wd_gate": (2, "moe_ff", 1), "wd_in": (2, "moe_ff", 1), "wd_out": (2, "moe_ff", 0),
 }
 KV_LEAVES = ("k", "v", "xk", "xv")          # cache leaves (..., KV, hd): cut on dim -2
+SSM_LEAVES = {"h": -2, "conv": -1}          # a Mamba layer's state: its d_inner dim
+
+
+def mixer_of(path: tuple) -> str:
+    """The mixer of the layer a cache leaf at ``path`` belongs to: its
+    parent key is the layer's (``"03_attn+moe"`` -> ``"attn"``), else ""."""
+    parent = path[-2] if len(path) > 1 else ""
+    head, sep, kind = parent.partition("_")
+    return kind.partition("+")[0] if sep and head.isdigit() else ""
 
 
 @dataclass(frozen=True)
@@ -241,9 +280,12 @@ class TPSplit:
     ``degree`` contiguous pieces; the rest are replicated on every shard."""
 
     degree: int
-    attn: bool      # q/kv heads (and the K/V they write)
-    mlp: bool       # d_ff
-    vocab: bool     # the vocabulary
+    attn: bool              # q/kv heads (and the K/V they write)
+    mlp: bool               # d_ff
+    vocab: bool             # the vocabulary
+    ssm: bool = False       # Mamba's d_inner (and its state)
+    experts: bool = False   # the MoE experts
+    moe_ff: bool = False    # the shared experts' and dense residual's d_ff
 
     def param_dim(self, name: str, ndim: int) -> int | None:
         """The dim of param leaf ``name`` (``ndim`` dims, stacked or not) that
@@ -253,9 +295,19 @@ class TPSplit:
             return None
         return rule[2] + ndim - rule[0]
 
-    def cache_dim(self, name: str, ndim: int) -> int | None:
-        """The kv-head dim of a K/V leaf when attention is cut, else None."""
-        return ndim - 2 if self.attn and name in KV_LEAVES else None
+    def cache_dim(self, name: str, ndim: int, mixer: str = "attn") -> int | None:
+        """The cut dim of a cache leaf of a ``mixer`` layer: a K/V leaf's kv
+        heads when attention is cut, a Mamba state leaf's ``d_inner`` when
+        Mamba is; else None."""
+        if name in KV_LEAVES:
+            return ndim - 2 if self.attn else None
+        if mixer == "mamba" and name in SSM_LEAVES and self.ssm:
+            return ndim + SSM_LEAVES[name]
+        return None
+
+    def any_moe(self) -> bool:
+        """Whether an MoE layer's output is a sum of per-shard partials."""
+        return self.experts or self.moe_ff
 
 
 def tp_split(cfg, degree: int) -> TPSplit:
@@ -263,44 +315,64 @@ def tp_split(cfg, degree: int) -> TPSplit:
     d = int(degree)
     if d < 1:
         raise ValueError(f"MP degree must be >= 1, got {degree}")
-    return TPSplit(d, attn=d > 1 and cfg.n_heads % d == 0 and cfg.n_kv_heads % d == 0,
-                   mlp=d > 1 and cfg.d_ff > 0 and cfg.d_ff % d == 0,
-                   vocab=d > 1 and cfg.vocab % d == 0)
+    cut = d > 1
+    mixers = {k.partition("+")[0] for k in cfg.block_pattern}
+    side = [w for w in (cfg.shared_d_ff, cfg.dense_residual_ff) if w]
+    return TPSplit(d, attn=cut and cfg.n_heads % d == 0 and cfg.n_kv_heads % d == 0,
+                   mlp=cut and cfg.d_ff > 0 and cfg.d_ff % d == 0,
+                   vocab=cut and cfg.vocab % d == 0,
+                   ssm=cut and "mamba" in mixers and cfg.d_inner % d == 0,
+                   experts=cut and cfg.n_experts > 0 and cfg.n_experts % d == 0,
+                   moe_ff=cut and bool(side) and all(w % d == 0 for w in side))
 
 
-def shard_config(cfg, split: TPSplit):
-    """The config one shard computes with: its heads, ``d_ff`` and vocabulary
-    (``head_dim`` kept explicit, since ``d_model // n_heads`` changes)."""
+def shard_config(cfg, split: TPSplit) -> ShardConfig:
+    """The config one shard computes with: its heads, ``d_ff``, vocabulary,
+    Mamba inner width and shared / dense-residual widths (``head_dim`` and
+    ``ssm_inner`` kept explicit, since ``d_model // n_heads`` and
+    ``ssm_expand * d_model`` no longer give them).  ``n_experts`` stays the
+    whole count: every shard routes over all experts."""
     d = split.degree
-    return replace(cfg, head_dim=cfg.hd,
-                   n_heads=cfg.n_heads // d if split.attn else cfg.n_heads,
-                   n_kv_heads=cfg.n_kv_heads // d if split.attn else cfg.n_kv_heads,
-                   d_ff=cfg.d_ff // d if split.mlp else cfg.d_ff,
-                   vocab=cfg.vocab // d if split.vocab else cfg.vocab)
+
+    def cut(width, flag):
+        return width // d if flag else width
+
+    widths = dict(n_heads=cut(cfg.n_heads, split.attn),
+                  n_kv_heads=cut(cfg.n_kv_heads, split.attn),
+                  d_ff=cut(cfg.d_ff, split.mlp), vocab=cut(cfg.vocab, split.vocab),
+                  ssm_inner=cut(cfg.d_inner, split.ssm),
+                  shared_d_ff=cut(cfg.shared_d_ff, split.moe_ff),
+                  dense_residual_ff=cut(cfg.dense_residual_ff, split.moe_ff))
+    return ShardConfig(**{**vars(cfg), **widths, "head_dim": cfg.hd})
 
 
-def _piece(leaf: torch.Tensor, dim: int | None, r: int, d: int, device) -> torch.Tensor:
+def _piece(leaf: torch.Tensor, dim: int | None, r: int, d: int, device,
+           share: bool) -> torch.Tensor:
     """Shard ``r`` of ``d`` of ``leaf`` on ``device``: its contiguous piece
-    along ``dim``, in memory of its own; a replicated leaf is moved as it is
-    (no copy where it already lies there, so shards on one device share it)."""
+    along ``dim``, in memory of its own.  A replicated leaf is moved as it is
+    when ``share`` holds (no copy where it already lies there, so shards on
+    one device share it), else copied."""
     if dim is None:
-        return leaf.to(device)
-    part = leaf.chunk(d, dim=dim)[r]
+        if share:
+            return leaf.to(device)
+        part = leaf
+    else:
+        part = leaf.chunk(d, dim=dim)[r]
     return torch.empty(part.shape, dtype=part.dtype, device=device).copy_(part)
 
 
-def _shard(tree, dim_of, mesh) -> list:
+def _shard(tree, dim_of, mesh, share: bool) -> list:
     d = mesh.degree
-    return [_map_named(lambda name, leaf, r=r, dev=dev:
-                       _piece(leaf, dim_of(name, leaf.dim()), r, d, dev), tree)
+    return [_map_named(lambda path, leaf, r=r, dev=dev:
+                       _piece(leaf, dim_of(path, leaf.dim()), r, d, dev, share), tree)
             for r, dev in enumerate(mesh.devices)]
 
 
 def _gather(shards: list, dim_of, device=None):
     """The inverse of ``_shard``: cut leaves concatenated, replicated ones
     taken from shard 0, on ``device`` (default: shard 0's device)."""
-    def walk(name, parts):
-        dim = dim_of(name, parts[0].dim())
+    def walk(path, parts):
+        dim = dim_of(path, parts[0].dim())
         dev = parts[0].device if device is None else device
         if dim is None:
             return parts[0].to(dev)
@@ -309,29 +381,40 @@ def _gather(shards: list, dim_of, device=None):
     return _zip_walk(walk, shards)
 
 
-def _zip_walk(fn, trees: list, name: str = ""):
+def _zip_walk(fn, trees: list, path: tuple = ()):
     if isinstance(trees[0], dict):
-        return {k: _zip_walk(fn, [t[k] for t in trees], k) for k in trees[0]}
-    return fn(name, trees)
+        return {k: _zip_walk(fn, [t[k] for t in trees], path + (k,)) for k in trees[0]}
+    return fn(path, trees)
+
+
+def _param_dims(split: TPSplit):
+    return lambda path, ndim: split.param_dim(_name(path), ndim)
+
+
+def _cache_dims(split: TPSplit):
+    return lambda path, ndim: split.cache_dim(_name(path), ndim, mixer_of(path))
 
 
 def shard_params(params, split: TPSplit, mesh) -> list:
-    """One params tree per shard of ``mesh`` (shard ``r`` on ``mesh.devices[r]``)."""
-    return _shard(params, split.param_dim, mesh)
+    """One params tree per shard of ``mesh`` (shard ``r`` on ``mesh.devices[r]``);
+    shards on one device share the replicated leaves."""
+    return _shard(params, _param_dims(split), mesh, share=True)
 
 
 def gather_params(shards: list, split: TPSplit, device=None):
     """The full params tree back from its shards (``shard_params``'s inverse)."""
-    return _gather(shards, split.param_dim, device)
+    return _gather(shards, _param_dims(split), device)
 
 
 def shard_cache(cache, split: TPSplit, mesh) -> list:
-    """One cache, lane, pool or page stack per shard: K/V leaves cut on their
-    kv-head dim when attention is cut; ``pos``, page tables and recurrent
-    state replicated."""
-    return _shard(cache, split.cache_dim, mesh)
+    """One cache, lane, pool, page stack or lane state per shard: K/V leaves
+    cut on their kv-head dim when attention is cut, a Mamba layer's ``h``
+    and ``conv`` on ``d_inner`` when Mamba is; ``pos``, page tables and the
+    xLSTM state replicated, each shard's in memory of its own, since the
+    model updates caches in place."""
+    return _shard(cache, _cache_dims(split), mesh, share=False)
 
 
 def gather_cache(shards: list, split: TPSplit, device=None):
-    """The full-head cache back from its shards (``shard_cache``'s inverse)."""
-    return _gather(shards, split.cache_dim, device)
+    """The full cache back from its shards (``shard_cache``'s inverse)."""
+    return _gather(shards, _cache_dims(split), device)

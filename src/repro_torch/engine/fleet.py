@@ -21,7 +21,7 @@
   rebuilt on newly carved meshes (weights re-sharded from the fleet's
   un-sharded copy), and the resident sequences of retired workers are moved
   lane by lane onto the new fleet (``migrate_out`` gathers the shards to the
-  full-head layout, ``migrate_in`` cuts it for the destination's mesh, so
+  full layout, ``migrate_in`` cuts it for the destination's mesh, so
   moves cross MP degrees).
 """
 

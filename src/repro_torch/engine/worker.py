@@ -35,12 +35,15 @@ except under MoE: lanes of one step share each expert's capacity.
 A worker of MP degree ``d`` built on a mesh of ``d`` shards
 (``launch.mesh.WorkerMesh``) holds one params tree and one pool per shard,
 cut by ``distributed.sharding.tp_split``: 1/d of the attention heads, of
-``d_ff`` and of the vocabulary, and 1/d of the kv heads of every K/V
-block, on each shard's device.  The page table and ``pos`` are replicated
-on every shard; the ``PagePool`` bookkeeping is the worker's one copy.  A
-migration or checkpoint package holds the full-head layout on the host
-(the shards gathered), whatever the source's degree, and ``migrate_in``
-cuts it for the destination's mesh.
+``d_ff``, of the vocabulary, of Mamba's ``d_inner``, of the MoE experts
+and of the shared / dense-residual width, and 1/d of the kv heads of every
+K/V block and of the channels of every Mamba state, on each shard's
+device.  The page table and ``pos`` are replicated on every shard; the
+``PagePool`` bookkeeping is the worker's one copy.  A sharded worker admits
+by chunks or, where chunked prefill does not apply (MoE, a ring), by one
+full forward on its mesh.  A migration or checkpoint package holds the
+full layout on the host (the shards gathered), whatever the source's
+degree, and ``migrate_in`` cuts it for the destination's mesh.
 """
 
 from __future__ import annotations
@@ -313,12 +316,9 @@ class RolloutWorker:
         self._tp = mesh if mesh is not None and mesh.degree > 1 else None
         if self._tp is not None:
             M.check_tp(cfg, mesh.degree)
-            if use_chunked is False:
-                raise NotImplementedError("a sharded worker admits by chunked prefill only "
-                                          "(use_chunked=False has no split)")
         self.device = mesh.devices[0] if mesh is not None else resolve_device(device)
         self.split = tp_split(cfg, mesh.degree if mesh is not None else 1)
-        # the config each shard computes with (its heads, d_ff, vocabulary)
+        # the config each shard computes with (its heads and widths)
         self.shard_cfg = shard_config(cfg, self.split) if self._tp is not None else cfg
         self.cfg = cfg
         self.capacity = capacity
@@ -406,14 +406,14 @@ class RolloutWorker:
             fn(pool, *args)
 
     def _cut(self, tree):
-        """A full-head lane, pool or page stack (on any device) as this
-        worker's shards of it: itself unsharded."""
+        """A full lane, lane state, pool or page stack (on any device) as
+        this worker's shards of it: itself unsharded."""
         return shard_cache(tree, self.split, self._tp) if self._tp is not None else tree
 
     def _joined(self, parts: list):
-        """The full-head layout of a lane or page stack given per shard: on
-        the host for a sharded worker (the unsharded one's stays on its
-        device)."""
+        """The full layout of a lane, lane state or page stack given per
+        shard: on the host for a sharded worker (the unsharded one's stays on
+        its device)."""
         if self._tp is None:
             return parts[0]
         return gather_cache(parts, self.split, "cpu")
@@ -538,7 +538,7 @@ class RolloutWorker:
         if self._paged:
             self._prefill_paged(slot, tokens, reuse_n, src)
         elif not self._chunked:
-            M.write_slot(self.pool, self._forward_lane(tokens, self.capacity), slot)
+            self._write_lane(self._forward_lane(tokens, self.capacity), slot)
             self.prefilled_tokens += len(tokens)
         else:
             self._prefill_dense(slot, tokens, reuse_n, src)
@@ -546,12 +546,12 @@ class RolloutWorker:
         self.store[seq_id] = Sequence(seq_id, list(tokens), slot, key)
         self.prefix_index.insert(tokens, slot=slot)
 
-    def _forward_lane(self, tokens: list[int], capacity: int) -> dict:
+    def _forward_lane(self, tokens: list[int], capacity: int):
         """A batch-1 dense lane of ``capacity`` slots from one full forward
-        (unsharded workers only: a sharded one admits by chunks)."""
+        (one per shard on a mesh)."""
         arr = torch.as_tensor([tokens], dtype=torch.int64, device=self.device)
         _, _, lane = M.forward_full(self.cfg, self.params, {"tokens": arr},
-                                    capacity=capacity)
+                                    capacity=capacity, mesh=self._tp)
         return lane
 
     def _prefill_dense(self, slot: int, tokens: list[int], reuse_n: int,
@@ -607,8 +607,9 @@ class RolloutWorker:
         if boundary is not None:
             self._each(M.paged_copy_block, boundary[0], boundary[1])
         if not self._chunked:
-            M.paged_write_lane(self.pool, self._forward_lane(tokens, S), slot,
-                               self._row_of(blocks), S)
+            lanes = self._shards(self._forward_lane(tokens, S))
+            for pool, ln in zip(self._shards(self.pool), lanes):
+                M.paged_write_lane(pool, ln, slot, self._row_of(blocks), S)
             self.prefilled_tokens += S
             return
         self._each(lambda pool: M.paged_fresh_state(self.shard_cfg, pool, slot))
@@ -770,7 +771,7 @@ class RolloutWorker:
             M.write_slot(pool, ln, slot)
 
     def _lane_payload(self, seq: Sequence) -> dict:
-        """One lane's KV in the full-head layout, with its byte price: the
+        """One lane's KV and state in the full layout, with its byte price: the
         resident pages and dense state (paged) or the whole lane (dense).  It
         stays on the device unsharded, and is gathered to the host from the
         shards of a sharded worker."""
@@ -781,9 +782,8 @@ class RolloutWorker:
         keep = -(-len(seq.tokens) // self.page_size)
         blocks = self.lane_pages.get(seq.slot, [])[:keep]
         pools = self._shards(self.pool)
-        state = M.paged_gather_state(pools[0], seq.slot)      # replicated on every shard
         return {"pages": self._joined([M.paged_gather_pages(p, blocks) for p in pools]),
-                "state": state if self._tp is None else M.tree_to(state, "cpu"),
+                "state": self._joined([M.paged_gather_state(p, seq.slot) for p in pools]),
                 "page_size": self.page_size, "capacity": self.capacity,
                 "logical_bytes": len(blocks) * self._page_bytes + self._state_bytes}
 
@@ -792,7 +792,7 @@ class RolloutWorker:
 
         The KV stays on the device (a move between unsharded workers on one
         card is a device-to-device copy); a sharded worker's is gathered to
-        the host in the full-head layout.  ``logical_bytes`` prices the
+        the host in the full layout.  ``logical_bytes`` prices the
         resident pages + dense state, or the whole dense lane.  The local
         copy retires into the radix cache."""
         seq = self.store.pop(seq_id)
@@ -820,9 +820,10 @@ class RolloutWorker:
         n = next(M.tree_leaves(pages)).shape[1] if pages else 0
         blocks = self._alloc_blocks(n) if n else []
         self.lane_pages[slot] = blocks
-        for pool, pg in zip(self._shards(self.pool), self._shards(self._cut(pages))):
+        for pool, pg, st in zip(self._shards(self.pool), self._shards(self._cut(pages)),
+                                self._shards(self._cut(state))):
             M.paged_scatter_pages(pool, pg, blocks)
-            M.paged_write_state(pool, state, slot, self._row_of(blocks))
+            M.paged_write_state(pool, st, slot, self._row_of(blocks))
 
     def migrate_in(self, package: dict) -> None:
         """Implant a migrated lane into a free slot (capacities must match).
@@ -831,8 +832,8 @@ class RolloutWorker:
         page size and capacity scatters its pages; a paged package on any
         other worker is flattened back to a dense lane (``pages_to_lane``); a
         dense lane lands on a paged worker through ``paged_write_lane`` and on
-        a dense worker through ``write_slot``.  The package's full-head KV is
-        cut for this worker's mesh, so a lane moves between any two MP
+        a dense worker through ``write_slot``.  The package's full KV and
+        state are cut for this worker's mesh, so a lane moves between any two MP
         degrees."""
         slot = self._alloc_slot()
         if "pages" in package:

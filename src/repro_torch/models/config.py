@@ -6,7 +6,9 @@ caches carry a leading ``n_periods`` axis.  The port runs the kinds of
 ``models.model.PORTED_KINDS`` (attention, Mamba and xLSTM mixers, the audio
 decoder's self- plus cross-attention ``dec`` and the VLM's gated
 cross-attention ``xattn``; dense MLP or MoE); the other fields are kept so
-that configurations read the same in both packages.
+that configurations read the same in both packages.  ``ShardConfig`` is the
+port's own: a tensor-parallel shard's config, whose Mamba width is its part
+of ``ssm_expand * d_model``.
 """
 
 from __future__ import annotations
@@ -66,6 +68,11 @@ class ModelConfig:
         return self.head_dim or (self.d_model // self.n_heads)
 
     @property
+    def d_inner(self) -> int:
+        """Mamba's inner width."""
+        return self.ssm_expand * self.d_model
+
+    @property
     def n_layers(self) -> int:
         return len(self.block_pattern) * self.n_periods
 
@@ -103,6 +110,20 @@ class ModelConfig:
         )
         defaults.update(kw)
         return replace(self, **defaults)
+
+
+@dataclass(frozen=True)
+class ShardConfig(ModelConfig):
+    """The config one shard of a tensor-parallel worker computes with
+    (``distributed.sharding.shard_config``): its heads and widths, and
+    ``ssm_inner``, its part of Mamba's inner width, which ``ssm_expand *
+    d_model`` no longer gives."""
+
+    ssm_inner: int = 0
+
+    @property
+    def d_inner(self) -> int:
+        return self.ssm_inner
 
 
 # Sliding window the full-attention configs take for long-context decode

@@ -347,7 +347,8 @@ def mlp(p: dict, x: torch.Tensor, activation: str) -> torch.Tensor:
     return activate(h, g, activation) @ p["w_out"]
 
 
-def moe(p: dict, x: torch.Tensor, cfg: ModelConfig) -> tuple[torch.Tensor, torch.Tensor]:
+def moe(p: dict, x: torch.Tensor, cfg: ModelConfig, e0: int = 0, experts: bool = True,
+        side: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
     """Capacity-based top-k MoE with sort dispatch, one dispatch group.
 
     Each expert takes at most ``cap = ceil(T * K / E * capacity_factor)``
@@ -357,7 +358,16 @@ def moe(p: dict, x: torch.Tensor, cfg: ModelConfig) -> tuple[torch.Tensor, torch
     lanes compete for capacity too.  With ``shared_d_ff`` a sigmoid-gated
     shared SwiGLU MLP (qwen2-moe) and with ``dense_residual_ff`` a dense
     SwiGLU MLP (arctic) add to every token's output; neither enters the aux
-    loss.  Returns (output (B, S, d), Switch load-balance aux loss)."""
+    loss.  Returns (output (B, S, d), Switch load-balance aux loss).
+
+    On a tensor-parallel shard, ``p`` holds experts ``[e0, e0 + E_l)`` of the
+    E that the router scores (``E_l = we_in.shape[0]``): the routing,
+    capacity and drops are computed over all E, as one device computes them,
+    and only the pairs routed to the shard's experts are run and combined,
+    so the shards' outputs sum to the whole layer's.  ``experts=False``
+    leaves the experts out and ``side=False`` the shared and dense-residual
+    MLPs (a shard whose copy of a replicated group is another shard's to
+    add)."""
     B, S, D = x.shape
     T = B * S
     E, K = cfg.n_experts, cfg.top_k
@@ -369,41 +379,47 @@ def moe(p: dict, x: torch.Tensor, cfg: ModelConfig) -> tuple[torch.Tensor, torch
     gates = torch.softmax(logits.to(F32), dim=-1)                     # (T, E)
     top_g, top_e = torch.topk(gates, K, dim=-1)                       # (T, K)
     top_g = top_g / torch.clamp(top_g.sum(-1, keepdim=True), min=1e-9)
-
     eid = top_e.reshape(-1)                                           # (T*K,)
-    tid = torch.arange(T, device=dev).repeat_interleave(K)
-    order = torch.argsort(eid, stable=True)
-    eid_s, tid_s, gat_s = eid[order], tid[order], top_g.reshape(-1)[order]
-    counts = torch.zeros(E, dtype=torch.long, device=dev).scatter_add_(
-        0, eid_s, torch.ones_like(eid_s))
-    starts = torch.cumsum(counts, 0) - counts
-    rank = torch.arange(T * K, device=dev) - starts[eid_s]
-    keep = (rank < cap).to(x.dtype)
-    rank_c = torch.clamp(rank, 0, cap - 1)
-    # a dropped pair adds zero into row cap - 1, as the reference's scatter-add does
-    buf = torch.zeros((E, cap, D), dtype=x.dtype, device=dev)
-    buf.index_put_((eid_s, rank_c), xf[tid_s] * keep[:, None], accumulate=True)
 
-    h = torch.einsum("ecd,edf->ecf", buf, p["we_in"])
-    g = (torch.einsum("ecd,edf->ecf", buf, p["we_gate"]) if cfg.activation == "swiglu"
-         else None)
-    out_buf = torch.einsum("ecf,efd->ecd", activate(h, g, cfg.activation), p["we_out"])
+    y = torch.zeros((T, D), dtype=x.dtype, device=dev)
+    if experts:
+        El = p["we_in"].shape[0]
+        tid = torch.arange(T, device=dev).repeat_interleave(K)
+        order = torch.argsort(eid, stable=True)
+        eid_s, tid_s, gat_s = eid[order], tid[order], top_g.reshape(-1)[order]
+        counts = torch.zeros(E, dtype=torch.long, device=dev).scatter_add_(
+            0, eid_s, torch.ones_like(eid_s))
+        starts = torch.cumsum(counts, 0) - counts
+        rank = torch.arange(T * K, device=dev) - starts[eid_s]
+        local = eid_s - e0                                            # the shard's rows
+        keep = ((rank < cap) & (local >= 0) & (local < El)).to(x.dtype)
+        local = torch.clamp(local, 0, El - 1)
+        rank_c = torch.clamp(rank, 0, cap - 1)
+        # a dropped (or another shard's) pair adds zero into a clamped row,
+        # as the reference's scatter-add does for a dropped one
+        buf = torch.zeros((El, cap, D), dtype=x.dtype, device=dev)
+        buf.index_put_((local, rank_c), xf[tid_s] * keep[:, None], accumulate=True)
 
-    yflat = out_buf[eid_s, rank_c] * (gat_s.to(out_buf.dtype) * keep)[:, None]
-    y = torch.zeros((T, D), dtype=yflat.dtype, device=dev).index_add_(0, tid_s, yflat)
+        h = torch.einsum("ecd,edf->ecf", buf, p["we_in"])
+        g = (torch.einsum("ecd,edf->ecf", buf, p["we_gate"]) if cfg.activation == "swiglu"
+             else None)
+        out_buf = torch.einsum("ecf,efd->ecd", activate(h, g, cfg.activation), p["we_out"])
+
+        yflat = out_buf[local, rank_c] * (gat_s.to(out_buf.dtype) * keep)[:, None]
+        y = y.index_add_(0, tid_s, yflat)
 
     assigned = torch.zeros(E, dtype=F32, device=dev).scatter_add_(
         0, eid, torch.ones(T * K, dtype=F32, device=dev))
     frac_tokens = assigned / torch.clamp(assigned.sum(), min=1.0)
     aux = E * torch.sum(frac_tokens * gates.mean(0))
 
-    if cfg.shared_d_ff:                       # qwen2-moe's shared experts, one SwiGLU MLP
+    if side and cfg.shared_d_ff:              # qwen2-moe's shared experts, one SwiGLU MLP
         s_out = (F.silu(xf @ p["ws_gate"]) * (xf @ p["ws_in"])) @ p["ws_out"]
         # the gate's product runs in the model dtype, is cast to f32 for the
         # sigmoid and back before it scales the shared output
         gate = torch.sigmoid((xf @ p["shared_gate"]).to(F32))[:, None]
         y = y + gate.to(xf.dtype) * s_out
-    if cfg.dense_residual_ff:                 # arctic's dense residual beside the experts
+    if side and cfg.dense_residual_ff:        # arctic's dense residual beside the experts
         y = y + mlp({"w_in": p["wd_in"], "w_gate": p["wd_gate"], "w_out": p["wd_out"]},
                     xf, "swiglu")
     return y.reshape(B, S, D), aux
@@ -411,23 +427,47 @@ def moe(p: dict, x: torch.Tensor, cfg: ModelConfig) -> tuple[torch.Tensor, torch
 
 # ----------------------------------------------------------------- Mamba (SSM)
 
-def _mamba_inner(p: dict, x_conv: torch.Tensor, cfg: ModelConfig):
-    """The math after the causal conv: returns (a, b, C) scan ingredients
-    (a, b: (..., di, N) f32)."""
-    dt, Bm, Cm = _mamba_proj(p, x_conv, cfg)
-    A = -torch.exp(p["m_Alog"].to(F32))                               # (di, N)
-    a = torch.exp(dt[..., None] * A)
-    b = (dt * x_conv.to(F32))[..., None] * Bm.to(F32)[..., None, :]
-    return a, b, Cm
+# Each Mamba form is two halves around the ``m_xproj`` product, so that a
+# tensor-parallel shard (``models/model.py``) holding 1/d of ``d_inner`` can
+# sum the partial (dt, B, C) projections of all shards between them: the
+# first half runs on the shard's channels up to its partial ``dbc``, the
+# second takes the whole ``dbc`` and runs the scan on the shard's channels.
+# Unsharded, ``dbc`` is the whole product and the halves compose to the mixer.
 
-
-def _mamba_proj(p: dict, x_conv: torch.Tensor, cfg: ModelConfig):
-    """dt (..., di) f32 and the projections B, C (..., N) of the conv'd input."""
-    dbc = x_conv @ p["m_xproj"]                                       # (..., R + 2N)
+def _mamba_proj(p: dict, dbc: torch.Tensor, cfg: ModelConfig):
+    """dt (..., di) f32 from this shard's ``m_dtproj`` columns, and B, C (...,
+    N), from the whole projection ``dbc`` (..., R + 2N)."""
     R = p["m_dtproj"].shape[0]
     N = cfg.ssm_state_dim
     dt = F.softplus(dbc[..., :R] @ p["m_dtproj"]).to(F32)
     return dt, dbc[..., R:R + N], dbc[..., R + N:]
+
+
+def mamba_full_in(p: dict, x: torch.Tensor, cfg: ModelConfig):
+    """The full form's first half.  x: (B, S, d).  Returns (xc (B, S, di) the
+    conv'd channels, z (B, S, di), the conv state (B, W-1, di), dbc (B, S,
+    R + 2N) this shard's partial of the projection)."""
+    S = x.shape[1]
+    xi = x @ p["m_in"]                                                # (B, S, di)
+    z = x @ p["m_z"]
+    W = cfg.ssm_conv_width
+    xp = F.pad(xi, (0, 0, W - 1, 0))                                  # causal conv
+    xc = F.silu(sum(xp[:, i:i + S] * p["m_conv"][i] for i in range(W)))
+    return xc, z, xp[:, S:S + W - 1], xc @ p["m_xproj"]
+
+
+def mamba_full_out(p: dict, xc: torch.Tensor, z: torch.Tensor, dbc: torch.Tensor,
+                   cfg: ModelConfig) -> tuple[torch.Tensor, torch.Tensor]:
+    """The full form's second half: the selective scan over this shard's
+    channels (``ops.mamba_scan``: the hand-written kernel on CUDA tensors,
+    and under autograd its backward), the skip, the gate and this shard's
+    partial ``m_out`` product.  Returns (out (B, S, d), the last state (B,
+    di, N) f32)."""
+    dt, Bm, Cm = _mamba_proj(p, dbc, cfg)
+    y, h_last = kops.mamba_scan(dt, Bm, Cm, xc, p["m_Alog"])
+    y = (y + p["m_D"].to(F32) * xc.to(F32)).to(xc.dtype)
+    y = y * F.silu(z)
+    return y @ p["m_out"], h_last
 
 
 def mamba_full(p: dict, x: torch.Tensor, cfg: ModelConfig
@@ -439,17 +479,36 @@ def mamba_full(p: dict, x: torch.Tensor, cfg: ModelConfig
     JAX package differentiates its chunked scan.  Returns (out (B, S, d),
     state {"h": (B, di, N) f32, "conv": (B, W-1, di)}), the state a decode
     step continues from."""
-    B, S, _ = x.shape
-    xi = x @ p["m_in"]                                                # (B, S, di)
-    z = x @ p["m_z"]
-    W = cfg.ssm_conv_width
-    xp = F.pad(xi, (0, 0, W - 1, 0))                                  # causal conv
-    xc = F.silu(sum(xp[:, i:i + S] * p["m_conv"][i] for i in range(W)))
-    dt, Bm, Cm = _mamba_proj(p, xc, cfg)
-    y, h_last = kops.mamba_scan(dt, Bm, Cm, xc, p["m_Alog"])
-    y = (y + p["m_D"].to(F32) * xc.to(F32)).to(x.dtype)
+    xc, z, conv, dbc = mamba_full_in(p, x, cfg)
+    out, h_last = mamba_full_out(p, xc, z, dbc, cfg)
+    return out, {"h": h_last, "conv": conv}
+
+
+def mamba_step_in(p: dict, x: torch.Tensor, state: dict):
+    """The step's first half.  x: (B, 1, d); state = {"h", "conv": (B, W-1,
+    di)}.  Returns (xc (B, di), z (B, di), the conv window (B, W, di), dbc
+    (B, R + 2N) this shard's partial of the projection)."""
+    xi = x[:, 0] @ p["m_in"]                                          # (B, di)
+    z = x[:, 0] @ p["m_z"]
+    hist = torch.cat([state["conv"], xi[:, None]], dim=1)             # (B, W, di)
+    xc = F.silu(torch.einsum("bwd,wd->bd", hist, p["m_conv"]))
+    return xc, z, hist, xc @ p["m_xproj"]
+
+
+def mamba_step_out(p: dict, xc: torch.Tensor, z: torch.Tensor, hist: torch.Tensor,
+                   dbc: torch.Tensor, state: dict, cfg: ModelConfig
+                   ) -> tuple[torch.Tensor, dict]:
+    """The step's second half from the whole ``dbc``: one recurrence step
+    on this shard's channels.  Returns (out (B, 1, d), new state)."""
+    dt, Bm, Cm = _mamba_proj(p, dbc, cfg)
+    A = -torch.exp(p["m_Alog"].to(F32))                               # (di, N)
+    a = torch.exp(dt[..., None] * A)
+    b = (dt * xc.to(F32))[..., None] * Bm.to(F32)[..., None, :]
+    h = a * state["h"] + b
+    y = torch.einsum("bdn,bn->bd", h, Cm.to(F32))
+    y = (y + p["m_D"].to(F32) * xc.to(F32)).to(xc.dtype)
     y = y * F.silu(z)
-    return y @ p["m_out"], {"h": h_last, "conv": xp[:, S:S + W - 1]}
+    return (y @ p["m_out"])[:, None], {"h": h, "conv": hist[:, 1:]}
 
 
 def mamba_step(p: dict, x: torch.Tensor, cfg: ModelConfig, state: dict
@@ -457,17 +516,8 @@ def mamba_step(p: dict, x: torch.Tensor, cfg: ModelConfig, state: dict
     """One-token decode.  x: (B, 1, d); state = {"h": (B, di, N) f32,
     "conv": (B, W-1, di)}.  Returns (out (B, 1, d), new state); the state
     passed in is not changed."""
-    xi = x[:, 0] @ p["m_in"]                                          # (B, di)
-    z = x[:, 0] @ p["m_z"]
-    hist = torch.cat([state["conv"], xi[:, None]], dim=1)             # (B, W, di)
-    conv = torch.einsum("bwd,wd->bd", hist, p["m_conv"])
-    xc = F.silu(conv)
-    a, b, Cm = _mamba_inner(p, xc, cfg)                               # (B, di, N)
-    h = a * state["h"] + b
-    y = torch.einsum("bdn,bn->bd", h, Cm.to(F32))
-    y = (y + p["m_D"].to(F32) * xc.to(F32)).to(x.dtype)
-    y = y * F.silu(z)
-    return (y @ p["m_out"])[:, None], {"h": h, "conv": hist[:, 1:]}
+    xc, z, hist, dbc = mamba_step_in(p, x, state)
+    return mamba_step_out(p, xc, z, hist, dbc, state, cfg)
 
 
 # ----------------------------------------------------------------- xLSTM

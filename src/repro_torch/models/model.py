@@ -112,7 +112,7 @@ def _init_moe(cfg: ModelConfig, normal) -> dict:
 
 def _init_mamba(cfg: ModelConfig, normal, ones) -> dict:
     d, s = cfg.d_model, 0.02
-    di, N, W = cfg.ssm_expand * d, cfg.ssm_state_dim, cfg.ssm_conv_width
+    di, N, W = cfg.d_inner, cfg.ssm_state_dim, cfg.ssm_conv_width
     R = cfg.ssm_dt_rank or -(-d // 16)
     return {"m_in": normal((d, di), s), "m_z": normal((d, di), s),
             "m_conv": normal((W, di), 1.0 / math.sqrt(W)),
@@ -422,7 +422,7 @@ def _layer_full(cfg, kind, p, x, positions, lane, enc_out=None):
 
 
 def forward_full(cfg: ModelConfig, params, batch: dict, capacity: int | None = None,
-                 remat: bool = False, return_hidden: bool = False):
+                 remat: bool = False, return_hidden: bool = False, mesh=None):
     """Full-sequence forward.  batch["tokens"]: (B, S); audio configs also take
     ``batch["encoder_embeds"]`` (B, T, d) and VLM configs
     ``batch["image_embeds"]`` (B, T, d), in the model's dtype.
@@ -436,7 +436,18 @@ def forward_full(cfg: ModelConfig, params, batch: dict, capacity: int | None = N
     again in the backward).  ``return_hidden=True`` returns the final-normed
     hidden states (B, S, d) in place of the logits, for the chunked
     cross-entropy of ``rl/grpo.py``, which never forms the full logits.
+
+    With a ``mesh`` (``launch.mesh.WorkerMesh``), ``params`` is a list of its
+    shards and the forward is a tensor-parallel worker's whole-prompt
+    admission: no autograd, no remat, token batches only; the logits come
+    back on the mesh's device 0 and the cache, with ``capacity``, as a list
+    of one cache per shard (the shard's kv heads and Mamba channels).
     """
+    if mesh is not None:
+        if remat or return_hidden:
+            raise ValueError("forward_full on a mesh is admission only (no remat, no hidden "
+                             "states): the training plane runs at MP degree 1")
+        return _forward_full_tp(cfg, params, batch, capacity, mesh)
     tokens = batch["tokens"]
     B, S = tokens.shape
     dev = tokens.device
@@ -558,7 +569,7 @@ def _state_leaves(cfg: ModelConfig, kind: str, lanes: int, device) -> dict:
     mixer = kind.partition("+")[0]
     P, d, H = cfg.n_periods, cfg.d_model, cfg.n_heads
     if mixer == "mamba":
-        di = cfg.ssm_expand * d
+        di = cfg.d_inner
         return {"h": torch.zeros((P, lanes, di, cfg.ssm_state_dim), dtype=F32, device=device),
                 "conv": torch.zeros((P, lanes, cfg.ssm_conv_width - 1, di),
                                     dtype=torch_dtype(cfg), device=device)}
@@ -924,26 +935,28 @@ def grow_paged_lanes(cfg: ModelConfig, pool: dict, extra: int) -> dict:
 
 # ------------------------------------------------------------------ tensor parallel
 # A worker of MP degree d on a mesh of d shards (``distributed/sharding.py``):
-# each shard runs the functions above on its own params and K/V with a shard
-# config (H/d, KV/d, d_ff/d heads and widths when cut), and the partial
-# attention and MLP outputs are summed in shard order by ``mesh.reduce``.  The
+# each shard runs the layer functions on its own params, K/V and Mamba state
+# with a shard config (H/d, KV/d, d_ff/d, d_inner/d and the shared /
+# dense-residual widths over d when cut; every expert routed, its E/d run),
+# and the partial outputs are summed in shard order by ``mesh.reduce``: the
+# attention's ``wo``, the MLP's and MoE's output products, and Mamba's
+# ``m_xproj`` (between the layer's two halves) and ``m_out`` products.  The
 # residual stream is replicated: every shard holds the same hidden states.
 
 def check_tp(cfg: ModelConfig, degree: int) -> None:
     """Raise unless ``cfg`` has a tensor-parallel split at MP degree
-    ``degree``: attention + dense-MLP layers, chunked prefill (no sliding
-    window).  Degree 1 takes every config."""
+    ``degree``: attention (full or windowed) and Mamba mixers, dense-MLP and
+    MoE layers, admitted by chunks or by one full forward.  Degree 1 takes
+    every config."""
     if degree <= 1:
         return
-    outside = sorted({k for k in cfg.block_pattern
-                      if k.partition("+")[0] != "attn" or k.partition("+")[2] not in ("", "mlp")})
-    if outside or cfg.arch_type in CROSS_ARCHS or not supports_chunked_prefill(cfg):
+    outside = sorted({k for k in cfg.block_pattern if k.partition("+")[0] in ("mlstm", "slstm")})
+    if outside or cfg.arch_type in CROSS_ARCHS:
         raise NotImplementedError(
             f"{cfg.name}: no tensor-parallel split at MP degree {degree} for "
-            f"{outside or 'its admission (one full-sequence forward)'}: the port splits "
-            "attention and dense-MLP layers with chunked prefill only; the Mamba "
-            "(m_xproj reduction), MoE-expert and xLSTM splits are queued in ROADMAP.md "
-            "Queue 1")
+            f"{outside or f'its cross-attention ({cfg.arch_type})'}: the xLSTM split "
+            "(l_q/l_k/l_v take d_inner on their rows, so q, k and v need a reduce before "
+            "the cell) and cross-attention are queued in ROADMAP.md Queue 1")
 
 
 def _tp_setup(cfg: ModelConfig, mesh):
@@ -969,25 +982,53 @@ def _tp_embed(split, mesh, params: list, tokens: torch.Tensor) -> list:
     return mesh.reduce(parts)
 
 
+def _tp_sum(mesh, parts: list, cut: bool) -> list:
+    """Every shard's copy of the sum of a cut group's partials (in shard
+    order); a replicated group's outputs, the same on every shard, as they
+    are."""
+    return mesh.reduce(parts) if cut else parts
+
+
 def _tp_add(mesh, xs: list, outs: list, cut: bool) -> list:
     """The residual add of a cut layer's summed partials, or of a replicated
     layer's output (the same on every shard)."""
-    if cut:
-        outs = mesh.reduce(outs)
-    return [x + o for x, o in zip(xs, outs)]
+    return [x + o for x, o in zip(xs, _tp_sum(mesh, outs, cut))]
 
 
-def _tp_layer(cfg, split, mesh, kind: str, ps: list, xs: list, attend) -> list:
-    """One attention + MLP layer on every shard: ``attend(r, h)`` is shard
-    ``r``'s attention output on its normed input (its heads' part of the
-    ``wo`` product when the heads are cut)."""
+# the TPSplit group that decides whether a mixer's output is a partial
+_MIXER_GROUP = {"attn": "attn", "mamba": "ssm"}
+
+
+def _tp_moe(cfg, split, r: int, p: dict, h: torch.Tensor):
+    """Shard ``r``'s part of an MoE layer: its experts' pairs when the
+    experts are cut, its ``d_ff`` slice of the shared / dense-residual MLP
+    when those are; a replicated group is added by shard 0 alone when the
+    layer's partials are summed, and by every shard when nothing is cut.
+    Returns (output, aux loss)."""
+    lead = r == 0 or not split.any_moe()
+    e0 = r * p["we_in"].shape[0] if split.experts else 0
+    return L.moe(p, h, cfg, e0=e0, experts=split.experts or lead, side=split.moe_ff or lead)
+
+
+def _tp_layer(cfg, split, mesh, kind: str, ps: list, xs: list, mix):
+    """One layer on every shard: ``mix(hs)`` gives every shard's mixer
+    output on its normed input (its part of the output product where the
+    mixer is cut), then the dense MLP or MoE runs on its shard's part.
+    Returns (xs, shard 0's MoE aux loss or None)."""
+    mixer, _, mlp_kind = kind.partition("+")
     hs = [L.block_norm(cfg, p["norm1"], x) for p, x in zip(ps, xs)]
-    xs = _tp_add(mesh, xs, [attend(r, h) for r, h in enumerate(hs)], split.attn)
-    if kind.partition("+")[2]:
+    xs = _tp_add(mesh, xs, mix(hs), getattr(split, _MIXER_GROUP[mixer]))
+    aux = None
+    if mlp_kind == "mlp":
         outs = [L.mlp(p["mlp"], L.block_norm(cfg, p["norm2"], x), cfg.activation)
                 for p, x in zip(ps, xs)]
         xs = _tp_add(mesh, xs, outs, split.mlp)
-    return xs
+    elif mlp_kind:
+        pairs = [_tp_moe(cfg, split, r, p["mlp"], L.block_norm(cfg, p["norm2"], x))
+                 for r, (p, x) in enumerate(zip(ps, xs))]
+        xs = _tp_add(mesh, xs, [o for o, _ in pairs], split.any_moe())
+        aux = pairs[0][1]
+    return xs, aux
 
 
 def _tp_logits(cfg, split, mesh, params: list, xs: list) -> torch.Tensor:
@@ -998,30 +1039,115 @@ def _tp_logits(cfg, split, mesh, params: list, xs: list) -> torch.Tensor:
     return mesh.gather([_logits(cfg, p, x) for p, x in zip(params, xs)], -1)
 
 
-def _tp_periods(cfg, params: list, caches: list):
-    """(kind, each shard's layer params, each shard's layer cache) in order."""
+def _tp_periods(cfg, params: list, caches: list | None):
+    """(kind, each shard's layer params, each shard's layer cache or None) in order."""
     for pi in range(cfg.n_periods):
         for i, kind in enumerate(cfg.block_pattern):
             key = f"{i:02d}_{kind}"
             yield (kind, [_period(p["blocks"][key], pi) for p in params],
-                   [_period(c["blocks"][key], pi) for c in caches])
+                   [None if c is None else _period(c["blocks"][key], pi)
+                    for c in (caches or [None] * len(params))])
+
+
+def _tp_mamba_full(cfg, split, mesh, ps: list, hs: list, lanes: list) -> list:
+    """A Mamba layer's full form on every shard: the first halves, the sum
+    of the partial projections, then the scan on each shard's channels;
+    each shard's last state goes into its lane (when given)."""
+    firsts = [L.mamba_full_in(p["mixer"], h, cfg) for p, h in zip(ps, hs)]
+    dbcs = _tp_sum(mesh, [f[3] for f in firsts], split.ssm)
+    outs = []
+    for p, (xc, z, conv, _), dbc, lane in zip(ps, firsts, dbcs, lanes):
+        out, h_last = L.mamba_full_out(p["mixer"], xc, z, dbc, cfg)
+        if lane is not None:
+            lane["h"].copy_(h_last)
+            lane["conv"].copy_(conv)
+        outs.append(out)
+    return outs
+
+
+def _tp_mamba_step(cfg, split, mesh, ps: list, hs: list, states: list):
+    """One Mamba step on every shard from its ``states``.  Returns (outputs,
+    new states); the states passed in are not changed."""
+    firsts = [L.mamba_step_in(p["mixer"], h, st) for p, h, st in zip(ps, hs, states)]
+    dbcs = _tp_sum(mesh, [f[3] for f in firsts], split.ssm)
+    pairs = [L.mamba_step_out(p["mixer"], xc, z, hist, dbc, st, cfg)
+             for p, (xc, z, hist, _), dbc, st in zip(ps, firsts, dbcs, states)]
+    return [o for o, _ in pairs], [n for _, n in pairs]
+
+
+def _tp_mamba_chunk(cfg, split, mesh, ps: list, hs: list, states: list, length: int) -> list:
+    """``_recurrent_chunk`` on a mesh: the chunk's tokens stepped one by one
+    on every shard, each shard's lane ``states`` (batch 1) updated in place
+    by the first ``length``."""
+    outs = [[] for _ in ps]
+    for j in range(hs[0].shape[1]):
+        step, news = _tp_mamba_step(cfg, split, mesh, ps, [h[:, j:j + 1] for h in hs], states)
+        for r, (o, new, st) in enumerate(zip(step, news, states)):
+            if j < length:
+                _merge_state(None, new, st)
+            outs[r].append(o)
+    return [torch.cat(o, dim=1) for o in outs]
+
+
+@torch.no_grad()
+def _forward_full_tp(cfg, params: list, batch: dict, capacity: int | None, mesh):
+    """``forward_full`` on a mesh (see there): every layer on every shard,
+    attention on its heads writing its lane's K/V (ring slots too), Mamba's
+    two halves around the summed projection, MoE on its expert range."""
+    split, scfg = _tp_setup(cfg, mesh)
+    B, S = batch["tokens"].shape
+    xs = _tp_embed(split, mesh, params, batch["tokens"])
+    positions = [torch.arange(S, device=dev) for dev in mesh.devices]
+    caches = None if capacity is None else [init_cache(scfg, B, capacity, dev, start_pos=S)
+                                            for dev in mesh.devices]
+    aux = torch.zeros((), dtype=F32, device=mesh.devices[0])
+    for kind, ps, lanes in _tp_periods(cfg, params, caches):
+        if kind.partition("+")[0] == "mamba":
+            def mix(hs, ps=ps, lanes=lanes):
+                return _tp_mamba_full(scfg, split, mesh, ps, hs, lanes)
+        else:
+            def mix(hs, ps=ps, lanes=lanes):
+                outs = []
+                for p, h, pos, lane in zip(ps, hs, positions, lanes):
+                    outs.append(L.attention_full(p["mixer"], h, scfg, pos,
+                                                 window=scfg.sliding_window))
+                    if lane is not None:
+                        _kv_from_full(scfg, p["mixer"], h, pos, lane)
+                return outs
+        xs, a = _tp_layer(scfg, split, mesh, kind, ps, xs, mix)
+        if a is not None:
+            aux = aux + a.to(aux.device)
+    logits = _tp_logits(scfg, split, mesh, params, xs)
+    return (logits, aux) if caches is None else (logits, aux, caches)
 
 
 def _decode_step_tp(cfg, params: list, caches: list, tokens, active, mesh):
     split, scfg = _tp_setup(cfg, mesh)
     xs = _tp_embed(split, mesh, params, tokens)
     paged = "page_table" in caches[0]
-    for kind, ps, cs in _tp_periods(cfg, params, caches):
-        def attend(r, h, ps=ps, cs=cs):
-            pool = caches[r]
-            if paged:
-                return L.attention_decode_paged(ps[r]["mixer"], h, scfg, cs[r]["k"], cs[r]["v"],
-                                                pool["page_table"], pool["pos"])[0]
-            return L.attention_decode(ps[r]["mixer"], h, scfg, cs[r]["k"], cs[r]["v"],
-                                      pool["pos"])[0]
-        xs = _tp_layer(scfg, split, mesh, kind, ps, xs, attend)
-    logits = _tp_logits(scfg, split, mesh, params, xs)
     acts = [None] * mesh.degree if active is None else mesh.broadcast(active)
+    for kind, ps, cs in _tp_periods(cfg, params, caches):
+        if kind.partition("+")[0] == "mamba":
+            def mix(hs, ps=ps, cs=cs):
+                outs, news = _tp_mamba_step(scfg, split, mesh, ps, hs, cs)
+                for a, new, c in zip(acts, news, cs):
+                    _merge_state(a, new, c)
+                return outs
+        else:
+            def mix(hs, ps=ps, cs=cs):
+                outs = []
+                for p, h, c, pool in zip(ps, hs, cs, caches):
+                    if paged:
+                        outs.append(L.attention_decode_paged(
+                            p["mixer"], h, scfg, c["k"], c["v"], pool["page_table"],
+                            pool["pos"])[0])
+                    else:
+                        outs.append(L.attention_decode(p["mixer"], h, scfg, c["k"], c["v"],
+                                                       pool["pos"],
+                                                       window=scfg.sliding_window)[0])
+                return outs
+        xs, _ = _tp_layer(scfg, split, mesh, kind, ps, xs, mix)
+    logits = _tp_logits(scfg, split, mesh, params, xs)
     for cache, a in zip(caches, acts):
         cache["pos"] = cache["pos"] + 1 if a is None else cache["pos"] + a.to(torch.int32)
     return logits[:, 0], caches
@@ -1032,18 +1158,29 @@ def _prefill_chunk_tp(cfg, params: list, caches: list, tokens, length: int, mesh
     """``prefill_chunk`` (``slot`` None: each shard's batch-1 lane) or
     ``prefill_chunk_paged`` (lane ``slot`` of each shard's pool) on a mesh."""
     split, scfg = _tp_setup(cfg, mesh)
+    if any(k.partition("+")[2] not in ("", "mlp") for k in cfg.block_pattern):
+        raise ValueError("prefill_chunk: MoE layers are not chunk-safe "
+                         "(padding rows would consume expert capacity)")
     row = 0 if slot is None else slot
     offs = [c["pos"][row].clone() for c in caches]
     xs = _tp_embed(split, mesh, params, tokens)
     for kind, ps, cs in _tp_periods(cfg, params, caches):
-        def attend(r, h, ps=ps, cs=cs):
-            if slot is None:
-                return L.attention_prefill_chunk(ps[r]["mixer"], h, scfg, cs[r]["k"],
-                                                 cs[r]["v"], offs[r], length)[0]
-            return L.attention_prefill_chunk_paged(ps[r]["mixer"], h, scfg, cs[r]["k"],
-                                                   cs[r]["v"], caches[r]["page_table"][slot],
-                                                   offs[r], length)[0]
-        xs = _tp_layer(scfg, split, mesh, kind, ps, xs, attend)
+        if kind.partition("+")[0] == "mamba":
+            states = [{name: leaf[row:row + 1] for name, leaf in c.items()} for c in cs]
+
+            def mix(hs, ps=ps, states=states):
+                return _tp_mamba_chunk(scfg, split, mesh, ps, hs, states, length)
+        else:
+            def mix(hs, ps=ps, cs=cs):
+                if slot is None:
+                    return [L.attention_prefill_chunk(p["mixer"], h, scfg, c["k"], c["v"],
+                                                      off, length)[0]
+                            for p, h, c, off in zip(ps, hs, cs, offs)]
+                return [L.attention_prefill_chunk_paged(p["mixer"], h, scfg, c["k"], c["v"],
+                                                        pool["page_table"][slot], off,
+                                                        length)[0]
+                        for p, h, c, pool, off in zip(ps, hs, cs, caches, offs)]
+        xs, _ = _tp_layer(scfg, split, mesh, kind, ps, xs, mix)
     for c in caches:
         c["pos"][row] += length
     return caches

@@ -947,3 +947,56 @@ def test_cuda_sharded_worker_matches_degree_one(degree, paged, heads):
     fresh = RolloutWorker(cfg, params, worker_id=1, device="cuda", **kw)
     fresh.migrate_in(w.migrate_out(3))             # gathered to the host, one shard again
     assert fresh.decode([3], 4)[3] == one.decode([3], 4)[3]
+
+
+# the scan at a jamba Mamba layer's shard channels (di 8,192 over 2 and 4
+# shards) and the paged kernel at jamba's shard shapes (KV 4 and 2, G 4)
+TP_SCAN_SHAPES = [(1, 2048, 4096, 16), (1, 2048, 2048, 16)]
+TP_JAMBA_SHAPES = [(8, 4, 4, 128, 16, 128), (8, 2, 4, 128, 16, 128)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", TP_SCAN_SHAPES, ids=["di4096", "di2048"])
+def test_cuda_scan_at_shard_channels(shape, dtype):
+    test_cuda_scan_matches_plain(shape, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", TP_JAMBA_SHAPES, ids=["kv4", "kv2"])
+def test_cuda_paged_kernel_at_jamba_shard_shapes(shape, dtype):
+    test_cuda_paged_kernel_at_shard_shapes(shape, dtype)
+
+
+@pytest.mark.parametrize("paged", [True, False], ids=["paged", "dense"])
+@pytest.mark.parametrize("degree", [2, 4])
+def test_cuda_sharded_jamba_worker_matches_degree_one(degree, paged):
+    """jamba reduced (f32: 7 Mamba layers, 4 MoE) at MP degree d, every shard
+    on the card, against the card's degree-1 worker: the same tokens and
+    counters, the scan launched d times a Mamba layer an admission (each
+    admission one whole-prompt forward on the mesh, on each shard's di/d
+    channels), and a teacher-forced step's logits within 1e-5."""
+    from repro_torch.engine.sampler import SamplerConfig
+    from repro_torch.launch.mesh import WorkerMesh
+    from repro_torch.models import model as M
+    _need_cuda()
+    cfg = get_config("jamba_v0_1_52b").reduced(n_periods=1)
+    params = init_params(cfg, seed=0, device="cpu")
+    kw = dict(capacity=64, max_slots=4, page_size=8, paged=paged,
+              sampler=SamplerConfig(temperature=1.0, top_p=0.9))
+    n_mamba = sum(k.startswith("mamba") for k in cfg.block_pattern)
+    runs = {}
+    for d in (1, degree):
+        mesh = None if d == 1 else WorkerMesh((torch.device("cuda", 0),) * d)
+        w = RolloutWorker(cfg, params, mp=d, mesh=mesh, device="cuda", **kw)
+        before = scan_kernel.launches["mamba_scan"]
+        out, stats = _tp_script(w)
+        torch.cuda.synchronize()
+        assert scan_kernel.launches["mamba_scan"] - before == d * n_mamba * 3
+        last = torch.tensor([[w.store[s].tokens[-1]] for s in (1, 2, 3)] + [[0]],
+                            device="cuda")
+        logits, _ = M.decode_step(cfg, w.params, w.pool, last, mesh=w._tp,
+                                  active=torch.zeros(4, dtype=torch.bool, device="cuda"))
+        runs[d] = (out, stats, logits[:3].float().cpu())
+    (out1, stats1, logits1), (out, stats, logits) = runs[1], runs[degree]
+    assert out == out1 and stats == stats1
+    assert float((logits - logits1).abs().max()) < TOL["float32"]

@@ -135,9 +135,21 @@ def test_shard_gather_round_trip(trees, degree):
     for leaf in M.tree_leaves(cache):
         leaf.copy_(torch.randn(leaf.shape).to(leaf.dtype) if leaf.is_floating_point()
                    else torch.randint(0, 9, leaf.shape, dtype=leaf.dtype))
-    back = S.gather_cache(S.shard_cache(cache, split, mesh), split)
+    cut = S.shard_cache(cache, split, mesh)
+    back = S.gather_cache(cut, split)
     for path, leaf in tree_paths(cache).items():
         assert torch.equal(tree_paths(back)[path], leaf), path
+        name, mixer = path.rsplit("/", 1)[-1], S.mixer_of(tuple(path.split("/")))
+        dim = split.cache_dim(name, leaf.dim(), mixer)
+        want = {"k": split.attn, "v": split.attn, "xk": split.attn, "xv": split.attn,
+                "h": split.ssm and mixer == "mamba", "conv": split.ssm}.get(name, False)
+        assert (dim is not None) == want, path       # sLSTM's h is never cut
+        piece = tree_paths(cut[degree - 1])[path]
+        if dim is not None:
+            assert piece.shape[dim] * degree == leaf.shape[dim]
+        # updated in place: no shard's leaf is another's or the source's
+        ptrs = {tree_paths(c)[path].untyped_storage().data_ptr() for c in cut}
+        assert len(ptrs) == degree and leaf.untyped_storage().data_ptr() not in ptrs, path
 
 
 def test_tp_split_and_shard_config():
@@ -162,6 +174,45 @@ def test_tp_split_and_shard_config():
     assert S.tp_split(qwen, 2).cache_dim("k", 5) == 3 and split.cache_dim("k", 5) is None
     with pytest.raises(ValueError):
         S.tp_split(qwen, 0)
+
+
+def test_tp_split_of_the_mixers_and_experts():
+    """Mamba on d_inner, the experts on their count, the shared experts and
+    dense residual on their width, each group only where it divides; a
+    shard routes over every expert; the cache cut follows the layer."""
+    jamba = get_config("jamba_v0_1_52b")              # di 8,192, 16 experts, d_ff 14,336
+    for d in (2, 4, 8):
+        split = S.tp_split(jamba, d)
+        assert (split.ssm, split.experts, split.moe_ff) == (True, True, False)
+        sc = S.shard_config(jamba, split)
+        assert (sc.d_inner, sc.n_experts, sc.n_kv_heads) == (8192 // d, 16, 8 // d)
+        assert split.any_moe()
+    assert not S.tp_split(jamba, 3).ssm and not S.tp_split(jamba, 32).experts
+    qwen2 = get_config("qwen2_moe_a2_7b")             # 60 experts, shared 5,632
+    assert (S.tp_split(qwen2, 4).experts, S.tp_split(qwen2, 8).experts) == (True, False)
+    split = S.tp_split(qwen2, 8)
+    assert split.moe_ff and S.shard_config(qwen2, split).shared_d_ff == 704
+    arctic = get_config("arctic_480b")                # 128 experts, dense residual 4,864
+    sc = S.shard_config(arctic, S.tp_split(arctic, 4))
+    assert (sc.dense_residual_ff, sc.n_experts) == (1216, 128)
+    qwen = get_config("qwen3_1_7b")
+    plain = S.tp_split(qwen, 2)
+    assert not (plain.ssm or plain.experts or plain.moe_ff or plain.any_moe())
+    assert S.shard_config(qwen, plain).d_inner == qwen.d_inner
+    split = S.tp_split(jamba, 2)
+    assert [split.param_dim(n, 3) for n in ("m_in", "m_xproj", "m_Alog", "m_out")] == [2, 1, 1, 1]
+    assert split.param_dim("m_D", 2) == 1 and split.param_dim("we_in", 4) == 1
+    assert split.param_dim("router", 3) is None and split.param_dim("shared_gate", 2) is None
+    # the name h: Mamba's is cut on d_inner, sLSTM's (..., H, hd) is not
+    assert split.cache_dim("h", 5, "mamba") == 3 and split.cache_dim("conv", 5, "mamba") == 4
+    assert split.cache_dim("h", 5, "slstm") is None and split.cache_dim("h", 5) is None
+    assert S.mixer_of(("blocks", "03_attn+moe", "k")) == "attn"
+    assert S.mixer_of(("blocks", "00_mamba+mlp", "h")) == "mamba"
+    assert S.mixer_of(("pos",)) == "" and S.mixer_of(("blocks", "h")) == ""
+    xlstm = get_config("xlstm_350m")
+    slstm = {"blocks": {"05_slstm": {"h": torch.zeros(1, 2, 4, 8)}}}
+    cut = S.shard_cache(slstm, S.tp_split(xlstm, 2), WorkerMesh((CPU,) * 2))
+    assert cut[0]["blocks"]["05_slstm"]["h"].shape == (1, 2, 4, 8)
 
 
 def test_mesh_collectives():

@@ -343,7 +343,7 @@ def test_runtime_on_a_sharded_fleet_matches_jax_trace(plane):
 
 # ---------------------------------------------------------------- refusals
 
-@pytest.mark.parametrize("name", ["jamba_v0_1_52b", "qwen2_moe_a2_7b", "xlstm_350m"])
+@pytest.mark.parametrize("name", ["xlstm_350m"])
 def test_mixers_outside_the_split_raise(name):
     cfg = get_config(name).reduced(n_periods=1)
     params = M.init_params(cfg, seed=0, device="cpu")
@@ -357,10 +357,6 @@ def test_mixers_outside_the_split_raise(name):
 
 def test_sharded_worker_guards(qwen):
     cfg, params = qwen
-    with pytest.raises(NotImplementedError, match="ROADMAP"):   # ring admission: one forward
-        RolloutWorker(cfg.with_sliding_window(16), params, mp=2, mesh=_mesh(2), **KW)
-    with pytest.raises(NotImplementedError, match="chunked"):
-        RolloutWorker(cfg, params, mp=2, mesh=_mesh(2), use_chunked=False, **KW)
     with pytest.raises(ValueError, match="MP degree"):
         RolloutWorker(cfg, params, mp=4, mesh=_mesh(2), **KW)
 
