@@ -42,7 +42,8 @@ Phases (each raises on failure; any failure exits non-zero with no result line):
               last piece and last tile ragged) over its 24 layers' caches,
               and the VLM's B 8, C 1,600, KV 8, G 4, hd 128 over 8; every
               slot valid, each cache the first B lanes of a buffer whose
-              extra lane is NaN.
+              extra lane is NaN; then the same at phase 15's shard shapes
+              (whisper KV 8 and 4, the VLM KV 4 and 2).
 4. slice   -- qwen3-1.7b at full width (28 layers, d_model 2048, bf16, random
               weights from a seed): two paged RolloutWorkers on the card serve
               8 requests in 2 GRPO groups (radix page sharing), decode at
@@ -113,14 +114,15 @@ Phases (each raises on failure; any failure exits non-zero with no result line):
               dense plane (migration off), each trace held to the sim's, the
               decode kernel's launches equal to 12 x the decode steps (per-token
               tool absorptions included), kept live calls held to the plain
-              version; (b) xlstm-350m at full width (20 mLSTM, 4 sLSTM):
-              two paged workers (pure-state pools) and a dense one, two GRPO
-              groups of 4 (prompts of 512 and 300 tokens) by chunked
-              recurrent prefill, decode, a chunked extend, preempt and
-              resume, migration paged -> dense -> paged, a checkpoint, each
-              lane's state held exactly, and a released lane readmitted
-              equal to a fresh one; (c) arctic-480b at its published widths
-              cut to 1 of 35 layers (128 experts top-2 and the dense
+              version; (b) xlstm-350m at its published widths, cut to 1
+              of its 4 periods (5 mLSTM, 1 sLSTM) for the script's time
+              (phase 15 runs all 24 layers): two paged workers (pure-state
+              pools) and a dense one, two GRPO groups of 4 (prompts of 512
+              and 300 tokens) by chunked recurrent prefill, decode, a
+              chunked extend, preempt and resume, migration paged -> dense
+              -> paged, a checkpoint, each lane's state held exactly, and a
+              released lane readmitted equal to a fresh one; (c)
+              arctic-480b at its published widths cut to 1 of 35 layers (128 experts top-2 and the dense
               residual): 4 whole-prompt admissions of 1,024 tokens, 32
               decode steps (the paged kernel at G 7); (d) nemotron-4-15b
               (relu2, G 6) and phi3-medium-14b (KV 10) at full width: 8
@@ -222,6 +224,30 @@ Phases (each raises on failure; any failure exits non-zero with no result line):
               S 2,048, N 16; bf16 and f32) and the paged kernel at jamba's
               shard shapes (B 8, G 4, KV 4 and 2), held and timed as in
               phase 3.
+15. tp-cross -- the xLSTM and cross-attention splits, every shard on this
+              one card: (a) xlstm-350m at full width (20 mLSTM, 4 sLSTM; d
+              1,024, 4 heads), paged pure-state workers at degree 1, 2 and 4,
+              f32 then the same weights rounded to bf16: 8 requests in 2
+              groups (prompts of 64 and 48 tokens, admitted one step a
+              token), one teacher-forced step, 32 greedy steps; in f32 the
+              sharded workers' tokens equal to d1's and their logits within
+              TP_TOL, in bf16 no farther from the bf16 d1 than twice the
+              bf16 d1 lies from the f32 d1; a lane's state and params a
+              shard logged; a lane d2 -> d1 -> d4 -> d2 bit-equal; no kernel
+              of the repo launches.  (b) whisper-medium at full width
+              through the model API (``forward_full(mesh=)`` over 1,500
+              frames, 8 requests of 64 tokens, capacity 448, then 32 greedy
+              decode steps), f32 then bf16 at degree 1, 2 and 4; (c)
+              llama-3.2-vision-11b at full width (gates 0.7, 1,600 patches,
+              prompts of 512, capacity 1,024) in bf16 at degree 1 and 2,
+              and its first period (4 self-, 1 cross-attention layer) in f32
+              at 1, 2 and 4.  For (b) and (c) the counts are zeroed before
+              each admission and read after its decode: the dense kernel's
+              must be d x 48 (whisper) or d x 40 (the VLM; d x 5 on the
+              period) a step, nothing else launched; f32 sharded runs hold
+              their tokens equal and logits within TP_TOL of d1's; a few
+              live cross-attention calls of each run, at the shard's kv
+              heads, held to the plain version.  The peak memory is logged.
 
 float32 matrix products run in full float32: TF32 is switched off for matmuls
 and cuDNN.  The next-to-last line is one JSON object describing each kernel;
@@ -630,7 +656,7 @@ def phase_kernels(torch):
     _family_holds(torch, gen)
     # drawn last: the cross-attention decode of the audio and VLM models
     # (phase 11), one cross cache a layer, every slot valid
-    for label, P, C, KV, G, hd in CROSS_SHAPES:
+    for label, P, C, KV, G, hd in CROSS_SHAPES + TP_CROSS_SHAPES:
         rows[label] = {name: _dense_row(torch, gen, label, name, P, 8, C, KV, G, hd, None)
                        for name in ("bfloat16", "float32")}
     return rows
@@ -641,6 +667,12 @@ def phase_kernels(torch):
 # llama-3.2-vision-11b's 8 cross layers over 1,600 image patches (G 4)
 CROSS_SHAPES = (("decode_attention_cross_whisper", 24, 1500, 16, 1, 64),
                 ("decode_attention_cross_vlm", 8, 1600, 8, 4, 128))
+# the same on a tensor-parallel shard (phase 15): whisper's 16 kv heads over
+# 2 and 4 shards, the VLM's 8 over 2 and 4
+TP_CROSS_SHAPES = (("decode_attention_cross_whisper_kv8", 24, 1500, 8, 1, 64),
+                   ("decode_attention_cross_whisper_kv4", 24, 1500, 4, 1, 64),
+                   ("decode_attention_cross_vlm_kv4", 8, 1600, 4, 4, 128),
+                   ("decode_attention_cross_vlm_kv2", 8, 1600, 2, 4, 128))
 
 
 def _dense_row(torch, gen, label, name, P, B, C, KV, G, hd, vl):
@@ -1821,18 +1853,21 @@ def _families_moe(torch):
 
 
 def _families_xlstm(torch):
-    """xlstm-350m at full width: two paged workers (pure-state pools) and a
+    """xlstm-350m at its published widths: two paged workers (pure-state pools) and a
     dense one; two GRPO groups of 4 admitted by chunked recurrent prefill;
     decode, a chunked extend, preempt and resume, migration paged -> dense ->
     paged, a checkpoint restored, each lane's state held exactly; a released
     slot readmitted, its state equal to a fresh lane's.  No kernel of the
-    repo runs (xLSTM has no TPU kernel)."""
+    repo runs (xLSTM has no TPU kernel).  The depth is cut to one of its
+    four periods (6 of 24 layers) to keep the script's time: its chunked
+    admissions, one step a token, took 79 s at 24 layers, and phase 15 runs
+    the whole depth."""
     import numpy as np
     from repro_torch.engine.paging import check_block_conservation
     from repro_torch.engine.sampler import SamplerConfig
     from repro_torch.engine.worker import RolloutWorker
 
-    cfg, params = _family_model(torch, "xlstm_350m")
+    cfg, params = _family_model(torch, "xlstm_350m", n_periods=1)
     kw = dict(capacity=1024, max_slots=8, sampler=SamplerConfig(1.0, 0.9), seed=SEED,
               device="cuda")
     w0 = RolloutWorker(cfg, params, worker_id=0, page_size=16, **kw)
@@ -2848,7 +2883,7 @@ TP_RING_PROMPT = 2500
 TP_MOE_LAYERS = 4                   # qwen2-moe cut from 24 layers
 
 
-def _tp_model(torch, name, dtype, **cut):
+def _tp_model(torch, name, dtype, tag="tp-mixers", **cut):
     """``name`` at its published widths with ``cut`` (periods, layers, a
     window) in ``dtype``, weights from the seed on the card."""
     from dataclasses import replace
@@ -2856,7 +2891,7 @@ def _tp_model(torch, name, dtype, **cut):
     from repro_torch.models.model import init_params, param_count
     cfg = replace(get_config(name), dtype=dtype, **cut)
     params, ms = sync_ms(torch, lambda: init_params(cfg, seed=SEED, device="cuda"))
-    log(f"[tp-mixers] {cfg.name} {dtype}, {cut}: {cfg.n_layers} layers "
+    log(f"[{tag}] {cfg.name} {dtype}, {cut}: {cfg.n_layers} layers "
         f"({' '.join(cfg.block_pattern)}), {param_count(params) / 1e9:.3f} B params, "
         f"{_nbytes(params) / 1e9:.2f} GB (init {ms:.0f} ms)")
     return cfg, params
@@ -2997,6 +3032,216 @@ def phase_tp_mixers(torch, smi):
     return {"launches": launches, "rows": rows}
 
 
+# ---------------------------------------------------------------- phase 15
+TP_XLSTM_PROMPTS = (64, 48)         # two groups of 4, admitted one step a token
+TP_CROSS_STEPS = 32
+# bf16 at degree d against the bf16 d1: each stands bf16's own error from the
+# f32 d1 (the bf16 d1's distance from it), so two of them at most twice that
+TP_BF16_SPREAD = 2.0
+
+
+def _tp_xlstm(torch, launches, summary):
+    """(a) xlstm-350m at full width, paged pure-state workers at degree 1, 2
+    and 4: f32, then the same weights rounded to bf16, a lane moved d2 ->
+    d1 -> d4 -> d2 in bf16; no kernel of the repo may launch."""
+    from dataclasses import replace
+
+    import numpy as np
+    from repro_torch.models.model import tree_map
+    rng = np.random.default_rng(SEED + 15)
+    cfg, params = _tp_model(torch, "xlstm_350m", "float32", tag="tp-cross")
+    groups = [rng.integers(0, cfg.vocab, n).tolist() for n in TP_XLSTM_PROMPTS]
+    prompts = [groups[sid // 4] for sid in range(8)]
+    counts = {}
+    _, f32_d1, summary["xlstm-f32"] = _tp_series(torch, cfg, params, prompts, (1, 2, 4),
+                                                 counts, "xlstm f32")
+    params = tree_map(lambda t: t.to(torch.bfloat16), params)   # the same weights, rounded
+    cfg = replace(cfg, dtype="bfloat16")
+    torch.cuda.empty_cache()
+    kept, _, bf16 = _tp_series(torch, cfg, params, prompts, (1, 2, 4), counts, "xlstm bf16",
+                               floor=f32_d1, keep=(1, 2, 4))
+    summary["xlstm-bf16"] = bf16
+    own = bf16[1]["err_floor"]
+    for d in (2, 4):
+        if not bf16[d]["err_d1"] <= TP_BF16_SPREAD * own:
+            raise AssertionError(f"[tp-cross] xlstm bf16 d{d}: logits {bf16[d]['err_d1']:.3e} "
+                                 f"from the bf16 d1, more than {TP_BF16_SPREAD} x the bf16 "
+                                 f"d1's {own:.3e} from the f32 d1")
+    for d, w in kept.items():
+        lane = _nbytes(w.pool[0]["blocks"] if w._tp is not None else w.pool["blocks"])
+        log(f"[tp-cross] xlstm bf16 d{d}: a lane's state {lane / w.max_slots / 1e6:.2f} MB "
+            f"a shard, params {_tp_bytes(w)[0][0]} GB a shard")
+    _tp_migrate(torch, kept)
+    if any(counts.values()):
+        raise AssertionError(f"[tp-cross] xlstm launched a repo kernel: {counts}")
+    for k, n in counts.items():
+        launches[k] = launches.get(k, 0) + n
+    del kept, params
+    torch.cuda.empty_cache()
+
+
+def _tp_cross_run(torch, cfg, params, batch, d, capacity, tag):
+    """One model-API run at MP degree d, every shard on the card:
+    ``forward_full(mesh=)`` over the batch's embeddings at ``capacity``, then
+    TP_CROSS_STEPS greedy decode steps.  The counts are zeroed before the
+    admission and read after the decode: the dense kernel's must be d x
+    (self- + cross-attention layers) x steps, and no other kernel may
+    launch.  A few live cross-attention calls (the last among them) are
+    kept and held to the plain version at the shard's shape.  Returns
+    (tokens, logits (1 + steps, B, V) on the host: the admission's last
+    position, then each step's, walls, launches, the
+    largest error of the kept calls).  The tokens are (1 + steps, B): the
+    admission's, then each step's."""
+    from repro_torch.distributed.sharding import shard_params, tp_split
+    from repro_torch.kernels import decode_attention as kernel
+    from repro_torch.launch.mesh import WorkerMesh
+    from repro_torch.models import model as M
+    mesh = None if d == 1 else WorkerMesh((torch.device("cuda", 0),) * d)
+    shards = params if mesh is None else shard_params(params, tp_split(cfg, d), mesh)
+    T = cfg.encoder_seq or cfg.image_seq
+    n_self, n_cross = _decode_calls(cfg)
+    _reset_launches()                                       # the path starts here
+    (logits, _, cache), admit_ms = sync_ms(
+        torch, lambda: M.forward_full(cfg, shards, batch, capacity=capacity, mesh=mesh))
+    out = [logits[:, -1].clone()]
+    del logits
+    toks = [out[0].argmax(-1)]
+
+    def decode():
+        for _ in range(TP_CROSS_STEPS):
+            lg, _ = M.decode_step(cfg, shards, cache, toks[-1][:, None], mesh=mesh)
+            toks.append(lg.argmax(-1))
+            out.append(lg)
+
+    with _Capture(kernel, "decode_attention", max(1, d * n_cross * TP_CROSS_STEPS // 4),
+                  keep=lambda a: a[1].shape[1] == T) as cross:
+        _, decode_ms = sync_ms(torch, decode)
+    launches = _read_launches(torch)                        # the path ends
+    _check_launches(f"tp-cross {tag}", launches,
+                    {"decode_attention": d * (n_self + n_cross) * TP_CROSS_STEPS})
+    logits = torch.stack([o.float() for o in out]).cpu()
+    if not bool(logits.isfinite().all()):
+        raise AssertionError(f"[tp-cross] {tag}: non-finite logits")
+    kv = cross.kept[-1][1].shape[2] if cross.kept else None
+    want_kv = cfg.n_kv_heads // d if d > 1 else cfg.n_kv_heads
+    if kv != want_kv:
+        raise AssertionError(f"[tp-cross] {tag}: kept cross calls at KV {kv}, want {want_kv}")
+    err = _hold_kept(torch, f"tp-cross {tag} cross-attention", cross.kept, cross.every)
+    times = {"admit_ms": admit_ms, "step_ms": decode_ms / TP_CROSS_STEPS}
+    del cache, shards, cross
+    torch.cuda.empty_cache()
+    return torch.stack(toks).cpu(), logits, times, launches, err
+
+
+def _tp_cross_against(torch, toks, logits, ref):
+    """(max |logit difference| over the steps whose inputs are equal, max
+    |reference logit| there, those steps, tokens equal before a lane's first
+    difference) against ``ref``'s (tokens, logits)."""
+    same_steps = 0
+    while same_steps < toks.shape[0] and torch.equal(toks[same_steps], ref[0][same_steps]):
+        same_steps += 1
+    n = same_steps + 1                   # the admission's logits, then the equal steps'
+    err = float((logits[:n] - ref[1][:n]).abs().max())
+    lanes = (toks != ref[0]).int().cumsum(0) == 0
+    return err, float(ref[1][:n].abs().max()), same_steps, int(lanes.sum())
+
+
+def _tp_cross_series(torch, cfg, params, batch, degrees, capacity, tag, launches,
+                     floor=None):
+    """``_tp_cross_run`` at each degree, the sharded runs held to the
+    degree-1 run: in f32 every token equal and the logits within TP_TOL x
+    max(1, max |logit|), in bf16 logged; the degree-1 run logged against
+    ``floor`` (the f32 d1's tokens and logits).  Returns (the d1's tokens and
+    logits, {degree: a summary})."""
+    ref, summary, errs = None, {}, []
+    for d in degrees:
+        toks, logits, times, counts, held = _tp_cross_run(torch, cfg, params, batch, d,
+                                                          capacity, f"{tag} d{d}")
+        errs.append(held)
+        for k, n in counts.items():
+            launches[k] = launches.get(k, 0) + n
+        summary[d] = dict(times)
+        msg = (f"[tp-cross] {tag} d{d}: admission {times['admit_ms']:.1f} ms ({batch['tokens'].shape[0]} "
+               f"requests), decode {times['step_ms']:.2f} ms a step ({TP_CROSS_STEPS} steps); "
+               f"decode_attention launches {counts['decode_attention']}")
+        against = ("the f32 d1", floor) if ref is None else ("d1", ref)
+        if against[1] is not None:
+            err, scale, steps, same = _tp_cross_against(torch, toks, logits, against[1])
+            summary[d]["err_" + ("floor" if ref is None else "d1")] = err
+            msg += (f"; against {against[0]}: logits max |err| {err:.3e} over the admission "
+                    f"and {steps} equal steps (max |ref| {scale:.3e}), {same}/{toks.numel()} "
+                    f"tokens equal before a lane's first difference")
+            if ref is not None and cfg.dtype == "float32" and (
+                    err > TP_TOL * max(1.0, scale) or not torch.equal(toks, ref[0])):
+                raise AssertionError(f"{msg}: tol {TP_TOL} x max(1, {scale:.3e}), tokens "
+                                     f"must be equal")
+        log(msg)
+        if ref is None:
+            ref = (toks, logits)
+    return ref, summary, max(errs)
+
+
+def _tp_cross_model(torch, name, dtype, **cut):
+    """A phase-11 model at its published widths (``cut`` its depth) in
+    ``dtype``, gates open, and its batch: 8 requests of ``ENCODER_PATHS``'s
+    prompt length over embeddings drawn from the seed.  Returns (config,
+    params, batch, capacity)."""
+    cfg, params = _tp_model(torch, name, dtype, tag="tp-cross", **cut)
+    _open_gates(params)
+    prompt, capacity = {n: (p, c) for n, p, c in ENCODER_PATHS}[name]
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    return cfg, params, _cross_batch(torch, cfg, ENC_LANES, prompt, gen, "cuda"), capacity
+
+
+def phase_tp_cross(torch, smi):
+    """The xLSTM and cross-attention splits, every shard on this one card:
+    (a) xlstm-350m at full width (``_tp_xlstm``); (b) whisper-medium at full
+    width through the model API, f32 then bf16 (the same weights rounded) at
+    degree 1, 2 and 4; (c) llama-3.2-vision-11b at full width in bf16 at
+    degree 1 and 2, and its first period (4 self- and the one cross-attention
+    layer) in f32 at 1, 2 and 4.  Returns the launches, the largest error of
+    the kept live cross-attention calls, and the peak memory."""
+    from dataclasses import replace
+
+    from repro_torch.models.model import tree_map
+    log(f"[tp-cross] {smi}: every shard of every worker on this one card (cuda:0 x d)")
+    torch.cuda.reset_peak_memory_stats()
+    launches, summary, errs = {}, {}, []
+    _tp_xlstm(torch, launches, summary)
+    # (b) whisper, f32 then bf16
+    cfg, params, batch, capacity = _tp_cross_model(torch, "whisper_medium", "float32")
+    f32_d1, summary["whisper-f32"], err = _tp_cross_series(
+        torch, cfg, params, batch, (1, 2, 4), capacity, "whisper f32", launches)
+    errs.append(err)
+    params = tree_map(lambda t: t.to(torch.bfloat16), params)
+    cfg = replace(cfg, dtype="bfloat16")
+    batch = {k: v.to(torch.bfloat16) if v.is_floating_point() else v for k, v in batch.items()}
+    torch.cuda.empty_cache()
+    _, summary["whisper-bf16"], err = _tp_cross_series(
+        torch, cfg, params, batch, (1, 2, 4), capacity, "whisper bf16", launches, floor=f32_d1)
+    errs.append(err)
+    del params, batch
+    torch.cuda.empty_cache()
+    # (c) the VLM: bf16 at full width, f32 on its first period
+    cfg, params, batch, capacity = _tp_cross_model(torch, "llama_3_2_vision_11b", "bfloat16")
+    _, summary["vlm-bf16"], err = _tp_cross_series(
+        torch, cfg, params, batch, (1, 2), capacity, "vlm bf16", launches)
+    errs.append(err)
+    del params, batch
+    torch.cuda.empty_cache()
+    cfg, params, batch, capacity = _tp_cross_model(torch, "llama_3_2_vision_11b", "float32",
+                                                   n_periods=1)
+    _, summary["vlm-f32-period"], err = _tp_cross_series(
+        torch, cfg, params, batch, (1, 2, 4), capacity, "vlm f32 first period", launches)
+    errs.append(err)
+    del params, batch
+    torch.cuda.empty_cache()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[tp-cross] peak allocated {peak:.2f} GiB")
+    log(f"[tp-cross] summary {json.dumps(summary)}")
+    return {"launches": launches, "max_abs_err": max(errs), "peak_gib": peak}
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         print("chip_smoke: src/repro_torch not found next to this script", file=sys.stderr)
@@ -3030,6 +3275,7 @@ def main() -> int:
         train = timed("train", phase_train, torch, info["smi"])
         tp = timed("tp", phase_tp, torch, info["smi"])
         tp_mixers = timed("tp-mixers", phase_tp_mixers, torch, info["smi"])
+        tp_cross = timed("tp-cross", phase_tp_cross, torch, info["smi"])
     except Exception:                                  # a failed phase fails the run
         traceback.print_exc()
         return 1
@@ -3061,8 +3307,12 @@ def main() -> int:
          "legacy_launches": train["legacy_launches"],
          "legacy_max_abs_err": train["legacy_max_abs_err"],
          "tp_launches": (tp["launches"]["decode_attention"]
-                         + tp_mixers["launches"]["decode_attention"]),
+                         + tp_mixers["launches"]["decode_attention"]
+                         + tp_cross["launches"]["decode_attention"]),
+         "tp_cross_launches": tp_cross["launches"]["decode_attention"],
+         "tp_cross_max_abs_err": tp_cross["max_abs_err"],
          "tp_rows": tp["rows"]["decode_attention"],
+         "tp_cross_rows": {label: rows[label] for label, *_ in TP_CROSS_SHAPES},
          **rows["decode_attention"]["bfloat16"]},
         {"name": "mamba_scan", "route": "cuda",
          "source": f"{csrc}/mamba_scan.cu",

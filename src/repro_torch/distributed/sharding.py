@@ -32,21 +32,42 @@ itself, Megatron-style (``tp_split``):
   * the shared experts' and the dense residual's ``d_ff`` (``ws_*``,
     ``wd_*``), when every such width divides; ``shared_gate`` stays
     replicated (the gate scales a sum, so it scales each partial);
+  * the xLSTM on its heads, when they and the mLSTM's inner width divide:
+    the mLSTM's ``l_up``, ``l_z`` by columns and ``l_skip`` with them;
+    ``l_q``, ``l_k``, ``l_v``, ``l_ig``, ``l_fg`` and ``l_down`` on their
+    ``d_inner`` rows.  A shard's q/k/v/gate products are partials, summed
+    before the cell, which then runs on the shard's H/d heads: exactly its
+    ``d_inner`` columns, head ``j`` owning columns ``[j hd, (j+1) hd)``.
+    The sLSTM's ``s_w``, ``s_r`` and ``s_b`` on the heads dim and
+    ``s_out`` on its rows.  The state follows on its heads dim: the
+    mLSTM's ``C`` (..., H, hd, hd), ``n`` (..., H, hd), ``m`` (..., H) and
+    the sLSTM's ``h``, ``c``, ``n``, ``m`` (..., H, hd);
+  * cross-attention as attention (its ``wk``/``wv`` columns write the
+    shard's ``xk``/``xv``), the audio encoder's layers as a decoder's;
   * everything else is replicated: the norms, ``q_norm``/``k_norm`` (they act
-    on a whole head), the router, and attention whose heads do not divide
-    (smollm's 3 heads at degree 2), as the reference's divisibility rule
-    degrades it.
+    on a whole head), the router, ``xgate``, the VLM's ``enc_proj``, and
+    attention whose heads do not divide (smollm's 3 heads at degree 2), as
+    the reference's divisibility rule degrades it.
 
 A cache leaf's cut is decided by the layer it belongs to, not by its name
-alone: Mamba's ``h`` is cut on ``d_inner`` and sLSTM's ``h`` is not (the
-reference's table maps both names to one entry and notes the collision).
+alone: Mamba's ``h`` is cut on ``d_inner`` and sLSTM's ``h`` on its heads
+(the reference's table maps both names to one entry and notes the
+collision).
 
 Each shard computes its partial output and the partials are summed in shard
 order (``launch.mesh.WorkerMesh.reduce``).  The placement differs from
-GSPMD's in one place: the reference's cache rule gives the model axis to the
-first divisible dim of ``k``/``v``, which is ``kv_seq``; the port cuts the
-kv heads, so that each shard's decode kernel reads whole sequences.  The
-arithmetic is the same.
+GSPMD's where the port cuts to keep a shard's work whole:
+
+  * the reference's cache rule gives the model axis to the first divisible
+    dim of ``k``/``v``, which is ``kv_seq``; the port cuts the kv heads, so
+    that each shard's decode kernel reads whole sequences;
+  * the reference leaves the mLSTM's ``C`` replicated and puts ``n``/``m``
+    on ``d_inner`` (``CACHE_LOGICAL_AXES``, which ``cache_pspecs`` keeps
+    reporting); the port cuts all three on the heads, as the cell runs;
+  * the reference leaves ``s_out`` on ``fsdp`` alone, so GSPMD gathers the
+    sLSTM's ``h``; the port cuts its rows and sums the partials.
+
+The arithmetic is the same, up to the order of f32 sums.
 """
 
 from __future__ import annotations
@@ -261,9 +282,17 @@ _TP_LEAVES = {
     "we_gate": (3, "experts", 0), "we_in": (3, "experts", 0), "we_out": (3, "experts", 0),
     "ws_gate": (2, "moe_ff", 1), "ws_in": (2, "moe_ff", 1), "ws_out": (2, "moe_ff", 0),
     "wd_gate": (2, "moe_ff", 1), "wd_in": (2, "moe_ff", 1), "wd_out": (2, "moe_ff", 0),
+    "l_up": (2, "xlstm", 1), "l_z": (2, "xlstm", 1), "l_skip": (1, "xlstm", 0),
+    "l_q": (3, "xlstm", 0), "l_k": (3, "xlstm", 0), "l_v": (3, "xlstm", 0),
+    "l_ig": (2, "xlstm", 0), "l_fg": (2, "xlstm", 0), "l_down": (2, "xlstm", 0),
+    "s_w": (4, "xlstm", 2), "s_r": (4, "xlstm", 1), "s_b": (3, "xlstm", 1),
+    "s_out": (2, "xlstm", 0),
 }
 KV_LEAVES = ("k", "v", "xk", "xv")          # cache leaves (..., KV, hd): cut on dim -2
-SSM_LEAVES = {"h": -2, "conv": -1}          # a Mamba layer's state: its d_inner dim
+# a recurrent layer's state, by mixer: the dim cut (from the end) and the group
+STATE_LEAVES = {"mamba": ({"h": -2, "conv": -1}, "ssm"),          # d_inner
+                "mlstm": ({"C": -3, "n": -2, "m": -1}, "xlstm"),  # heads
+                "slstm": ({"h": -2, "c": -2, "n": -2, "m": -2}, "xlstm")}
 
 
 def mixer_of(path: tuple) -> str:
@@ -286,6 +315,7 @@ class TPSplit:
     ssm: bool = False       # Mamba's d_inner (and its state)
     experts: bool = False   # the MoE experts
     moe_ff: bool = False    # the shared experts' and dense residual's d_ff
+    xlstm: bool = False     # the mLSTM's and sLSTM's heads (and their state)
 
     def param_dim(self, name: str, ndim: int) -> int | None:
         """The dim of param leaf ``name`` (``ndim`` dims, stacked or not) that
@@ -298,11 +328,12 @@ class TPSplit:
     def cache_dim(self, name: str, ndim: int, mixer: str = "attn") -> int | None:
         """The cut dim of a cache leaf of a ``mixer`` layer: a K/V leaf's kv
         heads when attention is cut, a Mamba state leaf's ``d_inner`` when
-        Mamba is; else None."""
+        Mamba is, an xLSTM state leaf's heads when the xLSTM is; else None."""
         if name in KV_LEAVES:
             return ndim - 2 if self.attn else None
-        if mixer == "mamba" and name in SSM_LEAVES and self.ssm:
-            return ndim + SSM_LEAVES[name]
+        dims, group = STATE_LEAVES.get(mixer, ({}, ""))
+        if name in dims and getattr(self, group):
+            return ndim + dims[name]
         return None
 
     def any_moe(self) -> bool:
@@ -318,29 +349,34 @@ def tp_split(cfg, degree: int) -> TPSplit:
     cut = d > 1
     mixers = {k.partition("+")[0] for k in cfg.block_pattern}
     side = [w for w in (cfg.shared_d_ff, cfg.dense_residual_ff) if w]
-    return TPSplit(d, attn=cut and cfg.n_heads % d == 0 and cfg.n_kv_heads % d == 0,
+    heads = cfg.n_heads % d == 0
+    return TPSplit(d, attn=cut and heads and cfg.n_kv_heads % d == 0,
                    mlp=cut and cfg.d_ff > 0 and cfg.d_ff % d == 0,
                    vocab=cut and cfg.vocab % d == 0,
                    ssm=cut and "mamba" in mixers and cfg.d_inner % d == 0,
                    experts=cut and cfg.n_experts > 0 and cfg.n_experts % d == 0,
-                   moe_ff=cut and bool(side) and all(w % d == 0 for w in side))
+                   moe_ff=cut and bool(side) and all(w % d == 0 for w in side),
+                   xlstm=cut and bool(mixers & {"mlstm", "slstm"}) and heads
+                   and cfg.mlstm_inner % d == 0)
 
 
 def shard_config(cfg, split: TPSplit) -> ShardConfig:
     """The config one shard computes with: its heads, ``d_ff``, vocabulary,
-    Mamba inner width and shared / dense-residual widths (``head_dim`` and
-    ``ssm_inner`` kept explicit, since ``d_model // n_heads`` and
-    ``ssm_expand * d_model`` no longer give them).  ``n_experts`` stays the
-    whole count: every shard routes over all experts."""
+    Mamba and xLSTM inner widths and shared / dense-residual widths
+    (``head_dim``, ``ssm_inner`` and ``xlstm_inner`` kept explicit, since
+    ``d_model // n_heads`` and the expansions of ``d_model`` no longer give
+    them).  ``n_experts`` stays the whole count: every shard routes over all
+    experts.  The heads are cut with attention or with the xLSTM."""
     d = split.degree
 
     def cut(width, flag):
         return width // d if flag else width
 
-    widths = dict(n_heads=cut(cfg.n_heads, split.attn),
+    widths = dict(n_heads=cut(cfg.n_heads, split.attn or split.xlstm),
                   n_kv_heads=cut(cfg.n_kv_heads, split.attn),
                   d_ff=cut(cfg.d_ff, split.mlp), vocab=cut(cfg.vocab, split.vocab),
                   ssm_inner=cut(cfg.d_inner, split.ssm),
+                  xlstm_inner=cut(cfg.mlstm_inner, split.xlstm),
                   shared_d_ff=cut(cfg.shared_d_ff, split.moe_ff),
                   dense_residual_ff=cut(cfg.dense_residual_ff, split.moe_ff))
     return ShardConfig(**{**vars(cfg), **widths, "head_dim": cfg.hd})
@@ -409,9 +445,10 @@ def gather_params(shards: list, split: TPSplit, device=None):
 def shard_cache(cache, split: TPSplit, mesh) -> list:
     """One cache, lane, pool, page stack or lane state per shard: K/V leaves
     cut on their kv-head dim when attention is cut, a Mamba layer's ``h``
-    and ``conv`` on ``d_inner`` when Mamba is; ``pos``, page tables and the
-    xLSTM state replicated, each shard's in memory of its own, since the
-    model updates caches in place."""
+    and ``conv`` on ``d_inner`` when Mamba is, an xLSTM layer's state on its
+    heads when the xLSTM is; ``pos``, page tables and uncut leaves
+    replicated, each shard's in memory of its own, since the model updates
+    caches in place."""
     return _shard(cache, _cache_dims(split), mesh, share=False)
 
 

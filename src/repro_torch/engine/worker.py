@@ -35,15 +35,16 @@ except under MoE: lanes of one step share each expert's capacity.
 A worker of MP degree ``d`` built on a mesh of ``d`` shards
 (``launch.mesh.WorkerMesh``) holds one params tree and one pool per shard,
 cut by ``distributed.sharding.tp_split``: 1/d of the attention heads, of
-``d_ff``, of the vocabulary, of Mamba's ``d_inner``, of the MoE experts
-and of the shared / dense-residual width, and 1/d of the kv heads of every
-K/V block and of the channels of every Mamba state, on each shard's
-device.  The page table and ``pos`` are replicated on every shard; the
-``PagePool`` bookkeeping is the worker's one copy.  A sharded worker admits
-by chunks or, where chunked prefill does not apply (MoE, a ring), by one
-full forward on its mesh.  A migration or checkpoint package holds the
-full layout on the host (the shards gathered), whatever the source's
-degree, and ``migrate_in`` cuts it for the destination's mesh.
+``d_ff``, of the vocabulary, of Mamba's ``d_inner``, of the xLSTM's heads,
+of the MoE experts and of the shared / dense-residual width, and 1/d of the
+kv heads of every K/V block, of the channels of every Mamba state and of
+the heads of every xLSTM state, on each shard's device.  The page table and
+``pos`` are replicated on every shard; the ``PagePool`` bookkeeping is the
+worker's one copy.  A sharded worker admits by chunks or, where chunked
+prefill does not apply (MoE, a ring), by one full forward on its mesh.  A
+migration or checkpoint package holds the full layout on the host (the
+shards gathered), whatever the source's degree, and ``migrate_in`` cuts it
+for the destination's mesh.
 """
 
 from __future__ import annotations
@@ -293,7 +294,8 @@ class RolloutWorker:
 
     ``mesh`` (``launch.mesh.WorkerMesh``) places the worker: its device 0
     takes the place of ``device``, and a mesh of degree ``mp`` > 1 shards
-    the worker (``models.model.check_tp`` says which configs have a split).
+    the worker, whatever its config: the groups whose widths divide by
+    ``mp`` are cut (``distributed.sharding.tp_split``), the rest replicated.
     ``params`` always takes the full tree; a meshed worker keeps its shards.
     """
 
@@ -314,8 +316,6 @@ class RolloutWorker:
                              f"{mesh.degree} devices")
         # the mesh the model functions compute on: only a sharded worker has one
         self._tp = mesh if mesh is not None and mesh.degree > 1 else None
-        if self._tp is not None:
-            M.check_tp(cfg, mesh.degree)
         self.device = mesh.devices[0] if mesh is not None else resolve_device(device)
         self.split = tp_split(cfg, mesh.degree if mesh is not None else 1)
         # the config each shard computes with (its heads and widths)

@@ -7,8 +7,8 @@ caches carry a leading ``n_periods`` axis.  The port runs the kinds of
 decoder's self- plus cross-attention ``dec`` and the VLM's gated
 cross-attention ``xattn``; dense MLP or MoE); the other fields are kept so
 that configurations read the same in both packages.  ``ShardConfig`` is the
-port's own: a tensor-parallel shard's config, whose Mamba width is its part
-of ``ssm_expand * d_model``.
+port's own: a tensor-parallel shard's config, whose Mamba and xLSTM widths
+are its parts of ``ssm_expand * d_model`` and ``xlstm_expand * d_model``.
 """
 
 from __future__ import annotations
@@ -73,6 +73,16 @@ class ModelConfig:
         return self.ssm_expand * self.d_model
 
     @property
+    def mlstm_inner(self) -> int:
+        """The mLSTM's inner width: its heads' q/k/v columns side by side."""
+        return self.xlstm_expand * self.d_model
+
+    @property
+    def slstm_inner(self) -> int:
+        """The sLSTM's width: its heads' cells side by side."""
+        return self.d_model
+
+    @property
     def n_layers(self) -> int:
         return len(self.block_pattern) * self.n_periods
 
@@ -115,15 +125,25 @@ class ModelConfig:
 @dataclass(frozen=True)
 class ShardConfig(ModelConfig):
     """The config one shard of a tensor-parallel worker computes with
-    (``distributed.sharding.shard_config``): its heads and widths, and
-    ``ssm_inner``, its part of Mamba's inner width, which ``ssm_expand *
-    d_model`` no longer gives."""
+    (``distributed.sharding.shard_config``): its heads and widths, and the
+    widths that ``d_model`` no longer gives: ``ssm_inner``, its part of
+    Mamba's inner width, and ``xlstm_inner``, its part of the mLSTM's (the
+    sLSTM's heads are cut with the same degree, so its width follows)."""
 
     ssm_inner: int = 0
+    xlstm_inner: int = 0
 
     @property
     def d_inner(self) -> int:
         return self.ssm_inner
+
+    @property
+    def mlstm_inner(self) -> int:
+        return self.xlstm_inner
+
+    @property
+    def slstm_inner(self) -> int:
+        return self.xlstm_inner // self.xlstm_expand
 
 
 # Sliding window the full-attention configs take for long-context decode

@@ -551,24 +551,33 @@ def fresh_slstm_state(B: int, H: int, hd: int, device) -> dict:
     return st
 
 
-def mlstm_full(p: dict, x: torch.Tensor, cfg: ModelConfig) -> tuple[torch.Tensor, dict]:
-    """Chunk-recurrent mLSTM (matrix memory, exponential gating, stabilised).
+# Each mLSTM form is two halves around the q/k/v/gate products, so that a
+# tensor-parallel shard holding 1/d of ``d_inner`` (``l_up``/``l_z`` columns,
+# the products' rows) can sum the partial products of all shards between
+# them: the first half runs the shard's columns up to its partial products,
+# the second takes the summed products of the shard's H/d heads -- whose
+# ``(..., H, hd) -> (..., di)`` columns are exactly the shard's -- and runs
+# the cell, the gate and the skip on them, ending in the shard's partial
+# ``l_down`` product.  Unsharded, the halves compose to the mixer.
 
-    Within a chunk of ``MLSTM_CHUNK`` steps the outputs come from a decay-
-    weighted attention-like product; across chunks the (C, n, m) state
-    carries, all in f32.  x: (B, S, d).  Returns (out (B, S, d), the carry
-    after the last token {"C": (B, H, hd, hd), "n": (B, H, hd), "m": (B, H)}),
-    the state a decode step continues from.  (The JAX package reruns the
-    sequential recurrence for that state; the carry equals it in exact
-    arithmetic, padding rows having a zero input weight and a unit forget
-    gate.)"""
-    B, S, _ = x.shape
+def mlstm_in(p: dict, x: torch.Tensor):
+    """The first half of either form.  x: (..., d).  Returns (xi (..., di)
+    the up-projected columns, z (..., di) their silu'd gate, and this shard's
+    partial products (q, k, v (..., H, hd), i_pre, f_pre (..., H) f32) over
+    its ``d_inner`` rows)."""
     xi = x @ p["l_up"]
-    z = F.silu(x @ p["l_z"])
-    di = xi.shape[-1]
-    H = cfg.n_heads
-    hd = di // H
-    q, k, v, i_pre, f_pre = _mlstm_qkv(p, xi)                 # (B,S,H,hd), (B,S,H)
+    return xi, F.silu(x @ p["l_z"]), _mlstm_qkv(p, xi)
+
+
+def mlstm_full_out(p: dict, xi: torch.Tensor, z: torch.Tensor, qkv: tuple
+                   ) -> tuple[torch.Tensor, dict]:
+    """The full form's second half on the heads of ``qkv`` (the summed
+    products, cut to this shard's heads): the chunk-recurrent cell, then
+    ``h z + l_skip xi`` and this shard's partial ``l_down`` product.  xi, z:
+    (B, S, di) the heads' columns.  Returns (out (B, S, d), the carry)."""
+    B, S, di = xi.shape
+    q, k, v, i_pre, f_pre = qkv                               # (B,S,H,hd), (B,S,H)
+    H, hd = q.shape[-2:]
     q = q.transpose(1, 2)                                     # (B,H,S,hd)
     k = k.transpose(1, 2) / math.sqrt(hd)
     v = v.transpose(1, 2)
@@ -582,8 +591,8 @@ def mlstm_full(p: dict, x: torch.Tensor, cfg: ModelConfig) -> tuple[torch.Tensor
         q, k, v = (F.pad(t, (0, 0, 0, pad)) for t in (q, k, v))
         i_pre = F.pad(i_pre, (0, pad), value=-1e30)
         logf = F.pad(logf, (0, pad))
-    causal = torch.tril(torch.ones((cs, cs), dtype=torch.bool, device=x.device))
-    st = fresh_mlstm_state(B, H, hd, x.device)
+    causal = torch.tril(torch.ones((cs, cs), dtype=torch.bool, device=xi.device))
+    st = fresh_mlstm_state(B, H, hd, xi.device)
     hs = []
     for c in range(nc):
         sl = slice(c * cs, (c + 1) * cs)
@@ -619,23 +628,33 @@ def mlstm_full(p: dict, x: torch.Tensor, cfg: ModelConfig) -> tuple[torch.Tensor
               "n": nst * decay[..., None] + torch.einsum("bhtd,bht->bhd", ki, wk),
               "m": m_new}
     h = torch.cat(hs, dim=2)[:, :, :S]                        # (B,H,S,hd)
-    h = h.transpose(1, 2).reshape(B, S, di).to(x.dtype)
+    h = h.transpose(1, 2).reshape(B, S, di).to(xi.dtype)
     out = h * z + p["l_skip"] * xi
     return out @ p["l_down"], st
 
 
-def mlstm_step(p: dict, x: torch.Tensor, cfg: ModelConfig, state: dict
-               ) -> tuple[torch.Tensor, dict]:
-    """One-token mLSTM.  x: (B, 1, d); state = {"C": (B,H,hd,hd), "n":
-    (B,H,hd), "m": (B,H)}, f32.  Returns (out (B, 1, d), new state); the
-    state passed in is not changed."""
-    B = x.shape[0]
-    xi = x[:, 0] @ p["l_up"]
-    z = F.silu(x[:, 0] @ p["l_z"])
-    di = xi.shape[-1]
-    hd = di // cfg.n_heads
-    q, k, v, i_pre, f_pre = _mlstm_qkv(p, xi)                 # (B,H,hd), (B,H)
-    k = k / math.sqrt(hd)
+def mlstm_full(p: dict, x: torch.Tensor, cfg: ModelConfig) -> tuple[torch.Tensor, dict]:
+    """Chunk-recurrent mLSTM (matrix memory, exponential gating, stabilised).
+
+    Within a chunk of ``MLSTM_CHUNK`` steps the outputs come from a decay-
+    weighted attention-like product; across chunks the (C, n, m) state
+    carries, all in f32.  x: (B, S, d).  Returns (out (B, S, d), the carry
+    after the last token {"C": (B, H, hd, hd), "n": (B, H, hd), "m": (B, H)}),
+    the state a decode step continues from.  (The JAX package reruns the
+    sequential recurrence for that state; the carry equals it in exact
+    arithmetic, padding rows having a zero input weight and a unit forget
+    gate.)"""
+    return mlstm_full_out(p, *mlstm_in(p, x))
+
+
+def mlstm_step_out(p: dict, xi: torch.Tensor, z: torch.Tensor, qkv: tuple, state: dict
+                   ) -> tuple[torch.Tensor, dict]:
+    """The step's second half on the heads of ``qkv`` (as ``mlstm_full_out``);
+    xi, z: (B, di); ``state`` the heads' {"C", "n", "m"}.  Returns (out (B, 1,
+    d) this shard's partial, new state); the state passed in is not changed."""
+    B, di = xi.shape
+    q, k, v, i_pre, f_pre = qkv                               # (B,H,hd), (B,H)
+    k = k / math.sqrt(q.shape[-1])
     logf = F.logsigmoid(f_pre)
     m_new = torch.maximum(logf + state["m"], i_pre)
     fw = torch.exp(logf + state["m"] - m_new)[..., None]
@@ -646,9 +665,17 @@ def mlstm_step(p: dict, x: torch.Tensor, cfg: ModelConfig, state: dict
     n = state["n"] * fw + iw * kf
     num = torch.einsum("bhde,bhd->bhe", C, qf)
     den = torch.maximum(torch.abs(torch.einsum("bhd,bhd->bh", n, qf)), torch.exp(-m_new))
-    h = (num / den[..., None]).reshape(B, di).to(x.dtype)
+    h = (num / den[..., None]).reshape(B, di).to(xi.dtype)
     out = h * z + p["l_skip"] * xi
     return (out @ p["l_down"])[:, None], {"C": C, "n": n, "m": m_new}
+
+
+def mlstm_step(p: dict, x: torch.Tensor, cfg: ModelConfig, state: dict
+               ) -> tuple[torch.Tensor, dict]:
+    """One-token mLSTM.  x: (B, 1, d); state = {"C": (B,H,hd,hd), "n":
+    (B,H,hd), "m": (B,H)}, f32.  Returns (out (B, 1, d), new state); the
+    state passed in is not changed."""
+    return mlstm_step_out(p, *mlstm_in(p, x[:, 0]), state)
 
 
 def _slstm_cell(p: dict, xt: torch.Tensor, state: dict) -> dict:
@@ -669,23 +696,26 @@ def _slstm_cell(p: dict, xt: torch.Tensor, state: dict) -> dict:
 def slstm_full(p: dict, x: torch.Tensor, cfg: ModelConfig) -> tuple[torch.Tensor, dict]:
     """Full-sequence sLSTM, a sequential loop over S (its recurrence runs
     through h, so no chunked form exists).  x: (B, S, d).  Returns (out (B,
-    S, d), the state after the last token {"h", "c", "n", "m": (B, H, hd)})."""
-    B, S, D = x.shape
-    H = cfg.n_heads
+    S, d), the state after the last token {"h", "c", "n", "m": (B, H, hd)}).
+    The heads are ``s_w``'s: on a tensor-parallel shard its H/d heads,
+    whose h is the rows of its ``s_out``, and ``out`` the shard's partial."""
+    B, S, _ = x.shape
+    H, hd = p["s_w"].shape[-2:]
     xt = torch.einsum("bsd,dghe->bsghe", x, p["s_w"])         # (B,S,4,H,hd)
-    st = fresh_slstm_state(B, H, D // H, x.device)
+    st = fresh_slstm_state(B, H, hd, x.device)
     hs = []
     for t in range(S):
         st = _slstm_cell(p, xt[:, t], st)
         hs.append(st["h"])
-    h = torch.stack(hs, dim=1).reshape(B, S, D).to(x.dtype)
+    h = torch.stack(hs, dim=1).reshape(B, S, H * hd).to(x.dtype)
     return h @ p["s_out"], st
 
 
 def slstm_step(p: dict, x: torch.Tensor, cfg: ModelConfig, state: dict
                ) -> tuple[torch.Tensor, dict]:
-    """One-token sLSTM.  x: (B, 1, d); state h/c/n/m: (B, H, hd) f32.
-    Returns (out (B, 1, d), new state)."""
+    """One-token sLSTM.  x: (B, 1, d); state h/c/n/m: (B, H, hd) f32, on
+    ``s_w``'s heads (a shard's, as ``slstm_full``).  Returns (out (B, 1, d),
+    new state)."""
     B = x.shape[0]
     xt = torch.einsum("bd,dghe->bghe", x[:, 0], p["s_w"])
     st = _slstm_cell(p, xt, state)

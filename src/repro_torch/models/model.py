@@ -300,14 +300,21 @@ def _cross_source(cfg: ModelConfig, params, batch: dict) -> torch.Tensor | None:
     queries, which the decode kernel refuses)."""
     if cfg.arch_type not in CROSS_ARCHS:
         return None
+    embeds = _cross_embeds(cfg, batch)
+    if cfg.arch_type == "audio":
+        return _encoder(cfg, params, embeds)
+    return embeds @ params["enc_proj"]
+
+
+def _cross_embeds(cfg: ModelConfig, batch: dict) -> torch.Tensor:
+    """The batch's frame (audio) or patch (VLM) embeddings, checked to be in
+    the model's dtype."""
     name = "encoder_embeds" if cfg.arch_type == "audio" else "image_embeds"
     embeds = batch[name]
     if embeds.dtype != torch_dtype(cfg):
         raise TypeError(f"{cfg.name}: batch[{name!r}] is {embeds.dtype}, the model "
                         f"takes {torch_dtype(cfg)}")
-    if cfg.arch_type == "audio":
-        return _encoder(cfg, params, embeds)
-    return embeds @ params["enc_proj"]
+    return embeds
 
 
 # ------------------------------------------------------------------ gates
@@ -439,9 +446,11 @@ def forward_full(cfg: ModelConfig, params, batch: dict, capacity: int | None = N
 
     With a ``mesh`` (``launch.mesh.WorkerMesh``), ``params`` is a list of its
     shards and the forward is a tensor-parallel worker's whole-prompt
-    admission: no autograd, no remat, token batches only; the logits come
-    back on the mesh's device 0 and the cache, with ``capacity``, as a list
-    of one cache per shard (the shard's kv heads and Mamba channels).
+    admission (or, for audio and VLM configs, the model API's admission
+    over their embeddings): no autograd, no remat; the logits come back on
+    the mesh's device 0 and the cache, with ``capacity``, as a list of one
+    cache per shard (the shard's kv heads, cross K/V heads, Mamba channels
+    and xLSTM heads).
     """
     if mesh is not None:
         if remat or return_hidden:
@@ -567,16 +576,16 @@ def _state_leaves(cfg: ModelConfig, kind: str, lanes: int, device) -> dict:
     """Fresh recurrent state of one layer kind for ``lanes`` lanes: Mamba's
     zeroed, xLSTM's as the layers start it (``m`` at -1e30)."""
     mixer = kind.partition("+")[0]
-    P, d, H = cfg.n_periods, cfg.d_model, cfg.n_heads
+    P, H = cfg.n_periods, cfg.n_heads
     if mixer == "mamba":
         di = cfg.d_inner
         return {"h": torch.zeros((P, lanes, di, cfg.ssm_state_dim), dtype=F32, device=device),
                 "conv": torch.zeros((P, lanes, cfg.ssm_conv_width - 1, di),
                                     dtype=torch_dtype(cfg), device=device)}
     if mixer == "mlstm":
-        st = L.fresh_mlstm_state(P * lanes, H, cfg.xlstm_expand * d // H, device)
+        st = L.fresh_mlstm_state(P * lanes, H, cfg.mlstm_inner // H, device)
     else:
-        st = L.fresh_slstm_state(P * lanes, H, d // H, device)
+        st = L.fresh_slstm_state(P * lanes, H, cfg.slstm_inner // H, device)
     return {name: t.reshape((P, lanes) + tuple(t.shape[1:])) for name, t in st.items()}
 
 
@@ -935,51 +944,49 @@ def grow_paged_lanes(cfg: ModelConfig, pool: dict, extra: int) -> dict:
 
 # ------------------------------------------------------------------ tensor parallel
 # A worker of MP degree d on a mesh of d shards (``distributed/sharding.py``):
-# each shard runs the layer functions on its own params, K/V and Mamba state
-# with a shard config (H/d, KV/d, d_ff/d, d_inner/d and the shared /
-# dense-residual widths over d when cut; every expert routed, its E/d run),
-# and the partial outputs are summed in shard order by ``mesh.reduce``: the
-# attention's ``wo``, the MLP's and MoE's output products, and Mamba's
-# ``m_xproj`` (between the layer's two halves) and ``m_out`` products.  The
-# residual stream is replicated: every shard holds the same hidden states.
-
-def check_tp(cfg: ModelConfig, degree: int) -> None:
-    """Raise unless ``cfg`` has a tensor-parallel split at MP degree
-    ``degree``: attention (full or windowed) and Mamba mixers, dense-MLP and
-    MoE layers, admitted by chunks or by one full forward.  Degree 1 takes
-    every config."""
-    if degree <= 1:
-        return
-    outside = sorted({k for k in cfg.block_pattern if k.partition("+")[0] in ("mlstm", "slstm")})
-    if outside or cfg.arch_type in CROSS_ARCHS:
-        raise NotImplementedError(
-            f"{cfg.name}: no tensor-parallel split at MP degree {degree} for "
-            f"{outside or f'its cross-attention ({cfg.arch_type})'}: the xLSTM split "
-            "(l_q/l_k/l_v take d_inner on their rows, so q, k and v need a reduce before "
-            "the cell) and cross-attention are queued in ROADMAP.md Queue 1")
+# each shard runs the layer functions on its own params, K/V, cross K/V and
+# recurrent state with a shard config (H/d, KV/d, d_ff/d, Mamba's and the
+# xLSTM's inner widths over d and the shared / dense-residual widths over d
+# when cut; every expert routed, its E/d run), and the partial outputs are
+# summed in shard order by ``mesh.reduce``: the self- and cross-attention's
+# ``wo``, the MLP's and MoE's output products, Mamba's ``m_xproj`` (between
+# the layer's two halves) and ``m_out`` products, the mLSTM's q/k/v/gate
+# (between its halves) and ``l_down`` products and the sLSTM's ``s_out``
+# product.  The residual stream is replicated: every shard holds the same
+# hidden states, the audio encoder's and the VLM's projected patches too.
+# Every config has a split; a group whose widths do not divide by d is
+# replicated.
 
 
 def _tp_setup(cfg: ModelConfig, mesh):
-    check_tp(cfg, mesh.degree)
     split = tp_split(cfg, mesh.degree)
     return split, shard_config(cfg, split)
 
 
-def _tp_embed(split, mesh, params: list, tokens: torch.Tensor) -> list:
+def _tp_embed(cfg, split, mesh, params: list, tokens: torch.Tensor, pos: list | None = None
+              ) -> list:
     """Every shard's copy of the embedded tokens.  With the vocabulary cut,
     each shard looks the tokens up in its slice (zero outside it) and the
-    slices are summed: one of them is non-zero, so the sum is exact."""
+    slices are summed: one of them is non-zero, so the sum is exact.  Audio
+    configs add the sinusoidal positions: each lane's of ``pos`` (every
+    shard's (B,) positions, a decode step) or the prompt's 0 .. S - 1."""
     toks = mesh.broadcast(tokens.long())
     if not split.vocab:
-        return [p["tok_embed"][t] for p, t in zip(params, toks)]
-    parts = []
-    for r, (p, t) in enumerate(zip(params, toks)):
-        n = p["tok_embed"].shape[0]
-        local = t - r * n
-        rows = p["tok_embed"][local.clamp(0, n - 1)]
-        parts.append(torch.where(((local >= 0) & (local < n))[..., None], rows,
-                                 torch.zeros_like(rows)))
-    return mesh.reduce(parts)
+        xs = [p["tok_embed"][t] for p, t in zip(params, toks)]
+    else:
+        parts = []
+        for r, (p, t) in enumerate(zip(params, toks)):
+            n = p["tok_embed"].shape[0]
+            local = t - r * n
+            rows = p["tok_embed"][local.clamp(0, n - 1)]
+            parts.append(torch.where(((local >= 0) & (local < n))[..., None], rows,
+                                     torch.zeros_like(rows)))
+        xs = mesh.reduce(parts)
+    if cfg.arch_type != "audio":
+        return xs
+    if pos is None:
+        return [x + _sinusoidal(x.shape[1], cfg.d_model, x.dtype, x.device)[None] for x in xs]
+    return [x + _sinusoidal_at(q, cfg.d_model, x.dtype) for x, q in zip(xs, pos)]
 
 
 def _tp_sum(mesh, parts: list, cut: bool) -> list:
@@ -996,7 +1003,8 @@ def _tp_add(mesh, xs: list, outs: list, cut: bool) -> list:
 
 
 # the TPSplit group that decides whether a mixer's output is a partial
-_MIXER_GROUP = {"attn": "attn", "mamba": "ssm"}
+_MIXER_GROUP = {"attn": "attn", "dec": "attn", "xattn": "attn", "enc_attn": "attn",
+                "mamba": "ssm", "mlstm": "xlstm", "slstm": "xlstm"}
 
 
 def _tp_moe(cfg, split, r: int, p: dict, h: torch.Tensor):
@@ -1010,14 +1018,23 @@ def _tp_moe(cfg, split, r: int, p: dict, h: torch.Tensor):
     return L.moe(p, h, cfg, e0=e0, experts=split.experts or lead, side=split.moe_ff or lead)
 
 
-def _tp_layer(cfg, split, mesh, kind: str, ps: list, xs: list, mix):
+def _tp_layer(cfg, split, mesh, kind: str, ps: list, xs: list, mix, cross=None):
     """One layer on every shard: ``mix(hs)`` gives every shard's mixer
     output on its normed input (its part of the output product where the
-    mixer is cut), then the dense MLP or MoE runs on its shard's part.
-    Returns (xs, shard 0's MoE aux loss or None)."""
+    mixer is cut; a gated ``xattn`` layer's gate scales the sum), then a
+    ``dec`` layer's ``cross(hxs)`` gives its cross-attention's on the
+    ``norm_x``-normed stream, then the dense MLP or MoE runs on its shard's
+    part.  Returns (xs, shard 0's MoE aux loss or None)."""
     mixer, _, mlp_kind = kind.partition("+")
+    cut = getattr(split, _MIXER_GROUP[mixer])
     hs = [L.block_norm(cfg, p["norm1"], x) for p, x in zip(ps, xs)]
-    xs = _tp_add(mesh, xs, mix(hs), getattr(split, _MIXER_GROUP[mixer]))
+    outs = _tp_sum(mesh, mix(hs), cut)
+    if mixer == "xattn":
+        outs = [torch.tanh(p["mixer"]["xgate"]) * o for p, o in zip(ps, outs)]
+    xs = [x + o for x, o in zip(xs, outs)]
+    if mixer == "dec":
+        xs = _tp_add(mesh, xs, cross([L.block_norm(cfg, p["norm_x"], x)
+                                      for p, x in zip(ps, xs)]), cut)
     aux = None
     if mlp_kind == "mlp":
         outs = [L.mlp(p["mlp"], L.block_norm(cfg, p["norm2"], x), cfg.activation)
@@ -1049,6 +1066,41 @@ def _tp_periods(cfg, params: list, caches: list | None):
                     for c in (caches or [None] * len(params))])
 
 
+def _tp_encoder(cfg, split, mesh, params: list, embeds: torch.Tensor) -> list:
+    """``_encoder`` on the mesh: each encoder layer's attention on the
+    shard's heads and its MLP on the shard's ``d_ff``, the partials summed;
+    ``enc_norm`` on every shard's copy.  Returns every shard's copy of the
+    encoder's output."""
+    T, D = embeds.shape[1:]
+    xs = [e + _sinusoidal(T, D, e.dtype, e.device)[None] for e in mesh.broadcast(embeds)]
+    positions = [torch.arange(T, device=dev) for dev in mesh.devices]
+    for li in range(cfg.encoder_layers):
+        ps = [_period(p["enc_blocks"]["00_enc_attn+mlp"], li) for p in params]
+
+        def mix(hs, ps=ps):
+            return [L.attention_full(p["mixer"], h, cfg, pos, causal=False, use_rope=False)
+                    for p, h, pos in zip(ps, hs, positions)]
+        xs, _ = _tp_layer(cfg, split, mesh, "enc_attn+mlp", ps, xs, mix)
+    return [L.block_norm(cfg, p["enc_norm"], x) for p, x in zip(params, xs)]
+
+
+def _tp_cross_source(cfg, split, mesh, params: list, batch: dict) -> list | None:
+    """``_cross_source`` on the mesh: every shard's copy of what its
+    cross-attention attends to (the VLM's ``enc_proj`` is replicated)."""
+    if cfg.arch_type not in CROSS_ARCHS:
+        return None
+    embeds = _cross_embeds(cfg, batch)
+    if cfg.arch_type == "audio":
+        return _tp_encoder(cfg, split, mesh, params, embeds)
+    return [e @ p["enc_proj"] for p, e in zip(params, mesh.broadcast(embeds))]
+
+
+def _lane_copy(lane: dict | None, state: dict) -> None:
+    """A recurrent layer's last ``state`` into its ``lane`` leaves (when given)."""
+    for name, leaf in (lane or {}).items():
+        leaf.copy_(state[name])
+
+
 def _tp_mamba_full(cfg, split, mesh, ps: list, hs: list, lanes: list) -> list:
     """A Mamba layer's full form on every shard: the first halves, the sum
     of the partial projections, then the scan on each shard's channels;
@@ -1058,9 +1110,7 @@ def _tp_mamba_full(cfg, split, mesh, ps: list, hs: list, lanes: list) -> list:
     outs = []
     for p, (xc, z, conv, _), dbc, lane in zip(ps, firsts, dbcs, lanes):
         out, h_last = L.mamba_full_out(p["mixer"], xc, z, dbc, cfg)
-        if lane is not None:
-            lane["h"].copy_(h_last)
-            lane["conv"].copy_(conv)
+        _lane_copy(lane, {"h": h_last, "conv": conv})
         outs.append(out)
     return outs
 
@@ -1075,14 +1125,73 @@ def _tp_mamba_step(cfg, split, mesh, ps: list, hs: list, states: list):
     return [o for o, _ in pairs], [n for _, n in pairs]
 
 
-def _tp_mamba_chunk(cfg, split, mesh, ps: list, hs: list, states: list, length: int) -> list:
+def _tp_mlstm_qkv(split, mesh, firsts: list) -> list:
+    """Every shard's (q, k, v, i_pre, f_pre) on its heads: the shards'
+    partial products summed in shard order (the gates in f32), then each
+    shard's H/d heads taken; uncut, each shard's own whole products."""
+    if not split.xlstm:
+        return [f[2] for f in firsts]
+    d = split.degree
+    sums = [mesh.reduce([f[2][j] for f in firsts]) for j in range(5)]
+    return [tuple(s[r].chunk(d, dim=-2 if j < 3 else -1)[r] for j, s in enumerate(sums))
+            for r in range(d)]
+
+
+def _tp_mlstm_full(cfg, split, mesh, ps: list, hs: list, lanes: list) -> list:
+    """An mLSTM layer's full form on every shard: the first halves, the sum
+    of the partial q/k/v/gate products, then the cell on each shard's heads;
+    each shard's carry goes into its lane (when given)."""
+    firsts = [L.mlstm_in(p["mixer"], h) for p, h in zip(ps, hs)]
+    outs = []
+    for p, (xi, z, _), qkv, lane in zip(ps, firsts, _tp_mlstm_qkv(split, mesh, firsts), lanes):
+        out, st = L.mlstm_full_out(p["mixer"], xi, z, qkv)
+        _lane_copy(lane, st)
+        outs.append(out)
+    return outs
+
+
+def _tp_mlstm_step(cfg, split, mesh, ps: list, hs: list, states: list):
+    """One mLSTM step on every shard from its ``states`` (its heads').
+    Returns (outputs, new states); the states passed in are not changed."""
+    firsts = [L.mlstm_in(p["mixer"], h[:, 0]) for p, h in zip(ps, hs)]
+    pairs = [L.mlstm_step_out(p["mixer"], xi, z, qkv, st)
+             for p, (xi, z, _), qkv, st in zip(ps, firsts, _tp_mlstm_qkv(split, mesh, firsts),
+                                               states)]
+    return [o for o, _ in pairs], [n for _, n in pairs]
+
+
+def _tp_slstm_full(cfg, split, mesh, ps: list, hs: list, lanes: list) -> list:
+    """An sLSTM layer on every shard's heads (its ``s_w`` pre-activations
+    need no sum); each shard's last state goes into its lane (when given)."""
+    outs = []
+    for p, h, lane in zip(ps, hs, lanes):
+        out, st = L.slstm_full(p["mixer"], h, cfg)
+        _lane_copy(lane, st)
+        outs.append(out)
+    return outs
+
+
+def _tp_slstm_step(cfg, split, mesh, ps: list, hs: list, states: list):
+    """One sLSTM step on every shard's heads.  Returns (outputs, new states)."""
+    pairs = [L.slstm_step(p["mixer"], h, cfg, st) for p, h, st in zip(ps, hs, states)]
+    return [o for o, _ in pairs], [n for _, n in pairs]
+
+
+# a recurrent mixer on the mesh: (full form, one step), as ``RECURRENT``'s
+_TP_RECURRENT = {"mamba": (_tp_mamba_full, _tp_mamba_step),
+                 "mlstm": (_tp_mlstm_full, _tp_mlstm_step),
+                 "slstm": (_tp_slstm_full, _tp_slstm_step)}
+
+
+def _tp_recurrent_chunk(step, cfg, split, mesh, ps: list, hs: list, states: list,
+                        length: int) -> list:
     """``_recurrent_chunk`` on a mesh: the chunk's tokens stepped one by one
-    on every shard, each shard's lane ``states`` (batch 1) updated in place
-    by the first ``length``."""
+    through ``step`` on every shard, each shard's lane ``states`` (batch 1)
+    updated in place by the first ``length``."""
     outs = [[] for _ in ps]
     for j in range(hs[0].shape[1]):
-        step, news = _tp_mamba_step(cfg, split, mesh, ps, [h[:, j:j + 1] for h in hs], states)
-        for r, (o, new, st) in enumerate(zip(step, news, states)):
+        step_outs, news = step(cfg, split, mesh, ps, [h[:, j:j + 1] for h in hs], states)
+        for r, (o, new, st) in enumerate(zip(step_outs, news, states)):
             if j < length:
                 _merge_state(None, new, st)
             outs[r].append(o)
@@ -1092,29 +1201,50 @@ def _tp_mamba_chunk(cfg, split, mesh, ps: list, hs: list, states: list, length: 
 @torch.no_grad()
 def _forward_full_tp(cfg, params: list, batch: dict, capacity: int | None, mesh):
     """``forward_full`` on a mesh (see there): every layer on every shard,
-    attention on its heads writing its lane's K/V (ring slots too), Mamba's
-    two halves around the summed projection, MoE on its expert range."""
+    attention on its heads writing its lane's K/V (ring slots too),
+    cross-attention on its heads writing its cross K/V, Mamba's and the
+    mLSTM's two halves around the summed products, the sLSTM on its heads,
+    MoE on its expert range."""
     split, scfg = _tp_setup(cfg, mesh)
     B, S = batch["tokens"].shape
-    xs = _tp_embed(split, mesh, params, batch["tokens"])
+    xs = _tp_embed(cfg, split, mesh, params, batch["tokens"])
+    encs = _tp_cross_source(scfg, split, mesh, params, batch)
     positions = [torch.arange(S, device=dev) for dev in mesh.devices]
-    caches = None if capacity is None else [init_cache(scfg, B, capacity, dev, start_pos=S)
-                                            for dev in mesh.devices]
+    enc_len = None if encs is None else encs[0].shape[1]
+    caches = None if capacity is None else [
+        init_cache(scfg, B, capacity, dev, start_pos=S, enc_len=enc_len) for dev in mesh.devices]
+    encs = encs or [None] * mesh.degree
+    rope = _use_rope(cfg)
     aux = torch.zeros((), dtype=F32, device=mesh.devices[0])
+
+    def cross_attend(ps, hs, lanes, name):
+        outs = []
+        for p, h, pos, lane, enc in zip(ps, hs, positions, lanes, encs):
+            outs.append(L.attention_full(p[name], h, scfg, pos, causal=False, use_rope=False,
+                                         kv_input=enc))
+            if lane is not None:
+                _cross_kv(p[name], enc, lane)
+        return outs
+
     for kind, ps, lanes in _tp_periods(cfg, params, caches):
-        if kind.partition("+")[0] == "mamba":
+        mixer = kind.partition("+")[0]
+        if mixer in _TP_RECURRENT:
+            def mix(hs, ps=ps, lanes=lanes, full=_TP_RECURRENT[mixer][0]):
+                return full(scfg, split, mesh, ps, hs, lanes)
+        elif mixer == "xattn":
             def mix(hs, ps=ps, lanes=lanes):
-                return _tp_mamba_full(scfg, split, mesh, ps, hs, lanes)
+                return cross_attend(ps, hs, lanes, "mixer")
         else:
             def mix(hs, ps=ps, lanes=lanes):
                 outs = []
                 for p, h, pos, lane in zip(ps, hs, positions, lanes):
-                    outs.append(L.attention_full(p["mixer"], h, scfg, pos,
+                    outs.append(L.attention_full(p["mixer"], h, scfg, pos, use_rope=rope,
                                                  window=scfg.sliding_window))
                     if lane is not None:
                         _kv_from_full(scfg, p["mixer"], h, pos, lane)
                 return outs
-        xs, a = _tp_layer(scfg, split, mesh, kind, ps, xs, mix)
+        xs, a = _tp_layer(scfg, split, mesh, kind, ps, xs, mix,
+                          lambda hxs, ps=ps, lanes=lanes: cross_attend(ps, hxs, lanes, "xattn"))
         if a is not None:
             aux = aux + a.to(aux.device)
     logits = _tp_logits(scfg, split, mesh, params, xs)
@@ -1123,16 +1253,26 @@ def _forward_full_tp(cfg, params: list, batch: dict, capacity: int | None, mesh)
 
 def _decode_step_tp(cfg, params: list, caches: list, tokens, active, mesh):
     split, scfg = _tp_setup(cfg, mesh)
-    xs = _tp_embed(split, mesh, params, tokens)
+    xs = _tp_embed(cfg, split, mesh, params, tokens, [c["pos"] for c in caches])
     paged = "page_table" in caches[0]
     acts = [None] * mesh.degree if active is None else mesh.broadcast(active)
+    rope = _use_rope(cfg)
+
+    def cross_attend(ps, hs, cs, name):
+        return [L.cross_attention_decode(p[name], h, scfg, c["xk"], c["xv"])
+                for p, h, c in zip(ps, hs, cs)]
+
     for kind, ps, cs in _tp_periods(cfg, params, caches):
-        if kind.partition("+")[0] == "mamba":
-            def mix(hs, ps=ps, cs=cs):
-                outs, news = _tp_mamba_step(scfg, split, mesh, ps, hs, cs)
+        mixer = kind.partition("+")[0]
+        if mixer in _TP_RECURRENT:
+            def mix(hs, ps=ps, cs=cs, step=_TP_RECURRENT[mixer][1]):
+                outs, news = step(scfg, split, mesh, ps, hs, cs)
                 for a, new, c in zip(acts, news, cs):
                     _merge_state(a, new, c)
                 return outs
+        elif mixer == "xattn":
+            def mix(hs, ps=ps, cs=cs):
+                return cross_attend(ps, hs, cs, "mixer")
         else:
             def mix(hs, ps=ps, cs=cs):
                 outs = []
@@ -1143,10 +1283,11 @@ def _decode_step_tp(cfg, params: list, caches: list, tokens, active, mesh):
                             pool["pos"])[0])
                     else:
                         outs.append(L.attention_decode(p["mixer"], h, scfg, c["k"], c["v"],
-                                                       pool["pos"],
-                                                       window=scfg.sliding_window)[0])
+                                                       pool["pos"], window=scfg.sliding_window,
+                                                       use_rope=rope)[0])
                 return outs
-        xs, _ = _tp_layer(scfg, split, mesh, kind, ps, xs, mix)
+        xs, _ = _tp_layer(scfg, split, mesh, kind, ps, xs, mix,
+                          lambda hxs, ps=ps, cs=cs: cross_attend(ps, hxs, cs, "xattn"))
     logits = _tp_logits(scfg, split, mesh, params, xs)
     for cache, a in zip(caches, acts):
         cache["pos"] = cache["pos"] + 1 if a is None else cache["pos"] + a.to(torch.int32)
@@ -1163,13 +1304,14 @@ def _prefill_chunk_tp(cfg, params: list, caches: list, tokens, length: int, mesh
                          "(padding rows would consume expert capacity)")
     row = 0 if slot is None else slot
     offs = [c["pos"][row].clone() for c in caches]
-    xs = _tp_embed(split, mesh, params, tokens)
+    xs = _tp_embed(cfg, split, mesh, params, tokens)
     for kind, ps, cs in _tp_periods(cfg, params, caches):
-        if kind.partition("+")[0] == "mamba":
+        mixer = kind.partition("+")[0]
+        if mixer in _TP_RECURRENT:
             states = [{name: leaf[row:row + 1] for name, leaf in c.items()} for c in cs]
 
-            def mix(hs, ps=ps, states=states):
-                return _tp_mamba_chunk(scfg, split, mesh, ps, hs, states, length)
+            def mix(hs, ps=ps, states=states, step=_TP_RECURRENT[mixer][1]):
+                return _tp_recurrent_chunk(step, scfg, split, mesh, ps, hs, states, length)
         else:
             def mix(hs, ps=ps, cs=cs):
                 if slot is None:

@@ -70,6 +70,30 @@ def test_split_plan_at_the_main_shapes(shape):
     assert B * KV * n_split == 512
 
 
+# (B, KV, C) -> (L, n_split, the last piece's slots) on 132 SMs: the dense
+# kernel's cross-attention calls on a tensor-parallel shard, every slot valid:
+# whisper's 1,500 frames at KV 16 over 2 and 4 shards, the VLM's 1,600
+# patches at KV 8 over 2 and 4
+CROSS_SHARD_PLANS = {
+    "whisper-kv8": ((8, 8, 1500), (192, 8, 156)),
+    "whisper-kv4": ((8, 4, 1500), (128, 12, 92)),
+    "vlm-kv4": ((8, 4, 1600), (128, 13, 64)),
+    "vlm-kv2": ((8, 2, 1600), (64, 25, 64)),
+}
+
+
+@pytest.mark.parametrize("shape", list(CROSS_SHARD_PLANS))
+def test_split_plan_at_the_cross_shard_shapes(shape):
+    """Fewer kv heads a shard spread each lane over more pieces: between 384
+    and 512 blocks, every slot once, whisper's last piece and its last tile
+    ragged."""
+    (B, KV, C), (L, n, last) = CROSS_SHARD_PLANS[shape]
+    assert kernel._split_plan(B, KV, C, 1, H100_SMS) == (L, n)
+    pieces = _pieces(L, n, C)
+    assert pieces[-1][1] - pieces[-1][0] == last and pieces[-1][1] == C
+    assert sum(hi - lo for lo, hi in pieces) == C and 384 <= B * KV * n <= 512
+
+
 def _boundary_lengths(shape):
     (B, KV, C, ps), (L, _) = MAIN_PLANS[shape]
     return {"1": 1, "L-1": L - 1, "L": L, "L+1": L + 1, "C": C}

@@ -1000,3 +1000,83 @@ def test_cuda_sharded_jamba_worker_matches_degree_one(degree, paged):
     (out1, stats1, logits1), (out, stats, logits) = runs[1], runs[degree]
     assert out == out1 and stats == stats1
     assert float((logits - logits1).abs().max()) < TOL["float32"]
+
+
+# ---------------------------------------------------------------- the xLSTM and cross splits
+# the dense kernel at the cross-attention shard shapes: whisper's KV 16 over 2
+# and 4 shards (G 1, hd 64, 1,500 frames) and the VLM's KV 8 (G 4, hd 128,
+# 1,600 patches), B 8, every slot valid, the lane past the last NaN
+CROSS_SHARD_SHAPES = [(8, 8, 1, 64, 1500), (8, 4, 1, 64, 1500),
+                      (8, 4, 4, 128, 1600), (8, 2, 4, 128, 1600)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", CROSS_SHARD_SHAPES,
+                         ids=["whisper-kv8", "whisper-kv4", "vlm-kv4", "vlm-kv2"])
+def test_cuda_dense_kernel_at_cross_shard_shapes(shape, dtype):
+    test_cuda_dense_kernel_at_cross_shapes(shape, dtype)
+
+
+def _sharded_against_cpu(cfg, params, batch, degree, steps=4):
+    """``forward_full(mesh=)`` over ``batch`` on ``degree`` shards on the
+    card, then ``steps`` teacher-forced decode steps on the mesh, against the
+    same unsharded on the CPU (plain versions).  Returns (the largest logit
+    difference, the dense kernel's launches on the card)."""
+    from repro_torch.distributed.sharding import shard_params, tp_split
+    from repro_torch.launch.mesh import WorkerMesh
+    from repro_torch.models import model as M
+    mesh = WorkerMesh((torch.device("cuda", 0),) * degree)
+    shards = shard_params(params, tp_split(cfg, degree), mesh)
+    want, _, cache = M.forward_full(cfg, params, batch, capacity=24)
+    got, _, caches = M.forward_full(cfg, shards, M.tree_to(batch, "cuda"), capacity=24,
+                                    mesh=mesh)
+    err = float((got.cpu() - want).abs().max())
+    before = kernel.launches["decode_attention"]
+    tok = torch.tensor([[1], [2]])
+    for _ in range(steps):
+        lc, _ = M.decode_step(cfg, params, cache, tok)
+        lg, _ = M.decode_step(cfg, shards, caches, tok.cuda(), mesh=mesh)
+        err = max(err, float((lg.cpu() - lc).abs().max()))
+        tok = lc.argmax(-1, keepdim=True)
+    torch.cuda.synchronize()
+    return err, kernel.launches["decode_attention"] - before
+
+
+@pytest.mark.parametrize("degree", [2, 4])
+def test_cuda_sharded_xlstm_matches_cpu(degree):
+    """xlstm reduced (f32) on ``degree`` shards on the card against the CPU,
+    unsharded: admission and 4 decode steps within 1e-4 of its logits; no
+    kernel of the repo launches."""
+    _need_cuda()
+    cfg = get_config("xlstm_350m").reduced(n_periods=1)
+    params = init_params(cfg, seed=0, device="cpu")
+    batch = {"tokens": torch.randint(0, cfg.vocab, (2, 12),
+                                     generator=torch.Generator().manual_seed(3))}
+    counts = dict(kernel.launches), dict(scan_kernel.launches)
+    err, _ = _sharded_against_cpu(cfg, params, batch, degree)
+    assert (dict(kernel.launches), dict(scan_kernel.launches)) == counts
+    assert err < 1e-4, err
+
+
+@pytest.mark.parametrize("degree", [2, 4])
+@pytest.mark.parametrize("name", ["whisper_medium", "llama_3_2_vision_11b"])
+def test_cuda_sharded_cross_model_matches_cpu(name, degree):
+    """The reduced audio and VLM models (f32, gates open; the VLM at 8/4
+    heads, so that degree 4 cuts) on ``degree`` shards on the card against
+    the CPU, unsharded: admission over embeddings and 4 decode steps within
+    1e-4; each step runs the dense kernel once a shard and a self- or
+    cross-attention layer."""
+    _need_cuda()
+    kw = dict(n_periods=2) if name == "whisper_medium" else dict(n_heads=8, n_kv_heads=4)
+    cfg = get_config(name).reduced(**kw)
+    params = _open_gates(init_params(cfg, seed=0, device="cpu"))
+    T, key = ((cfg.encoder_seq, "encoder_embeds") if cfg.arch_type == "audio"
+              else (cfg.image_seq, "image_embeds"))
+    gen = torch.Generator().manual_seed(3)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (2, 12), generator=gen),
+             key: torch.randn((2, T, cfg.d_model), generator=gen)}
+    per_step = sum({"dec": 2, "attn": 1, "xattn": 1}[k.partition("+")[0]]
+                   for k in cfg.block_pattern) * cfg.n_periods
+    err, launches = _sharded_against_cpu(cfg, params, batch, degree)
+    assert launches == 4 * degree * per_step
+    assert err < 1e-4, err

@@ -142,8 +142,9 @@ def test_shard_gather_round_trip(trees, degree):
         name, mixer = path.rsplit("/", 1)[-1], S.mixer_of(tuple(path.split("/")))
         dim = split.cache_dim(name, leaf.dim(), mixer)
         want = {"k": split.attn, "v": split.attn, "xk": split.attn, "xv": split.attn,
-                "h": split.ssm and mixer == "mamba", "conv": split.ssm}.get(name, False)
-        assert (dim is not None) == want, path       # sLSTM's h is never cut
+                "h": split.ssm if mixer == "mamba" else split.xlstm, "conv": split.ssm,
+                **dict.fromkeys("Cncm", split.xlstm)}.get(name, False)
+        assert (dim is not None) == want, path       # h: by its layer's group
         piece = tree_paths(cut[degree - 1])[path]
         if dim is not None:
             assert piece.shape[dim] * degree == leaf.shape[dim]
@@ -203,7 +204,8 @@ def test_tp_split_of_the_mixers_and_experts():
     assert [split.param_dim(n, 3) for n in ("m_in", "m_xproj", "m_Alog", "m_out")] == [2, 1, 1, 1]
     assert split.param_dim("m_D", 2) == 1 and split.param_dim("we_in", 4) == 1
     assert split.param_dim("router", 3) is None and split.param_dim("shared_gate", 2) is None
-    # the name h: Mamba's is cut on d_inner, sLSTM's (..., H, hd) is not
+    # the name h: Mamba's is cut on d_inner, sLSTM's (..., H, hd) on its heads
+    # where the xLSTM is cut, which jamba has not
     assert split.cache_dim("h", 5, "mamba") == 3 and split.cache_dim("conv", 5, "mamba") == 4
     assert split.cache_dim("h", 5, "slstm") is None and split.cache_dim("h", 5) is None
     assert S.mixer_of(("blocks", "03_attn+moe", "k")) == "attn"
@@ -212,7 +214,31 @@ def test_tp_split_of_the_mixers_and_experts():
     xlstm = get_config("xlstm_350m")
     slstm = {"blocks": {"05_slstm": {"h": torch.zeros(1, 2, 4, 8)}}}
     cut = S.shard_cache(slstm, S.tp_split(xlstm, 2), WorkerMesh((CPU,) * 2))
-    assert cut[0]["blocks"]["05_slstm"]["h"].shape == (1, 2, 4, 8)
+    assert cut[0]["blocks"]["05_slstm"]["h"].shape == (1, 2, 2, 8)
+
+
+def test_tp_split_of_the_xlstm():
+    """The xLSTM on its heads where they divide: the mLSTM's up-projection
+    columns and its products' ``d_inner`` rows, the sLSTM's heads and
+    ``s_out``'s rows; every state leaf on its heads."""
+    xlstm = get_config("xlstm_350m")                  # 4 heads, mLSTM width 2,048
+    for d in (2, 4):
+        split = S.tp_split(xlstm, d)
+        assert split.xlstm and not (split.ssm or split.mlp or split.any_moe())
+        sc = S.shard_config(xlstm, split)
+        assert (sc.n_heads, sc.mlstm_inner, sc.slstm_inner) == (4 // d, 2048 // d, 1024 // d)
+    assert not S.tp_split(xlstm, 8).xlstm and not S.tp_split(xlstm, 3).xlstm
+    assert S.shard_config(xlstm, S.tp_split(xlstm, 8)).n_heads == 4
+    split = S.tp_split(xlstm, 2)
+    dims = {n: split.param_dim(n, nd + 1) for n, nd in
+            (("l_up", 2), ("l_z", 2), ("l_skip", 1), ("l_q", 3), ("l_ig", 2), ("l_down", 2),
+             ("s_w", 4), ("s_r", 4), ("s_b", 3), ("s_out", 2))}
+    assert dims == {"l_up": 2, "l_z": 2, "l_skip": 1, "l_q": 1, "l_ig": 1, "l_down": 1,
+                    "s_w": 3, "s_r": 2, "s_b": 2, "s_out": 1}
+    assert [split.cache_dim(n, 5, "mlstm") for n in ("C", "n")] == [2, 3]
+    assert split.cache_dim("m", 3, "mlstm") == 2
+    assert [split.cache_dim(n, 4, "slstm") for n in "hcnm"] == [2] * 4
+    assert S.tp_split(get_config("jamba_v0_1_52b"), 2).xlstm is False
 
 
 def test_mesh_collectives():

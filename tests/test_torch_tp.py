@@ -345,14 +345,24 @@ def test_runtime_on_a_sharded_fleet_matches_jax_trace(plane):
 
 @pytest.mark.parametrize("name", ["xlstm_350m"])
 def test_mixers_outside_the_split_raise(name):
+    """No mixer is outside the split any more: an xLSTM worker builds on a
+    mesh, its shards hold their heads, and a decode step on the mesh gives
+    the unsharded step's logits.  What still raises is the worker on a
+    cross-attention config, at every degree (``check_servable``)."""
     cfg = get_config(name).reduced(n_periods=1)
     params = M.init_params(cfg, seed=0, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        RolloutWorker(cfg, params, mp=2, mesh=_mesh(2), **KW)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        M.decode_step(cfg, [params] * 2, [M.init_cache(cfg, 1, 8, "cpu")] * 2,
-                      torch.zeros((1, 1), dtype=torch.long), mesh=_mesh(2))
-    RolloutWorker(cfg, params, mp=2, device="cpu", **KW)       # declared degree, unsharded
+    w = RolloutWorker(cfg, params, mp=2, mesh=_mesh(2), **KW)
+    assert w.split.xlstm and w.shard_cfg.n_heads == cfg.n_heads // 2
+    one = M.init_cache(cfg, 1, 8, "cpu")
+    caches = [M.init_cache(w.shard_cfg, 1, 8, "cpu") for _ in range(2)]
+    tok = torch.full((1, 1), 5, dtype=torch.long)
+    logits, _ = M.decode_step(cfg, w.params, caches, tok, mesh=_mesh(2))
+    want, _ = M.decode_step(cfg, params, one, tok)
+    assert torch.allclose(logits, want, atol=LOGIT_TOL, rtol=0)
+    vlm = get_config("llama_3_2_vision_11b").reduced(n_periods=1)
+    with pytest.raises(NotImplementedError, match="cross-attention"):
+        RolloutWorker(vlm, M.init_params(vlm, seed=0, device="cpu"), mp=2, mesh=_mesh(2),
+                      **KW)
 
 
 def test_sharded_worker_guards(qwen):
