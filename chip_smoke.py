@@ -210,7 +210,11 @@ Phases (each raises on failure; any failure exits non-zero with no result line):
               logits within TP_TOL; the whole period in f32 at degree 1,
               then its weights rounded to bf16 at degree 1, 2 and 4, the
               logit differences logged beside the bf16 d1's from the f32
-              d1; a lane moved d2 -> d1 -> d4 -> d2, each package (K/V
+              d1, and each bf16 worker's top-2 expert choices recorded: the
+              choices that differ between d1 and d2 are counted for the
+              admissions, the teacher-forced step and the decode, and d2's
+              two shards' choices against each other (both route over all
+              16 experts); a lane moved d2 -> d1 -> d4 -> d2, each package (K/V
               pages, Mamba state, pos) bit-equal to the first; (b)
               qwen2-moe-a2.7b at full width cut to 4 of 24 layers, f32, at
               1, 2 and 4 (60 experts over 30 and 15 a shard, the shared
@@ -239,15 +243,33 @@ Phases (each raises on failure; any failure exits non-zero with no result line):
               frames, 8 requests of 64 tokens, capacity 448, then 32 greedy
               decode steps), f32 then bf16 at degree 1, 2 and 4; (c)
               llama-3.2-vision-11b at full width (gates 0.7, 1,600 patches,
-              prompts of 512, capacity 1,024) in bf16 at degree 1 and 2,
-              and its first period (4 self-, 1 cross-attention layer) in f32
-              at 1, 2 and 4.  For (b) and (c) the counts are zeroed before
-              each admission and read after its decode: the dense kernel's
-              must be d x 48 (whisper) or d x 40 (the VLM; d x 5 on the
-              period) a step, nothing else launched; f32 sharded runs hold
-              their tokens equal and logits within TP_TOL of d1's; a few
-              live cross-attention calls of each run, at the shard's kv
-              heads, held to the plain version.  The peak memory is logged.
+              prompts of 512, capacity 1,024) in f32 at degree 1 alone (its
+              f32 weights and their d2 shards do not fit together; its
+              tokens and logits kept on the host), then the same weights
+              rounded to bf16 in place at degree 1 and 2, and its first
+              period (4 self-, 1 cross-attention layer) in f32 at 1, 2 and
+              4.  For (b) and (c) the counts are zeroed before each
+              admission and read after its decode: the dense kernel's must
+              be d x 48 (whisper) or d x 40 (the VLM; d x 5 on the period) a
+              step, nothing else launched (the VLM's f32 d1 adds 40 x 32);
+              f32 sharded runs hold their tokens equal and logits within
+              TP_TOL of d1's; every bf16 d2 and d4 (whisper, the VLM's d2)
+              no farther from its bf16 d1 than twice the bf16 d1 lies from
+              the f32 d1; a few live cross-attention calls of each run, at
+              the shard's kv heads, held to the plain version.  The peak
+              memory is logged.
+16. examples -- the port's linter (repro_torch.analysis.lint) over
+              src/repro_torch and examples/torch_*.py: 0 violations; then
+              three of the four examples run in this process by calling
+              their main() with no --device (the card): torch_quickstart
+              (its control plane cut to 12 of 48 prompts for the script's
+              time, then the reduced qwen3 engine step), torch_serve_rollout
+              and torch_train_agentic_grpo --iters 2, at their default model
+              sizes.  The counts are zeroed before each example and read
+              after it: the paged kernel's must be the example's layers x
+              its workers' decode steps (above 0), nothing else launched;
+              about 4 live paged-kernel calls of each example (every 3rd,
+              12th, 376th) are kept and held to the plain version.
 
 float32 matrix products run in full float32: TF32 is switched off for matmuls
 and cuDNN.  The next-to-last line is one JSON object describing each kernel;
@@ -2952,6 +2974,74 @@ def _tp_scan_rows(torch, gen):
     return rows
 
 
+class _MoeRoutes:
+    """While a run lasts, records every ``models.layers.moe`` call's top-k
+    expert ids (sorted per token) on the host before it computes as
+    before.  A degree-d worker calls it once a shard a layer, so its calls
+    alternate shards."""
+
+    def __init__(self, torch, d):
+        self.torch, self.d, self.calls = torch, d, []
+
+    def __enter__(self):
+        from repro_torch.models import layers
+        self.layers, self.moe = layers, layers.moe
+        torch, calls = self.torch, self.calls
+
+        def recorded(p, x, cfg, *args, **kw):
+            xf = x.reshape(-1, x.shape[-1])
+            gates = torch.softmax((xf.to(p["router"].dtype) @ p["router"]).float(), dim=-1)
+            calls.append(torch.topk(gates, cfg.top_k, dim=-1).indices.sort(-1).values.cpu())
+            return self.moe(p, x, cfg, *args, **kw)
+
+        layers.moe = recorded
+        return self
+
+    def __exit__(self, *exc):
+        self.layers.moe = self.moe
+
+    def shard(self, r):
+        if len(self.calls) % self.d:
+            raise AssertionError(f"[tp-mixers] d{self.d}: {len(self.calls)} MoE calls, "
+                                 f"not a multiple of {self.d}")
+        return self.calls[r::self.d]
+
+
+def _flips(a, b):
+    """(tokens, tokens whose top-k set differs, (token, choice) pairs, pairs
+    that differ) over two lists of per-call top-k ids; a pair differs when
+    its expert is not among the other side's choices for that token."""
+    tokens = diff_tok = pairs = diff_pairs = 0
+    for x, y in zip(a, b, strict=True):
+        if x.shape != y.shape:
+            raise AssertionError(f"[tp-mixers] MoE calls of shapes {tuple(x.shape)}, "
+                                 f"{tuple(y.shape)}")
+        tokens += x.shape[0]
+        pairs += x.numel()
+        diff_tok += int((x != y).any(-1).sum())
+        diff_pairs += int((~(x[:, :, None] == y[:, None, :]).any(-1)).sum())
+    return {"tokens": tokens, "tokens_flipped": diff_tok, "choices": pairs,
+            "choices_flipped": diff_pairs}
+
+
+def _log_flips(cfg, n_prompts, d1, d2):
+    """jamba's bf16 top-k choices at d1 against d2's first shard, by part of
+    the run (admissions, the teacher-forced step, decode), and d2's shards
+    against each other."""
+    n_moe = cfg.n_periods * sum(k.endswith("+moe") for k in cfg.block_pattern)
+    one, (a, b) = d1.shard(0), (d2.shard(0), d2.shard(1))
+    admit = n_moe * n_prompts
+    parts = {"admissions": slice(0, admit), "teacher-forced": slice(admit, admit + n_moe),
+             "decode": slice(admit + n_moe, None)}
+    flips = {k: _flips(one[sl], a[sl]) for k, sl in parts.items()}
+    flips["d2 shards"] = _flips(a, b)
+    for k, v in flips.items():
+        log(f"[tp-mixers] jamba bf16 MoE routing, {k}: {v['tokens_flipped']}/{v['tokens']} "
+            f"tokens with another top-{cfg.top_k} set, {v['choices_flipped']}/{v['choices']} "
+            f"choices differ ({'shard 0 against shard 1' if k == 'd2 shards' else 'd1 against d2'})")
+    return flips
+
+
 def phase_tp_mixers(torch, smi):
     """Tensor-parallel workers of the hybrid, MoE and ring configs, every
     shard on this one card: (a) jamba at its published widths, one period
@@ -2984,9 +3074,17 @@ def phase_tp_mixers(torch, smi):
                                                  "jamba f32")
     _to_bf16(torch, params)
     cfg = replace(cfg, dtype="bfloat16")
-    kept, d1, summary["jamba-bf16"] = _tp_series(torch, cfg, params, prompts, (1, 2),
-                                                 launches, "jamba bf16", floor=f32_d1,
-                                                 keep=(1, 2))
+    with _MoeRoutes(torch, 1) as routes1:
+        kept, d1, summary["jamba-bf16"] = _tp_series(torch, cfg, params, prompts, (1,),
+                                                     launches, "jamba bf16", floor=f32_d1,
+                                                     keep=(1,))
+    with _MoeRoutes(torch, 2) as routes2:
+        more = _tp_series(torch, cfg, params, prompts, (2,), launches, "jamba bf16",
+                          keep=(2,), ref=d1)
+    kept.update(more[0])
+    summary["jamba-bf16"].update(more[2])
+    summary["jamba-bf16-moe-flips"] = _log_flips(cfg, len(prompts), routes1, routes2)
+    del routes1, routes2
     pkg = kept[2].migrate_out(0)
     first = _package(torch, pkg)
     del kept[2]
@@ -3040,6 +3138,21 @@ TP_CROSS_STEPS = 32
 TP_BF16_SPREAD = 2.0
 
 
+def _hold_bf16_spread(name, bf16, degrees):
+    """Each bf16 degree in ``degrees`` no farther from the bf16 d1 than
+    TP_BF16_SPREAD x the bf16 d1's distance from the f32 d1 (``bf16``: a
+    series' {degree: summary}); the ratios are logged."""
+    own = bf16[1]["err_floor"]
+    for d in degrees:
+        ratio = bf16[d]["err_d1"] / own
+        log(f"[tp-cross] {name} bf16 d{d}: {bf16[d]['err_d1']:.3e} from the bf16 d1, "
+            f"{ratio:.3f} x the bf16 d1's {own:.3e} from the f32 d1 (at most {TP_BF16_SPREAD})")
+        if not bf16[d]["err_d1"] <= TP_BF16_SPREAD * own:
+            raise AssertionError(f"[tp-cross] {name} bf16 d{d}: logits {bf16[d]['err_d1']:.3e} "
+                                 f"from the bf16 d1, more than {TP_BF16_SPREAD} x the bf16 "
+                                 f"d1's {own:.3e} from the f32 d1")
+
+
 def _tp_xlstm(torch, launches, summary):
     """(a) xlstm-350m at full width, paged pure-state workers at degree 1, 2
     and 4: f32, then the same weights rounded to bf16, a lane moved d2 ->
@@ -3061,12 +3174,7 @@ def _tp_xlstm(torch, launches, summary):
     kept, _, bf16 = _tp_series(torch, cfg, params, prompts, (1, 2, 4), counts, "xlstm bf16",
                                floor=f32_d1, keep=(1, 2, 4))
     summary["xlstm-bf16"] = bf16
-    own = bf16[1]["err_floor"]
-    for d in (2, 4):
-        if not bf16[d]["err_d1"] <= TP_BF16_SPREAD * own:
-            raise AssertionError(f"[tp-cross] xlstm bf16 d{d}: logits {bf16[d]['err_d1']:.3e} "
-                                 f"from the bf16 d1, more than {TP_BF16_SPREAD} x the bf16 "
-                                 f"d1's {own:.3e} from the f32 d1")
+    _hold_bf16_spread("xlstm", bf16, (2, 4))
     for d, w in kept.items():
         lane = _nbytes(w.pool[0]["blocks"] if w._tp is not None else w.pool["blocks"])
         log(f"[tp-cross] xlstm bf16 d{d}: a lane's state {lane / w.max_slots / 1e6:.2f} MB "
@@ -3197,10 +3305,12 @@ def phase_tp_cross(torch, smi):
     """The xLSTM and cross-attention splits, every shard on this one card:
     (a) xlstm-350m at full width (``_tp_xlstm``); (b) whisper-medium at full
     width through the model API, f32 then bf16 (the same weights rounded) at
-    degree 1, 2 and 4; (c) llama-3.2-vision-11b at full width in bf16 at
-    degree 1 and 2, and its first period (4 self- and the one cross-attention
-    layer) in f32 at 1, 2 and 4.  Returns the launches, the largest error of
-    the kept live cross-attention calls, and the peak memory."""
+    degree 1, 2 and 4; (c) llama-3.2-vision-11b at full width in f32 at
+    degree 1, then the same weights rounded to bf16 at degree 1 and 2 (the
+    d2 held to twice the bf16 d1's distance from the f32 d1), and its first
+    period (4 self- and the one cross-attention layer) in f32 at 1, 2 and
+    4.  Returns the launches, the largest error of the kept live
+    cross-attention calls, and the peak memory."""
     from dataclasses import replace
 
     from repro_torch.models.model import tree_map
@@ -3220,14 +3330,26 @@ def phase_tp_cross(torch, smi):
     _, summary["whisper-bf16"], err = _tp_cross_series(
         torch, cfg, params, batch, (1, 2, 4), capacity, "whisper bf16", launches, floor=f32_d1)
     errs.append(err)
+    _hold_bf16_spread("whisper", summary["whisper-bf16"], (2, 4))
     del params, batch
     torch.cuda.empty_cache()
-    # (c) the VLM: bf16 at full width, f32 on its first period
-    cfg, params, batch, capacity = _tp_cross_model(torch, "llama_3_2_vision_11b", "bfloat16")
-    _, summary["vlm-bf16"], err = _tp_cross_series(
-        torch, cfg, params, batch, (1, 2), capacity, "vlm bf16", launches)
+    # (c) the VLM at full width: the f32 d1 alone (its f32 weights and their
+    # d2 shards do not fit together), then the same weights rounded to bf16
+    # in place at d1 and d2, the d2 held to twice the bf16 d1's distance from
+    # the f32 d1; f32 at 1, 2 and 4 on its first period
+    cfg, params, batch, capacity = _tp_cross_model(torch, "llama_3_2_vision_11b", "float32")
+    f32_d1, summary["vlm-f32"], err = _tp_cross_series(
+        torch, cfg, params, batch, (1,), capacity, "vlm f32", launches)
     errs.append(err)
-    del params, batch
+    _to_bf16(torch, params)
+    cfg = replace(cfg, dtype="bfloat16")
+    batch = {k: v.to(torch.bfloat16) if v.is_floating_point() else v for k, v in batch.items()}
+    _, bf16, err = _tp_cross_series(torch, cfg, params, batch, (1, 2), capacity, "vlm bf16",
+                                    launches, floor=f32_d1)
+    summary["vlm-bf16"] = bf16
+    errs.append(err)
+    _hold_bf16_spread("vlm", bf16, (2,))
+    del params, batch, f32_d1
     torch.cuda.empty_cache()
     cfg, params, batch, capacity = _tp_cross_model(torch, "llama_3_2_vision_11b", "float32",
                                                    n_periods=1)
@@ -3240,6 +3362,61 @@ def phase_tp_cross(torch, smi):
     log(f"[tp-cross] peak allocated {peak:.2f} GiB")
     log(f"[tp-cross] summary {json.dumps(summary)}")
     return {"launches": launches, "max_abs_err": max(errs), "peak_gib": peak}
+
+
+# ---------------------------------------------------------------- phase 16
+# (example, its arguments, keep every n-th paged-kernel call: about 4 a run)
+EXAMPLE_RUNS = (("quickstart", ["--prompts", "12"], 3),  # control plane cut from 48 prompts
+                ("serve_rollout", [], 12),
+                ("train_agentic_grpo", ["--iters", "2"], 376))
+
+
+def _example(name):
+    """``examples/torch_<name>.py`` imported as a module."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(f"torch_{name}",
+                                                  ROOT / "examples" / f"torch_{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase_examples(torch, smi):
+    """The port's linter over the port and its examples, then three
+    examples in this process on the card (no --device), each one's paged
+    kernel launches held to its layers x decode steps and its kept live
+    calls to the plain version.  Returns {"launches": {example: launches},
+    "max_abs_err": the largest kept call's error}."""
+    from repro_torch.analysis.lint import lint_paths
+    from repro_torch.kernels import decode_attention as kernel
+    examples = sorted((ROOT / "examples").glob("torch_*.py"))
+    if len(examples) != 4:
+        raise AssertionError(f"[examples] want 4 examples/torch_*.py, found {examples}")
+    t0 = time.perf_counter()
+    violations = lint_paths([str(SRC / "repro_torch"), *map(str, examples)])
+    log(f"[examples] heddle-lint over src/repro_torch and {len(examples)} examples: "
+        f"{len(violations)} violations ({time.perf_counter() - t0:.2f} s)")
+    if violations:
+        raise AssertionError("[examples] lint: " + "; ".join(v.render() for v in violations))
+    log(f"[examples] {smi}: in process, on the card by default")
+    launches, errs = {}, []
+    for name, argv, every in EXAMPLE_RUNS:
+        mod = _example(name)
+        with _Capture(kernel, "paged_decode_attention", every) as capture:
+            _reset_launches()                               # the path starts here
+            out, ms = sync_ms(torch, lambda: mod.main(argv))
+            counts = _read_launches(torch)                  # the path ends
+        run = out.get("engine", out)
+        if not run["device"].startswith("cuda"):
+            raise AssertionError(f"[examples] {name} ran on {run['device']}, not the card")
+        _check_launches(f"examples {name}", counts, {
+            "paged_decode_attention": run["n_layers"] * run["decode_steps"]})
+        launches[name] = counts["paged_decode_attention"]
+        log(f"[examples] {name} {' '.join(argv)}: {ms / 1e3:.1f} s, paged_decode_attention "
+            f"launches {launches[name]} = {run['n_layers']} layers x {run['decode_steps']} "
+            f"decode steps")
+        errs.append(_hold_kept(torch, f"examples {name}", capture.kept, every))
+    return {"launches": launches, "max_abs_err": max(errs)}
 
 
 def main() -> int:
@@ -3276,6 +3453,7 @@ def main() -> int:
         tp = timed("tp", phase_tp, torch, info["smi"])
         tp_mixers = timed("tp-mixers", phase_tp_mixers, torch, info["smi"])
         tp_cross = timed("tp-cross", phase_tp_cross, torch, info["smi"])
+        examples = timed("examples", phase_examples, torch, info["smi"])
     except Exception:                                  # a failed phase fails the run
         traceback.print_exc()
         return 1
@@ -3294,6 +3472,8 @@ def main() -> int:
                          + tp_mixers["launches"]["paged_decode_attention"]),
          "tp_rows": {**tp["rows"]["paged_decode_attention"],
                      **tp_mixers["rows"]["paged_decode_attention"]},
+         "examples_launches": examples["launches"],
+         "examples_max_abs_err": examples["max_abs_err"],
          **rows["paged_decode_attention"]["bfloat16"]},
         {"name": "decode_attention", "route": "cuda",
          "source": f"{csrc}/decode_attention.cu",

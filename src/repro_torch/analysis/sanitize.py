@@ -1,7 +1,7 @@
 """TraceSanitizer — runtime validation of the orchestrator's decision stream.
 
-The JAX package's linter (``repro.analysis.lint``, not ported) catches
-nondeterminism *sources*; the sanitizer catches *consequences*: it mirrors the
+The linter (``repro_torch.analysis.lint``) catches nondeterminism
+*sources*; the sanitizer catches *consequences*: it mirrors the
 control-plane state machine off the same ``_note`` stream the decision-trace
 parity harness records, and checks every transition against the invariants
 the orchestrator is supposed to maintain.  Hooked in via

@@ -123,7 +123,7 @@ class LegacyRolloutWorker:
             self.decode_steps += 1
             # the per-token host sync IS the legacy baseline: the slot-pool
             # worker's fused loop exists to remove it
-            toks_np = toks.cpu().numpy()
+            toks_np = toks.cpu().numpy()  # heddle: noqa HDL003 -- pre-fusion baseline, measured as such
             for i, s in enumerate(seqs):
                 if not live[i]:
                     continue
@@ -155,7 +155,8 @@ class LegacyRolloutWorker:
         migration): the cache bounces through host memory."""
         seq = self.store.pop(seq_id)
         return {"seq_id": seq.seq_id, "tokens": list(seq.tokens), "generated": seq.generated,
-                "key": np.asarray(seq.key), "cache": M.tree_map(lambda t: t.cpu(), seq.cache)}
+                "key": np.asarray(seq.key),
+                "cache": M.tree_map(lambda t: t.cpu(), seq.cache)}  # heddle: noqa HDL005 -- legacy per-sequence engine predates the paged pool; host bounce is its only transport
 
     def migrate_in(self, package: dict) -> None:
         cache = M.tree_map(lambda t: t.to(self.device, copy=True), package["cache"])

@@ -717,7 +717,7 @@ class RolloutWorker:
             if stop_token is None:                          # nothing stops early
                 lane_steps += step * len(requested)
             else:
-                n_live = int(live_t.sum())   # the one host sync per chunk: early exit
+                n_live = int(live_t.sum())  # heddle: noqa HDL003 -- deliberate early-exit sync, one per chunk
                 lane_steps += step * n_live
                 if remaining > 0 and n_live == 0:
                     break
@@ -811,7 +811,7 @@ class RolloutWorker:
         pkg.update(self._lane_payload(seq))
         for name in ("cache", "pages", "state"):
             if name in pkg:
-                pkg[name] = M.tree_to(pkg[name], "cpu")
+                pkg[name] = M.tree_to(pkg[name], "cpu")  # heddle: noqa HDL005 -- checkpoint copy must outlive the source device
         return pkg
 
     def _ingest_pages(self, package: dict, slot: int) -> None:

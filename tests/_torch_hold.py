@@ -1,8 +1,21 @@
-"""A tolerance of the port's tests that takes only PyTorch, so that the card's
+"""What the port's tests share that takes only PyTorch, so that the card's
 tests (``tests/test_torch_gpu.py``, which import no JAX) share it with the
-CPU tests."""
+CPU tests: a tolerance and the examples' loader."""
+
+import importlib.util
+from pathlib import Path
 
 import torch
+
+EXAMPLES = Path(__file__).resolve().parents[1] / "examples"
+
+
+def load_example(name):
+    """``examples/torch_<name>.py`` imported as a module."""
+    spec = importlib.util.spec_from_file_location(f"torch_{name}", EXAMPLES / f"torch_{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def hold_bf16_cast(got, want, tol, label):

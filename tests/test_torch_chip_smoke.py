@@ -1,0 +1,82 @@
+"""The MoE-routing count of ``chip_smoke.py`` phase 14 on the CPU.
+
+Phase 14 records each ``models.layers.moe`` call's top-k expert ids while
+jamba's bf16 workers at degree 1 and 2 run (``_MoeRoutes``) and counts the
+choices that differ (``_flips``).  Here the count is pinned on hand-made
+choices, and the recorder runs on ``jamba_v0_1_52b.reduced(n_periods=1)``
+workers on the CPU: a degree-2 worker's calls alternate shards that route
+alike, and the recorder leaves the model's ``moe`` as it found it.
+"""
+
+import importlib.util
+from pathlib import Path
+
+import pytest
+import torch
+
+from repro_torch.configs import get_config
+from repro_torch.engine.sampler import SamplerConfig
+from repro_torch.engine.worker import RolloutWorker
+from repro_torch.launch.mesh import WorkerMesh
+from repro_torch.models import layers
+from repro_torch.models.model import init_params
+
+from _torch_parity import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
+
+REPO = Path(__file__).resolve().parents[1]
+
+
+@pytest.fixture(scope="module")
+def cs():
+    spec = importlib.util.spec_from_file_location("chip_smoke", REPO / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _t(rows):
+    return torch.tensor(rows, dtype=torch.long)
+
+
+@pytest.mark.parametrize("a, b, want", [
+    ([[[0, 1], [2, 3]]], [[[0, 1], [2, 3]]], (2, 0, 4, 0)),
+    ([[[0, 1], [2, 3]]], [[[0, 1], [2, 4]]], (2, 1, 4, 1)),      # one choice moved
+    ([[[0, 1], [2, 3]]], [[[4, 5], [2, 3]]], (2, 1, 4, 2)),      # a token's whole set
+    ([[[0, 1]], [[2, 3]]], [[[0, 2]], [[2, 3]]], (2, 1, 4, 1)),  # over two calls
+], ids=["equal", "one-choice", "one-token", "two-calls"])
+def test_flips_counts_tokens_and_choices(cs, a, b, want):
+    got = cs._flips([_t(x) for x in a], [_t(x) for x in b])
+    assert (got["tokens"], got["tokens_flipped"], got["choices"],
+            got["choices_flipped"]) == want
+
+
+def test_flips_refuse_calls_of_other_shapes(cs):
+    with pytest.raises(AssertionError, match="shapes"):
+        cs._flips([_t([[0, 1]])], [_t([[0, 1], [2, 3]])])
+
+
+def test_moe_routes_record_each_shard(cs):
+    """d1 and d2 jamba workers admit and decode alike; d2 records twice d1's
+    calls, its two shards' choices are equal, and ``layers.moe`` is
+    restored after each run."""
+    cfg = get_config("jamba_v0_1_52b").reduced(n_periods=1)
+    params = init_params(cfg, 0, "cpu")
+    n_moe = sum(k.endswith("+moe") for k in cfg.block_pattern)
+    original = layers.moe
+    routes = {}
+    for d in (1, 2):
+        mesh = None if d == 1 else WorkerMesh((torch.device("cpu"),) * d)
+        w = RolloutWorker(cfg, params, capacity=64, page_size=8, max_slots=2, mp=d, mesh=mesh,
+                          sampler=SamplerConfig(temperature=0.0), device="cpu")
+        with cs._MoeRoutes(torch, d) as routes[d]:
+            w.prefill(0, list(range(3, 15)))
+            w.decode([0], 3)
+        assert layers.moe is original
+    assert len(routes[1].calls) == n_moe * (1 + 3)
+    assert len(routes[2].calls) == 2 * len(routes[1].calls)
+    first = routes[1].shard(0)
+    assert first[0].shape == (12, cfg.top_k) and first[-1].shape == (2, cfg.top_k)
+    assert cs._flips(routes[2].shard(0), routes[2].shard(1))["choices_flipped"] == 0
+    assert cs._flips(first, routes[2].shard(0))["choices"] == (12 + 3 * 2) * n_moe * cfg.top_k

@@ -20,7 +20,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_hold import hold_bf16_cast
+from _torch_hold import hold_bf16_cast, load_example
 from repro_torch.configs import get_config
 from repro_torch.engine.paging import check_block_conservation
 from repro_torch.engine.worker import RolloutWorker
@@ -1080,3 +1080,20 @@ def test_cuda_sharded_cross_model_matches_cpu(name, degree):
     err, launches = _sharded_against_cpu(cfg, params, batch, degree)
     assert launches == 4 * degree * per_step
     assert err < 1e-4, err
+
+
+def test_cuda_serve_rollout_example_launches_the_paged_kernel():
+    """``examples/torch_serve_rollout.py`` with no ``--device`` runs on the
+    card: the paged kernel launches once a layer a decode step of its two
+    workers, and nothing else launches."""
+    _need_cuda()
+    example = load_example("serve_rollout")
+    before = dict(kernel.launches), dict(scan_kernel.launches)
+    out = example.main([])
+    torch.cuda.synchronize()
+    assert out["device"].startswith("cuda")
+    assert out["decoded"] == 6 * 12 and out["migrated"]
+    assert kernel.launches["paged_decode_attention"] - before[0]["paged_decode_attention"] \
+        == out["n_layers"] * out["decode_steps"] == 2 * (12 + 6 + 6)
+    assert kernel.launches["decode_attention"] == before[0]["decode_attention"]
+    assert dict(scan_kernel.launches) == before[1]

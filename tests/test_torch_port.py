@@ -1,7 +1,7 @@
 """Ground rules of the port that hold for every file of it.
 
 The port and the scripts that run it on the card (chip_smoke.py,
-tools/) import PyTorch and never JAX or the JAX package
+tools/, examples/torch_*.py) import PyTorch and never JAX or the JAX package
 (``repro``); the port keeps its own copy of what it needs.
 """
 
@@ -12,7 +12,7 @@ import pytest
 
 REPO = Path(__file__).resolve().parents[1]
 FILES = (sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
-         + sorted((REPO / "tools").glob("*.py")))
+         + sorted((REPO / "tools").glob("*.py")) + sorted((REPO / "examples").glob("torch_*.py")))
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
@@ -28,13 +28,18 @@ def _imports(path: Path) -> list[str]:
 
 ENTRY_POINTS = ("engine/worker.py", "core/orchestrator.py", "engine/runtime.py",
                 "launch/serve.py", "engine/legacy.py", "rl/loop.py", "rl/service.py",
-                "launch/train.py", "distributed/sharding.py", "launch/mesh.py")
+                "launch/train.py", "distributed/sharding.py", "launch/mesh.py",
+                "analysis/lint.py")
 
 
 def test_port_files_exist():
     assert len(FILES) > 10 and all(f.exists() for f in FILES)
     for name in ENTRY_POINTS:                  # each slice's entry points are scanned
         assert REPO / "src" / "repro_torch" / name in FILES, name
+    examples = {f.name for f in FILES if f.parent.name == "examples"}
+    assert examples == {f"torch_{n}.py" for n in ("quickstart", "serve_rollout",
+                                                  "orchestration_at_scale",
+                                                  "train_agentic_grpo")}
 
 
 def test_every_ported_config_is_scanned():
