@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path once on one NVIDIA GPU and check it.
+"""Drive the PyTorch port's main path once on one NVIDIA GPU and check it
+(phase 17 on every visible card, where there are two or more).
 
     python3 chip_smoke.py
 
@@ -88,10 +89,13 @@ Phases (each raises on failure; any failure exits non-zero with no result line):
               period after a chunked recurrent admission, its state card vs
               CPU.
 9. runtime -- the control plane over the port's workers: qwen3-1.7b at full
-              width, two RolloutWorkers on the card driven by the orchestrator
-              through EngineBackend on the reference trace harness's workload
-              (24 trajectories, 448 planned tokens; pps, migration, 2 active
-              lanes a worker, quantum 8, an infinite link, the sanitizer on),
+              width cut to 7 of its 28 layers (RUNTIME_LAYERS, for the
+              script's time: the three runs are host-bound, a step's wall
+              about proportional to the layers), two RolloutWorkers on the
+              card driven by the orchestrator through EngineBackend on the
+              reference trace harness's workload (24 trajectories, 448
+              planned tokens; pps, migration, 2 active lanes a worker,
+              quantum 8, an infinite link, the sanitizer on),
               each run's decision trace and makespan held to the sim's: the
               paged plane (preemptions and migrations must occur), the dense
               plane (paged=False, migration off, under torch.profiler), and
@@ -99,7 +103,7 @@ Phases (each raises on failure; any failure exits non-zero with no result line):
               injected tool faults, checkpoints persisted to a temporary
               directory and loaded back).  The decode kernels' counts are
               zeroed before each run and read after it.  The inputs of every
-              2,500th decode-kernel call of each run are kept, and after the
+              500th decode-kernel call of each run are kept, and after the
               run the kernel is held to its plain version on them (the cache
               also poisoned wherever no lane reads), and on drawn inputs at
               the runtime's shapes whose lengths fill every piece of the
@@ -108,11 +112,11 @@ Phases (each raises on failure; any failure exits non-zero with no result line):
               own, with no --device flag: on the card.
 10. families -- the other language-model families, weights from the seed,
               each model freed before the next, peak memory logged:
-              (a) qwen2-moe-a2.7b at full width cut to 12 of its 24 layers
+              (a) qwen2-moe-a2.7b at full width cut to 4 of its 24 layers
               (60 experts top-4 and the gated shared experts, MHA) under the
               runtime on phase 9's workload and settings, the paged and the
               dense plane (migration off), each trace held to the sim's, the
-              decode kernel's launches equal to 12 x the decode steps (per-token
+              decode kernel's launches equal to 4 x the decode steps (per-token
               tool absorptions included), kept live calls held to the plain
               version; (b) xlstm-350m at its published widths, cut to 1
               of its 4 periods (5 mLSTM, 1 sLSTM) for the script's time
@@ -155,12 +159,13 @@ Phases (each raises on failure; any failure exits non-zero with no result line):
               GRPO step at qwen3-1.7b full width (B 2, S 4,096, remat on,
               advantages +-1): the loss and every gradient finite, every leaf
               with a gradient moved, AdamW moments f32, the step's wall and
-              peak memory; (c) HeddleTrainer at full width on two paged
-              workers: train(2), an update on records with a reward spread
-              (the workers' tensors unchanged until the next sync), then
+              peak memory; (c) HeddleTrainer at full width, cut to 7 of its
+              28 layers (TRAINER_LAYERS), on two paged workers: train(2),
+              an update on records with a reward spread (the workers'
+              tensors unchanged until the next sync), then
               train_async(3 updates, staleness <= 2, epochs [1, 2]); the
               paged kernel's count zeroed before and read after, every
-              400th live call kept and held to the plain version; (d) the
+              100th live call kept and held to the plain version; (d) the
               train CLI as a process of its own with no --device: on the
               card (it and (f)(iii) run beside (e) and (f)(i), which time
               nothing, and end before (f)(ii)); (e) the legacy per-sequence worker against the dense
@@ -232,8 +237,9 @@ Phases (each raises on failure; any failure exits non-zero with no result line):
               one card: (a) xlstm-350m at full width (20 mLSTM, 4 sLSTM; d
               1,024, 4 heads), paged pure-state workers at degree 1, 2 and 4,
               f32 then the same weights rounded to bf16: 8 requests in 2
-              groups (prompts of 64 and 48 tokens, admitted one step a
-              token), one teacher-forced step, 32 greedy steps; in f32 the
+              groups (prompts of 16 and 12 tokens, admitted one step a
+              token; cut from 64 and 48 for the script's time), one
+              teacher-forced step, 32 greedy steps; in f32 the
               sharded workers' tokens equal to d1's and their logits within
               TP_TOL, in bf16 no farther from the bf16 d1 than twice the
               bf16 d1 lies from the f32 d1; a lane's state and params a
@@ -270,6 +276,57 @@ Phases (each raises on failure; any failure exits non-zero with no result line):
               its workers' decode steps (above 0), nothing else launched;
               about 4 live paged-kernel calls of each example (every 3rd,
               12th, 376th) are kept and held to the plain version.
+17. cards  -- tensor-parallel workers with one shard a card, where two or
+              more cards are visible (four for all of it); on one card it
+              prints one line saying it was not run and claims nothing.
+              Peer access is logged for each card pair.  First, each
+              kernel's first launch on cuda:1 .. cuda:n-1 (the paged and
+              dense kernels at qwen3's MP-2 shard, the scan and its
+              backward at jamba's, bf16), through its wrapper with cuda:0
+              current: ordered on that card's stream (held by a spin
+              kernel, then given a new input the launch must read), its
+              output there and bit-equal to cuda:0's launch on the same
+              inputs, held to the plain version there.  (a) qwen3-1.7b at full
+              width, paged, 4 of phase 13's 8 requests (2 of each group), a
+              teacher-forced step and 8 greedy steps (phase 13: 32), at d 2
+              and 4, f32 then bf16 (the f32 weights rounded): each degree
+              with every shard on cuda:0, then one shard a card, the tokens and logits
+              bit-equal; init_params(mesh=) over the cards bit-equal to the
+              worker's cut of the whole tree (f32 d4); the paged kernel 28
+              x 9 times on each card (8 steps and the teacher-forced one),
+              2 live calls a card other than 0 held; the step wall at
+              d 1, 2, 4 and each card's busy share over 8 steps under
+              torch.profiler.  (d) a lane of the bf16 d2 worker on
+              cuda:0-1 moved to a d2 worker on cuda:2-3 and back, 4 moves
+              card to card, then 4 through the host (the package copied
+              there first): every package leaf on its source's device 0,
+              no device-to-host copy in a move card to card
+              (torch.profiler), the package bit-equal at every move, each
+              move timed.  (b) jamba-v0.1-52b at its full depth (4
+              periods, 32 layers, nothing cut), initialised sharded
+              (init_params(mesh=), each leaf drawn on cuda:0, cut, moved):
+              f32 at d 4 on cuda:0-3 (the reference, 51.6 GB a card), the
+              same weights rounded to bf16 in place at d 4, then the f32
+              draws rounded leaf by leaf and cut at d 2 on cuda:0-1 (51.6
+              GB a card); 4 of phase 14's requests (prompts of 1,024 and
+              700), a teacher-forced step, 8 greedy steps; each card's peak
+              memory; the scan 28 times an admission and the paged kernel
+              4 x 9 times on each card, 2 live calls of each a card other
+              than 0 held; the bf16 d2 logits no farther from the bf16
+              d4's than TP_BF16_SPREAD x the bf16 d4's from the f32 d4's;
+              the MoE top-2 flips between d4 and d2 counted.  (c) half of
+              phase 9's workload (3 of its 6 prompts, 12 trajectories) on a
+              {2, 1, 1} fleet over cuda:0-3, paged: the trace held to the
+              sim's, as phase 9 holds its one-card runs (the run is not
+              repeated on one card, for the script's time), the paged
+              kernel launched on every card, the kept live calls (every
+              1,000th, and 2 a card other than 0) held; then a {2, 1, 1}
+              fleet reconfigured to {4} and back with 4 live lanes, on one
+              card and on four, the
+              lanes' tokens equal; then the serve CLI with --degrees 2,1,1
+              over the visible cards as a process of its own.  The cuts
+              (requests, steps, the runtime's prompts) fit the script's
+              1,200 s on four cards, where phases 1-16 took 1,063 s.
 
 float32 matrix products run in full float32: TF32 is switched off for matmuls
 and cuDNN.  The next-to-last line is one JSON object describing each kernel;
@@ -307,11 +364,17 @@ def log(*args):
     print(*args, flush=True)
 
 
+def sync_all(torch):
+    """Wait for every visible card: a worker's shards may lie on any of them."""
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
 def sync_ms(torch, fn):
-    torch.cuda.synchronize()
+    sync_all(torch)
     t0 = time.perf_counter()
     out = fn()
-    torch.cuda.synchronize()
+    sync_all(torch)
     return out, (time.perf_counter() - t0) * 1e3
 
 
@@ -353,6 +416,10 @@ def event_ms(torch, fn, n_iter, n_warm=3, hold=True):
 def phase_device(torch):
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: torch.cuda.is_available() is false")
+    # every card's context before torch.profiler first runs (phase 3): a later
+    # profile saw no device events on a card whose context was made after the
+    # process's first one (phase 17, on a four-card H100 host)
+    sync_all(torch)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip().splitlines()[0]
@@ -968,12 +1035,19 @@ class Script:
             f"{self.torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
 
-def _full_width(torch):
+def _full_width(torch, n_layers=None):
+    """qwen3-1.7b at its published widths from the seed, its depth cut to
+    ``n_layers`` where given."""
+    import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.models.model import init_params, param_count
     cfg = get_config("qwen3_1_7b")
+    full = cfg.n_layers
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_periods=n_layers)
     params, ms = sync_ms(torch, lambda: init_params(cfg, seed=SEED, device="cuda"))
-    log(f"[model] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+    depth = f"{cfg.n_layers} layers" + ("" if cfg.n_layers == full else f" of its {full}")
+    log(f"[model] {cfg.name}: {depth}, d_model {cfg.d_model}, "
         f"{cfg.n_heads}/{cfg.n_kv_heads} heads, hd {cfg.hd}, d_ff {cfg.d_ff}, vocab "
         f"{cfg.vocab}, {cfg.dtype}; {param_count(params) / 1e9:.3f} B params "
         f"(init {ms:.0f} ms)")
@@ -992,7 +1066,7 @@ def _reset_launches():
 
 
 def _read_launches(torch):
-    torch.cuda.synchronize()
+    sync_all(torch)
     return {name: n for counts in _counters() for name, n in counts.items()}
 
 
@@ -1561,7 +1635,8 @@ RUNTIME_CAPACITY = 512               # lanes of 32 pages of 16 tokens; the workl
 # the reference trace harness's config (tests/test_orchestrator.py)
 RUNTIME_BASE = dict(scheduler="pps", migration=True, max_active=2, quantum=8,
                     link_bandwidth=float("inf"), trace=True, seed=5, sanitize=True)
-CAPTURE_EVERY = 2_500                # keep the inputs of every 2,500th decode-kernel call
+RUNTIME_LAYERS = 7                   # qwen3 cut from 28 layers for the script's time
+CAPTURE_EVERY = 500                  # keep the inputs of every 500th decode-kernel call
 
 
 class _Capture:
@@ -1628,20 +1703,21 @@ def _hold_runtime_shapes(torch, paged_args, dense_args):
 
 
 def _runtime_run(torch, tag, cfg, params, batch, predictor, config, faults=None,
-                 profile_run=False):
+                 profile_run=False, fleet=None, devices=None, every=CAPTURE_EVERY):
     """One RolloutRuntime run on the card beside its analytic twin: counts
     zeroed just before the run and read just after; the engine's trace held to
-    the sim's; the decode kernel's inputs kept every ``CAPTURE_EVERY``-th
-    call.  Returns (result, launches, checkpoints written, kept inputs, each
-    worker's dispatch_stats)."""
+    the sim's; the decode kernel's inputs kept every ``every``-th call.  Two
+    workers of degree 1 on cuda:0, or the ``fleet`` spec carved
+    over ``devices``.  Returns (result, launches, checkpoints written, kept
+    inputs, each worker's dispatch_stats)."""
     import copy
     from repro_torch.engine.runtime import make_runtime, run_on_sim, split_restores
     from repro_torch.kernels import decode_attention as kernel
 
     sim = run_on_sim(copy.deepcopy(batch), predictor, n_workers=2, config=config,
-                     faults=faults)
+                     faults=faults, fleet=fleet)
     rt = make_runtime(cfg, params, batch, predictor, n_workers=2, config=config,
-                      capacity=RUNTIME_CAPACITY, faults=faults)
+                      capacity=RUNTIME_CAPACITY, faults=faults, fleet=fleet, devices=devices)
     written = {}
     checkpoint = rt.backend.checkpoint
 
@@ -1653,7 +1729,7 @@ def _runtime_run(torch, tag, cfg, params, batch, predictor, config, faults=None,
     rt.backend.checkpoint = recording
     name = "decode_attention" if config.paged is False else "paged_decode_attention"
     torch.cuda.synchronize()
-    with _Capture(kernel, name) as capture:
+    with _Capture(kernel, name, every) as capture:
         _reset_launches()                                   # the run starts here
         if profile_run:
             from torch.profiler import ProfilerActivity, profile
@@ -1705,10 +1781,11 @@ def _runtime_run(torch, tag, cfg, params, batch, predictor, config, faults=None,
 
 def phase_runtime(torch, smi):
     """The control plane over the port's workers on the card: qwen3-1.7b at
-    full width, two RolloutWorkers driven by the orchestrator through
-    EngineBackend on the reference harness's workload, each run held to the
-    sim's decision trace, and the decode kernels held to their plain versions
-    on live calls of each run and at the runtime's shapes.  Returns the
+    full width (RUNTIME_LAYERS of its layers), two RolloutWorkers driven by
+    the orchestrator through EngineBackend on the reference harness's
+    workload, each run held to the sim's decision trace, and the decode
+    kernels held to their plain versions on live calls of each run and at
+    the runtime's shapes.  Returns the
     decode kernels' launches per run and their largest errors there."""
     import copy
     import os
@@ -1718,7 +1795,7 @@ def phase_runtime(torch, smi):
     from repro_torch.engine.runtime import RuntimeConfig, build_workbench, run_on_sim
     from repro_torch.models import model as M
 
-    cfg, params = _full_width(torch)
+    cfg, params = _full_width(torch, RUNTIME_LAYERS)
     log(f"[runtime] {smi}")
     base = RUNTIME_BASE
     out = {}
@@ -1833,18 +1910,22 @@ def _check_launches(tag, launches, want):
         raise AssertionError(f"[families] {tag}: launches {launches}, want {full}")
 
 
+FAMILY_MOE_LAYERS = 4                # qwen2-moe cut from 24 layers for the script's time
+
+
 def _families_moe(torch):
     """qwen2-moe-a2.7b at full width under the runtime, on phase 9's workload
     and settings: the paged plane and the dense plane, each trace held to the
     sim's; every decode step (a per-token tool absorption included) launches
-    the plane's decode kernel once a layer.  The depth is cut to 12 of 24
-    layers to keep the script's time: the two runs are host-bound at ~859
-    steps each, and took 200 s at 24 layers.  Returns {plane: (launches,
+    the plane's decode kernel once a layer.  The depth is cut to
+    FAMILY_MOE_LAYERS of 24 layers to keep the script's time: the two runs
+    are host-bound at ~859 steps each, and took 200 s at 24 layers and
+    118.8 s at 12 (on a four-card H100 host).  Returns {plane: (launches,
     largest error of the kept live calls)}."""
     import gc
     from repro_torch.engine.runtime import RuntimeConfig, build_workbench
 
-    cfg, params = _family_model(torch, "qwen2_moe_a2_7b", n_periods=12)
+    cfg, params = _family_model(torch, "qwen2_moe_a2_7b", n_periods=FAMILY_MOE_LAYERS)
     out = {}
     for plane, config in (("paged", RuntimeConfig(**RUNTIME_BASE)),
                           ("dense", RuntimeConfig(**dict(RUNTIME_BASE, paged=False,
@@ -2210,7 +2291,8 @@ FLASH_TOL = {"float32": (1e-5, 5e-5),       # (output, gradients) x max(1, max |
 #                                             an H100, 2.4e-3 / 3.7e-3 of max |plain|)
 TRAIN_S = 4096                              # the GRPO step's sequence (B 2, remat on)
 TRAIN_LR = 1e-2                             # large enough to move every bf16 leaf in one step
-TRAIN_CAPTURE = 400                         # keep every 400th paged-kernel call of (c)
+TRAIN_CAPTURE = 100                         # keep every 100th paged-kernel call of (c)
+TRAINER_LAYERS = 7                          # (c)'s qwen3 cut from 28 layers
 LEGACY_CAPTURE = 8                          # keep every 8th dense-kernel call of (e)
 
 
@@ -2359,11 +2441,12 @@ def _train_step(torch):
 
 
 def _train_trainer(torch):
-    """(c) HeddleTrainer at qwen3-1.7b full width, two paged workers on the
-    card: two synchronous iterations, an update on records with a reward
-    spread (the workers keep their tensors until the next rollout's sync),
-    then three asynchronous updates.  The paged kernel's count is zeroed
-    before and read after; kept live calls held to the plain version."""
+    """(c) HeddleTrainer at qwen3-1.7b full width (TRAINER_LAYERS of its
+    layers), two paged workers on the card: two synchronous iterations, an
+    update on records with a reward spread (the workers keep their tensors
+    until the next rollout's sync), then three asynchronous updates.  The
+    paged kernel's count is zeroed before and read after; kept live calls
+    held to the plain version."""
     import gc
     from repro_torch.kernels import decode_attention as kernel
     from repro_torch.models import model as M
@@ -2373,7 +2456,7 @@ def _train_trainer(torch):
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    cfg, params = _full_width(torch)
+    cfg, params = _full_width(torch, TRAINER_LAYERS)
     tr = HeddleTrainer(cfg, TrainerConfig(seed=SEED), params=params, device="cuda")
     del params
     times = {}
@@ -2416,7 +2499,8 @@ def _train_trainer(torch):
             launches["decode_attention"]:
         raise AssertionError(f"[train] trainer: launches {launches}")
     steps = sum(w.decode_steps for w in tr.workers)
-    log(f"[train] HeddleTrainer ({cfg.name} full width, 2 paged workers, group 4, "
+    log(f"[train] HeddleTrainer ({cfg.name} full width, {cfg.n_layers} layers, 2 paged "
+        f"workers, group 4, "
         f"capacity 96): " + ", ".join(f"{k} {v / 1e3:.2f} s" for k, v in times.items())
         + f"; rewards {[h['mean_reward'] for h in hist]}, spread update pg_loss "
         f"{m['pg_loss']:+.4f}; async staleness {[h['staleness'] for h in async_hist]}, "
@@ -2686,11 +2770,14 @@ TP_TOL = 1e-4
 TP_KERNELS = {True: "paged_decode_attention", False: "decode_attention"}
 
 
-def _tp_worker(torch, cfg, params, d, paged):
+def _tp_worker(torch, cfg, params, d, paged, mesh=None):
+    """A greedy worker of degree d, every shard on cuda:0 unless ``mesh``
+    places them."""
     from repro_torch.engine.sampler import SamplerConfig
     from repro_torch.engine.worker import RolloutWorker
     from repro_torch.launch.mesh import WorkerMesh
-    mesh = None if d == 1 else WorkerMesh((torch.device("cuda", 0),) * d)
+    if mesh is None and d > 1:
+        mesh = WorkerMesh((torch.device("cuda", 0),) * d)
     return RolloutWorker(cfg, params, capacity=2048, page_size=16, max_slots=8,
                          sampler=SamplerConfig(temperature=0.0), seed=SEED, mp=d, mesh=mesh,
                          device="cuda", paged=paged)
@@ -2701,11 +2788,11 @@ def _n_kind(cfg, mixer):
     return cfg.n_periods * sum(k.partition("+")[0] == mixer for k in cfg.block_pattern)
 
 
-def _tp_drive(torch, cfg, w, prompts, tag):
+def _tp_drive(torch, cfg, w, prompts, tag, steps=TP_STEPS):
     """Admit one request a prompt, take one teacher-forced step on the
     admitted contexts (every lane masked, so no ``pos`` advances: a masked
     lane's logits are computed all the same, and its KV write lands where its
-    first decode step writes the same token), then decode TP_STEPS greedy
+    first decode step writes the same token), then decode ``steps`` greedy
     steps.  The kernels' counts are zeroed before the admissions and read
     after them, and zeroed before the decode and read after it: a whole-
     prompt admission launches the scan d x (Mamba layers) times a prompt,
@@ -2727,18 +2814,18 @@ def _tp_drive(torch, cfg, w, prompts, tag):
         raise AssertionError(f"[tp] {tag}: logits {tuple(logits.shape)}, finite="
                              f"{bool(logits.isfinite().all())}")
     _reset_launches()
-    toks, ms = sync_ms(torch, lambda: w.decode(list(range(len(prompts))), TP_STEPS))
+    toks, ms = sync_ms(torch, lambda: w.decode(list(range(len(prompts))), steps))
     decode = _read_launches(torch)                          # main path ends
     launches = {k: launches[k] + decode[k] for k in launches}
     name = TP_KERNELS[w._paged]
-    want = {name: w.mp * _n_kind(cfg, "attn") * TP_STEPS,
+    want = {name: w.mp * _n_kind(cfg, "attn") * steps,
             "mamba_scan": 0 if w._chunked else w.mp * _n_kind(cfg, "mamba") * len(prompts)}
     got = {"mamba_scan": launches["mamba_scan"], name: decode[name]}
     if got != want:
         raise AssertionError(f"[tp] {tag}: launches {got} (the decode kernel's in the "
-                             f"{TP_STEPS} decode steps), want {want}: d {w.mp} x layers x "
+                             f"{steps} decode steps), want {want}: d {w.mp} x layers x "
                              f"steps or admissions")
-    return toks, logits, launches, ms / TP_STEPS, admit_ms / len(prompts)
+    return toks, logits, launches, ms / steps, admit_ms / len(prompts)
 
 
 def _tp_against(toks, logits, ref):
@@ -2919,6 +3006,9 @@ def _tp_model(torch, name, dtype, tag="tp-mixers", **cut):
     return cfg, params
 
 
+F32_LEAVES = ("router", "m_Alog", "m_D")   # kept in f32 when the model is rounded to bf16
+
+
 def _to_bf16(torch, tree):
     """Round every floating leaf of ``tree`` to bf16 in place, leaf by leaf,
     so that the f32 copy of one leaf at most lives beside the bf16 tree (the
@@ -2926,7 +3016,7 @@ def _to_bf16(torch, tree):
     for k, v in tree.items():
         if isinstance(v, dict):
             _to_bf16(torch, v)
-        elif v.dtype == torch.float32 and k not in ("router", "m_Alog", "m_D"):
+        elif v.dtype == torch.float32 and k not in F32_LEAVES:
             tree[k] = v.to(torch.bfloat16)
             del v
     torch.cuda.empty_cache()
@@ -3024,21 +3114,23 @@ def _flips(a, b):
             "choices_flipped": diff_pairs}
 
 
-def _log_flips(cfg, n_prompts, d1, d2):
-    """jamba's bf16 top-k choices at d1 against d2's first shard, by part of
-    the run (admissions, the teacher-forced step, decode), and d2's shards
-    against each other."""
+def _log_flips(cfg, n_prompts, d1, d2, names=("d1", "d2"), tag="tp-mixers"):
+    """jamba's bf16 top-k choices of ``d1``'s first shard against ``d2``'s,
+    by part of the run (admissions, the teacher-forced step, decode), and
+    ``d2``'s first two shards against each other."""
     n_moe = cfg.n_periods * sum(k.endswith("+moe") for k in cfg.block_pattern)
     one, (a, b) = d1.shard(0), (d2.shard(0), d2.shard(1))
     admit = n_moe * n_prompts
     parts = {"admissions": slice(0, admit), "teacher-forced": slice(admit, admit + n_moe),
              "decode": slice(admit + n_moe, None)}
     flips = {k: _flips(one[sl], a[sl]) for k, sl in parts.items()}
-    flips["d2 shards"] = _flips(a, b)
+    shards = f"{names[1]} shards"
+    flips[shards] = _flips(a, b)
     for k, v in flips.items():
-        log(f"[tp-mixers] jamba bf16 MoE routing, {k}: {v['tokens_flipped']}/{v['tokens']} "
+        pair = "shard 0 against shard 1" if k == shards else " against ".join(names)
+        log(f"[{tag}] jamba bf16 MoE routing, {k}: {v['tokens_flipped']}/{v['tokens']} "
             f"tokens with another top-{cfg.top_k} set, {v['choices_flipped']}/{v['choices']} "
-            f"choices differ ({'shard 0 against shard 1' if k == 'd2 shards' else 'd1 against d2'})")
+            f"choices differ ({pair})")
     return flips
 
 
@@ -3131,7 +3223,7 @@ def phase_tp_mixers(torch, smi):
 
 
 # ---------------------------------------------------------------- phase 15
-TP_XLSTM_PROMPTS = (64, 48)         # two groups of 4, admitted one step a token
+TP_XLSTM_PROMPTS = (16, 12)         # two groups of 4, admitted one step a token
 TP_CROSS_STEPS = 32
 # bf16 at degree d against the bf16 d1: each stands bf16's own error from the
 # f32 d1 (the bf16 d1's distance from it), so two of them at most twice that
@@ -3419,6 +3511,646 @@ def phase_examples(torch, smi):
     return {"launches": launches, "max_abs_err": max(errs)}
 
 
+# ---------------------------------------------------------------- phase 17
+# phase 17 is cut to fit the script's 1,200 s on four cards, where phases 1-16
+# took 1,063 s (on a four-card H100 host, before phases 9, 10, 12 and 15 were
+# cut): 4 of phase 13's and 14's 8 requests (2 of each group), 8 of their 32
+# greedy steps, and 3 of phase 9's 6 prompts
+CARDS_REQUESTS = (0, 0, 1, 1)       # the group of each request
+CARDS_STEPS = 8
+CARDS_RUNTIME_PROMPTS = 3
+CARDS_CAPTURE_EVERY = 1_000         # keep every 1,000th decode-kernel call of the runtime run
+CARDS_PROFILE_STEPS = 8             # decode steps profiled for each card's busy share
+CARDS_HOPS = 4                      # one lane moved card to card, then through the host
+CARDS_RECONF_STEPS = 8              # decode steps before, between and after the reconfigures
+CARDS_SPIN_CYCLES = 200_000_000    # ~0.1 s of a card's stream held before a first launch
+
+
+def _cards_mesh(torch, first, d):
+    """A mesh of ``d`` distinct cards from ``cuda:first`` on."""
+    from repro_torch.launch.mesh import WorkerMesh
+    return WorkerMesh(tuple(torch.device("cuda", first + r) for r in range(d)))
+
+
+class _PerCard:
+    """While a run lasts, counts a kernel wrapper's calls by the card of its
+    first input (a call on a CUDA tensor is one launch) and keeps copies of
+    the inputs of the first ``keep`` calls on each card other than cuda:0.
+    The wrapper is called as before and counts its own launches."""
+
+    def __init__(self, module, name, keep=2):
+        self.module, self.name, self.keep = module, name, keep
+        self.counts, self.kept = {}, {}
+
+    def __enter__(self):
+        self.launch = getattr(self.module, self.name)
+
+        def counted(*args):
+            card = args[0].device.index
+            self.counts[card] = self.counts.get(card, 0) + 1
+            if card and len(self.kept.setdefault(card, [])) < self.keep:
+                self.kept[card].append([a.clone() for a in args])
+            return self.launch(*args)
+
+        setattr(self.module, self.name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.launch)
+
+    def take(self):
+        """The counts so far by card, then zeroed."""
+        counts, self.counts = self.counts, {}
+        return counts
+
+
+def _per_card(tag, counts, cards, want):
+    """Each of ``cards`` launched a kernel exactly ``want`` times, no other card."""
+    if counts != {c: want for c in cards}:
+        raise AssertionError(f"[cards] {tag}: launches by card {counts}, want {want} on each "
+                             f"of {list(cards)}")
+
+
+def _busy_by_card(torch, fn):
+    """(wall ms, {card: device-busy ms}) of ``fn`` under torch.profiler: the
+    kernels' and copies' device time on each card."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    sync_all(torch)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _, wall = sync_ms(torch, fn)
+    busy = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            busy[e.device_index()] = busy.get(e.device_index(), 0.0) + e.duration_ns() / 1e6
+    return wall, dict(sorted(busy.items()))
+
+
+def _host_copies(torch, fn):
+    """The names of the device-to-host copies that ``fn`` makes, under
+    torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    sync_all(torch)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        sync_all(torch)
+    return [e.name() for e in prof.profiler.kineto_results.events() if "DtoH" in e.name()]
+
+
+def _outputs(out):
+    return out if isinstance(out, tuple) else (out,)
+
+
+def _on_card(torch, tag, fn, args, card):
+    """``fn(*args)`` moved to ``cuda:card`` and called with cuda:0 current,
+    that card's first launch of the kernel, after the card's current stream
+    was held by a spin kernel and then given a new first input (half the
+    old one): a launch on that stream waits for it and reads the new input,
+    a launch anywhere else would read the old one.  Its output must lie on
+    the card, equal the same call made afterwards on the new input bit for
+    bit and differ from the call on the old one.  (torch.profiler, which
+    could show the stream directly, lost events on cuda:1-3 in a
+    four-card run.)  Returns (the call's output on the old inputs, those
+    inputs there)."""
+    dev = torch.device("cuda", card)
+    there = [a.to(dev) for a in args]
+    old = there[0].clone()
+    new = old * 0.5
+    sync_all(torch)
+    with torch.cuda.device(dev):
+        torch.cuda._sleep(CARDS_SPIN_CYCLES)
+        there[0].copy_(new)
+    got = fn(*there)                                   # cuda:0 is current
+    sync_all(torch)
+    if any(o.device != dev for o in _outputs(got)):
+        raise AssertionError(f"[cards] {tag}: output on {[o.device for o in _outputs(got)]}, "
+                             f"not {dev}")
+    got = [o.cpu() for o in _outputs(got)]
+    after = [o.cpu() for o in _outputs(fn(*there))]
+    there[0].copy_(old)
+    before = [o.cpu() for o in _outputs(fn(*there))]
+    if (not all(torch.equal(a, b) for a, b in zip(got, after))
+            or all(torch.equal(a, b) for a, b in zip(got, before))):
+        raise AssertionError(f"[cards] {tag} on cuda:{card}: the launch did not read the input "
+                             f"written on that card's stream after the spin")
+    return fn(*there), there
+
+
+def _cards_kernels(torch, n):
+    """Each kernel's first launch on cuda:1 .. cuda:n-1, through its wrapper
+    with cuda:0 the current device: ordered on that card's stream
+    (``_on_card``), its output bit-equal to the same inputs' launch on
+    cuda:0 and held to the plain version on that card.  Shapes: the paged
+    and dense kernels at qwen3's MP-2 shard (B 8, KV 4, G 2, lanes of
+    2,048), the scan and its backward at jamba's MP-2 shard (B 1, S 2,048,
+    di 4,096, N 16), bf16."""
+    from repro_torch.kernels import decode_attention as kernel
+    from repro_torch.kernels import mamba_scan as scan_kernel
+    from repro_torch.kernels import ref
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 17)
+    q, k, v, pt, vl = _paged_inputs(torch, gen, torch.bfloat16, 1, 8, 4, 2, 128, 16, 128,
+                                    8 * 128 + 1, 2048)
+    dq, dk, dv = _dense_inputs(torch, gen, torch.bfloat16, 1, 8, 2048, 4, 2, 128)
+    scan = _scan_inputs(torch, gen, 1, 2048, "bfloat16", di=4096)
+    g_y = torch.randn((1, 2048, 4096), generator=gen, device="cuda")
+    g_h = torch.randn((1, 4096, 16), generator=gen, device="cuda")
+    cases = {"paged_decode_attention": (kernel.paged_decode_attention,
+                                        [q[0], k[0], v[0], pt, vl]),
+             "decode_attention": (kernel.decode_attention, [dq[0], dk[0], dv[0], vl]),
+             "mamba_scan": (scan_kernel.mamba_scan, list(scan)),
+             "mamba_scan_bwd": (scan_kernel.mamba_scan_bwd, [*scan, g_y, g_h])}
+    errs = {}
+    for name, (fn, args) in cases.items():
+        first = [t.cpu() for t in _outputs(fn(*args))]
+        for card in range(1, n):
+            out, there = _on_card(torch, name, fn, args, card)
+            outs = _outputs(out)
+            if not all(torch.equal(a.cpu(), b) for a, b in zip(outs, first)):
+                raise AssertionError(f"[cards] {name} on cuda:{card} differs from cuda:0")
+            if name.endswith("decode_attention"):
+                err = _hold_decode(torch, f"[cards] {name} cuda:{card}", there)[0]
+            elif name == "mamba_scan":
+                want = ref.mamba_scan_ref(*there)
+                err = max(float((g - w).abs().max()) for g, w in zip(outs, want))
+                limit = SCAN_TOL * max(1.0, float(want[0].abs().max()))
+                _check_err(f"[cards] mamba_scan cuda:{card}", "float32", outs, err, limit)
+            else:
+                # held on the host: the hold's torch.ldexp, on a card that is not the
+                # current device, returns garbage (tools/ldexp_cards.py)
+                want = ref.mamba_scan_bwd_ref(*(t.float() for t in there[:5]), *there[5:])
+                err = _hold_scan_bwd(torch, f"cuda:{card}", [o.cpu() for o in outs],
+                                     [w.cpu() for w in want])[0]
+            errs[name] = max(errs.get(name, 0.0), err)
+        log(f"[cards] {name}: first launch on each of cuda:1 .. cuda:{n - 1} (cuda:0 "
+            f"current) ordered on that card's stream, output there, bit-equal to cuda:0's, "
+            f"max |err| {errs[name]:.3e} against the plain version there")
+    torch.cuda.empty_cache()
+    return errs
+
+
+def _held_scans(torch, tag, calls):
+    """Kept live scan calls against the plain version on their card."""
+    from repro_torch.kernels import mamba_scan as scan_kernel
+    from repro_torch.kernels import ref
+    err = 0.0
+    for args in calls:
+        got, want = scan_kernel.mamba_scan(*args), ref.mamba_scan_ref(*args)
+        for part, g, w in zip(("y", "h_S"), got, want):
+            e = float((g - w).abs().max())
+            _check_err(f"[cards] {tag} {part}", "float32", [g], e,
+                       SCAN_TOL * max(1.0, float(w.abs().max())))
+            err = max(err, e)
+    return err
+
+
+def _hold_card_calls(torch, tag, decode, scan=None):
+    """The kept live calls of a run on cards other than 0 against their
+    plain versions; logs and returns the largest errors."""
+    errs = {}
+    calls = [c for card in sorted(decode.kept) for c in decode.kept[card]]
+    if calls:
+        errs["paged_decode_attention"] = _held(torch, f"[cards] {tag}", calls)[0]
+    if scan is not None:
+        scans = [c for card in sorted(scan.kept) for c in scan.kept[card]]
+        if scans:
+            errs["mamba_scan"] = _held_scans(torch, tag, scans)
+    if not calls or (scan is not None and "mamba_scan" not in errs):
+        raise AssertionError(f"[cards] {tag}: no live call kept on a card other than 0")
+    log(f"[cards] {tag}: live calls kept on cards {sorted(decode.kept)} held to the plain "
+        f"version there: max |err| {errs}")
+    return errs
+
+
+def _peaks(torch, n):
+    return [round(torch.cuda.max_memory_allocated(i) / 2**30, 2) for i in range(n)]
+
+
+def _reset_peaks(torch, n):
+    for i in range(n):
+        torch.cuda.reset_peak_memory_stats(i)
+
+
+def _cards_qwen3(torch, n, summary):
+    """(a) qwen3-1.7b at full width, paged, CARDS_REQUESTS of phase 13's
+    prompts, a teacher-forced step and CARDS_STEPS greedy steps: at d 2
+    (and 4) every shard on cuda:0, then one shard a card, in f32 and in
+    bf16: tokens and logits bit-equal, the paged kernel 28 times a step on
+    each card; the step wall at d 1, 2, 4 and each card's busy share.  The bf16
+    weights stay for (d), with the d2 worker on cuda:0-1.  Returns (the
+    bf16 config, params, the d2 worker on cards, the kernels' launches, the
+    largest error of the kept calls)."""
+    import numpy as np
+    from dataclasses import replace
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import decode_attention as kernel
+    from repro_torch.models.model import init_params, tree_leaves, tree_map
+    cfg = get_config("qwen3_1_7b")
+    rng = np.random.default_rng(SEED)
+    groups = [rng.integers(0, cfg.vocab, k).tolist() for k in (300, 257)]
+    prompts = [groups[g] for g in CARDS_REQUESTS]
+    sids = list(range(len(prompts)))
+    degrees = (2, 4) if n >= 4 else (2,)
+    params = init_params(replace(cfg, dtype="float32"), seed=SEED, device="cuda")
+    launches, errs, kept = 0, {}, None
+    n_attn = _n_kind(cfg, "attn")
+    for dtype in ("float32", "bfloat16"):
+        cfg = replace(cfg, dtype=dtype)
+        if dtype == "bfloat16":
+            params = tree_map(lambda t: t.to(torch.bfloat16), params)
+            torch.cuda.empty_cache()
+            w = _tp_worker(torch, cfg, params, 1, True)
+            _, _, counts, step_ms, _ = _tp_drive(torch, cfg, w, prompts, "cards qwen3 d1",
+                                                 CARDS_STEPS)
+            launches += counts["paged_decode_attention"]
+            wall, busy = _busy_by_card(torch, lambda: w.decode(sids, CARDS_PROFILE_STEPS))
+            summary["qwen3-bf16-d1"] = {"step_ms": step_ms, "profiled_ms": wall,
+                                        "busy_ms": busy}
+            log(f"[cards] qwen3 bf16 d1 on cuda:0: decode {step_ms:.2f} ms a step; "
+                f"{CARDS_PROFILE_STEPS} steps under torch.profiler {wall:.1f} ms, busy "
+                + ", ".join(f"cuda:{c} {b:.1f} ms ({b / wall:.1%})" for c, b in busy.items()))
+            del w
+        for d in degrees:
+            one = _tp_worker(torch, cfg, params, d, True)
+            toks1, logits1, counts, step1, admit1 = _tp_drive(
+                torch, cfg, one, prompts, f"cards qwen3 {dtype} d{d} one card", CARDS_STEPS)
+            launches += counts["paged_decode_attention"]
+            del one
+            torch.cuda.empty_cache()
+            mesh = _cards_mesh(torch, 0, d)
+            w = _tp_worker(torch, cfg, params, d, True, mesh=mesh)
+            if dtype == "float32" and d == degrees[-1]:
+                drawn = init_params(cfg, seed=SEED, mesh=mesh)
+                same = all(torch.equal(a, b) and a.device == b.device
+                           for x, y in zip(drawn, w.params)
+                           for a, b in zip(tree_leaves(x), tree_leaves(y)))
+                if not same:
+                    raise AssertionError(f"[cards] qwen3 f32 d{d}: init_params(mesh=) differs "
+                                         f"from the worker's cut of the whole tree")
+                log(f"[cards] qwen3 f32 d{d}: init_params(mesh=cuda:0..{d - 1}) bit-equal to "
+                    f"the whole tree cut for the mesh, each shard on its card")
+                del drawn
+            with _PerCard(kernel, "paged_decode_attention") as card:
+                toks, logits, counts, step_ms, admit_ms = _tp_drive(
+                    torch, cfg, w, prompts, f"cards qwen3 {dtype} d{d} cards", CARDS_STEPS)
+            launches += counts["paged_decode_attention"]
+            _per_card(f"qwen3 {dtype} d{d}", card.counts, range(d), n_attn * (CARDS_STEPS + 1))
+            errs[f"{dtype}-d{d}"] = _hold_card_calls(torch, f"qwen3 {dtype} d{d}", card)
+            if toks != toks1 or not torch.equal(logits, logits1):
+                diff = float((logits - logits1).abs().max())
+                raise AssertionError(f"[cards] qwen3 {dtype} d{d}: tokens equal "
+                                     f"{toks == toks1}, logits max |diff| {diff} on distinct "
+                                     f"cards against one card")
+            row = {"step_ms": step_ms, "one_card_step_ms": step1, "admit_ms": admit_ms,
+                   "one_card_admit_ms": admit1}
+            msg = (f"[cards] qwen3 {dtype} d{d} on cuda:0..{d - 1}: tokens and logits "
+                   f"bit-equal to [cuda:0] x {d}; the paged kernel {n_attn} x "
+                   f"{CARDS_STEPS + 1} on each card; decode {step_ms:.2f} ms a step (one "
+                   f"card {step1:.2f}), admission {admit_ms:.1f} ms a prompt (one card "
+                   f"{admit1:.1f})")
+            if dtype == "bfloat16":
+                wall, busy = _busy_by_card(torch, lambda: w.decode(sids, CARDS_PROFILE_STEPS))
+                row.update(profiled_ms=wall, busy_ms=busy)
+                msg += (f"; {CARDS_PROFILE_STEPS} steps under torch.profiler {wall:.1f} ms, "
+                        f"busy " + ", ".join(f"cuda:{c} {b:.1f} ms ({b / wall:.1%})"
+                                             for c, b in busy.items()))
+            summary[f"qwen3-{dtype}-d{d}"] = row
+            log(msg)
+            if dtype == "bfloat16" and d == 2:
+                kept = w
+            del w
+            torch.cuda.empty_cache()
+    return cfg, params, kept, launches, max(max(e.values()) for e in errs.values())
+
+
+def _rounded_shards(torch, cfg32, mesh):
+    """The f32 model's weights rounded to bf16 (``_to_bf16``'s rule), cut
+    for ``mesh``: each f32 leaf drawn in ``init_params``' order on the
+    mesh's device 0, rounded, cut and moved, one leaf at a time."""
+    from repro_torch.distributed.sharding import shard_params, tp_split
+    from repro_torch.models import model as M
+    dev = mesh.devices[0]
+    draws = M._param_draws(cfg32, torch.Generator(device=dev).manual_seed(SEED), dev)
+
+    def rounded(tree):
+        return {k: rounded(v) if isinstance(v, dict)
+                else v if k in F32_LEAVES else (lambda draw=v: draw().to(torch.bfloat16))
+                for k, v in tree.items()}
+
+    return shard_params(rounded(draws), tp_split(cfg32, mesh.degree), mesh)
+
+
+def _cards_jamba_run(torch, cfg, params, mesh, prompts, tag, routes=None):
+    """A paged worker on ``mesh`` driven as phase 14's: the scan 28 times an
+    admission and the paged kernel 4 times a step on each card, a few live
+    calls on cards other than 0 held; each card's peak memory logged.
+    Returns (tokens, logits, launches, errors)."""
+    from repro_torch.kernels import decode_attention as kernel
+    from repro_torch.kernels import mamba_scan as scan_kernel
+    import gc
+    d, n = mesh.degree, torch.cuda.device_count()
+    gc.collect()                                # the last worker's reference cycles
+    torch.cuda.empty_cache()
+    held = [round(torch.cuda.memory_allocated(i) / 2**30, 2) for i in range(n)]
+    _reset_peaks(torch, n)
+    w = _tp_worker(torch, cfg, params, d, True, mesh=mesh)
+    state = _nbytes(w.pool[0]) / 1e9
+    with _PerCard(kernel, "paged_decode_attention") as paged, \
+            _PerCard(scan_kernel, "mamba_scan") as scan:
+        if routes is None:
+            toks, logits, counts, step_ms, admit_ms = _tp_drive(torch, cfg, w, prompts, tag,
+                                                                CARDS_STEPS)
+        else:
+            with routes:
+                toks, logits, counts, step_ms, admit_ms = _tp_drive(torch, cfg, w, prompts,
+                                                                    tag, CARDS_STEPS)
+    _per_card(f"{tag} scan", scan.counts, range(d), _n_kind(cfg, "mamba") * len(prompts))
+    _per_card(f"{tag} paged", paged.counts, range(d), _n_kind(cfg, "attn") * (CARDS_STEPS + 1))
+    errs = _hold_card_calls(torch, tag, paged, scan)
+    peaks = _peaks(torch, n)
+    weights = _nbytes(params[0]) / 1e9
+    log(f"[cards] {tag} on cuda:0..{d - 1}: {weights:.2f} GB of weights and {state:.3f} GB of "
+        f"pool a card, allocated by card before the worker {held} GiB, peak {peaks} GiB (of "
+        f"{torch.cuda.get_device_properties(0).total_memory / 2**30:.2f}); the scan "
+        f"{_n_kind(cfg, 'mamba')} x {len(prompts)} admissions and the paged kernel "
+        f"{_n_kind(cfg, 'attn')} x {CARDS_STEPS + 1} steps on each card; admission "
+        f"{admit_ms:.1f} ms a prompt, decode {step_ms:.2f} ms a step")
+    del w
+    torch.cuda.empty_cache()
+    return toks, logits, counts, errs, {"weights_gb": weights, "pool_gb": state,
+                                        "peak_gib": peaks, "step_ms": step_ms,
+                                        "admit_ms": admit_ms}
+
+
+def _cards_jamba(torch, n, summary):
+    """(b) jamba-v0.1-52b at its full depth (4 periods, nothing cut),
+    initialised sharded: f32 at d 4 on cuda:0-3 (the reference), the same
+    weights rounded to bf16 in place at d 4, then drawn again, rounded and
+    cut at d 2 on cuda:0-1; CARDS_REQUESTS of phase 14's prompts (1,024 and
+    700), one teacher-forced step, CARDS_STEPS greedy steps.  The bf16 d2 logits no
+    farther from the bf16 d4's than TP_BF16_SPREAD x the bf16 d4's from the
+    f32 d4's; the MoE top-2 flips between d4 and d2 counted.  Returns the
+    kernels' launches and the largest errors of the kept calls."""
+    import numpy as np
+    from dataclasses import replace
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import init_params
+    cfg32 = replace(get_config("jamba_v0_1_52b"), dtype="float32")
+    cfg16 = replace(cfg32, dtype="bfloat16")
+    rng = np.random.default_rng(SEED + 14)
+    groups = [rng.integers(0, cfg32.vocab, k).tolist() for k in TP_JAMBA_PROMPTS]
+    prompts = [groups[g] for g in CARDS_REQUESTS]
+    launches, errs, runs = {}, [], {}
+
+    def count(counts, err):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+        errs.append(err)
+
+    if n >= 4:
+        mesh4 = _cards_mesh(torch, 0, 4)
+        _reset_peaks(torch, n)
+        params, ms = sync_ms(torch, lambda: init_params(cfg32, seed=SEED, mesh=mesh4))
+        log(f"[cards] jamba f32 {cfg32.n_layers} layers, init_params(mesh=cuda:0..3) "
+            f"{ms / 1e3:.1f} s: {_nbytes(params[0]) / 1e9:.2f} GB a card, "
+            f"{sum(_nbytes(p) for p in params) / 1e9:.1f} GB in all; peak allocated by card "
+            f"{_peaks(torch, n)} GiB")
+        *runs["f32-d4"], info = _cards_jamba_run(torch, cfg32, params, mesh4, prompts,
+                                                 "jamba f32 d4")
+        count(runs["f32-d4"][2], runs["f32-d4"][3])
+        summary["jamba-f32-d4"] = info
+        for r in range(len(params)):
+            _to_bf16(torch, params[r])                     # the same weights, rounded
+        routes4 = _MoeRoutes(torch, 4)
+        *runs["bf16-d4"], info = _cards_jamba_run(torch, cfg16, params, mesh4, prompts,
+                                                  "jamba bf16 d4", routes4)
+        count(runs["bf16-d4"][2], runs["bf16-d4"][3])
+        summary["jamba-bf16-d4"] = info
+        del params
+        torch.cuda.empty_cache()
+    else:
+        log(f"[cards] jamba d4 not run: {n} cards visible; its f32 weights (206 GB, 51.6 GB "
+            f"a card at d 4) need four, so the bf16 d2 is not held")
+    mesh2 = _cards_mesh(torch, 0, 2)
+    params, ms = sync_ms(torch, lambda: _rounded_shards(torch, cfg32, mesh2))
+    log(f"[cards] jamba bf16 d2: the f32 draws rounded and cut for cuda:0..1 in "
+        f"{ms / 1e3:.1f} s, {_nbytes(params[0]) / 1e9:.2f} GB a card")
+    routes2 = _MoeRoutes(torch, 2)
+    *runs["bf16-d2"], info = _cards_jamba_run(torch, cfg16, params, mesh2, prompts,
+                                              "jamba bf16 d2", routes2)
+    count(runs["bf16-d2"][2], runs["bf16-d2"][3])
+    summary["jamba-bf16-d2"] = info
+    del params
+    torch.cuda.empty_cache()
+    if n >= 4:
+        own, _, _ = _tp_against(*runs["bf16-d4"][:2], runs["f32-d4"][:2])
+        err, scale, same = _tp_against(*runs["bf16-d2"][:2], runs["bf16-d4"][:2])
+        summary["jamba-bf16-hold"] = {"d2_from_d4": err, "d4_from_f32": own,
+                                      "ratio": err / own}
+        summary["jamba-moe-flips"] = _log_flips(cfg16, len(prompts), routes4, routes2,
+                                                names=("d4", "d2"), tag="cards")
+        log(f"[cards] jamba bf16 d2: logits {err:.3e} from the bf16 d4 (max |ref| "
+            f"{scale:.3e}; {same}/{len(prompts) * CARDS_STEPS} tokens equal before a lane's "
+            f"first difference), {err / own:.3f} x the bf16 d4's {own:.3e} from the f32 d4 "
+            f"(at most {TP_BF16_SPREAD})")
+        if not err <= TP_BF16_SPREAD * own:
+            raise AssertionError(f"[cards] jamba bf16 d2: {err:.3e} from the bf16 d4, more than "
+                                 f"{TP_BF16_SPREAD} x the bf16 d4's {own:.3e} from the f32 d4")
+    return launches, max(max(e.values()) for e in errs)
+
+
+def _cards_migrate(torch, cfg, params, src, n, summary):
+    """(d) one lane of the bf16 d2 worker on cuda:0-1 moved card to card to
+    a d2 worker on cuda:2-3 (a d1 on the last card where fewer are
+    visible) and back, CARDS_HOPS times: every leaf of each package on its
+    source's device 0, no device-to-host copy in a move (torch.profiler),
+    the package bit-equal after every hop; then the same hops through the
+    host, the package copied there before ``migrate_in``, as a sharded
+    package was before."""
+    from repro_torch.launch.mesh import WorkerMesh
+    from repro_torch.models.model import tree_leaves, tree_to
+    dst_mesh = (_cards_mesh(torch, 2, 2) if n >= 4
+                else WorkerMesh((torch.device("cuda", n - 1),)))
+    dst = _tp_worker(torch, cfg, params, dst_mesh.degree, True, mesh=dst_mesh)
+    first = None
+
+    def hop(a, b, bounce=False):
+        pkg = a.migrate_out(0)
+        leaves = list(tree_leaves({"pages": pkg["pages"], "state": pkg["state"]}))
+        if any(t.device != a.device for t in leaves):
+            raise AssertionError(f"[cards] a package leaf of a worker on {a.device} lies on "
+                                 f"{[t.device for t in leaves if t.device != a.device][:1]}")
+        if bounce:
+            pkg.update(pages=tree_to(pkg["pages"], "cpu"), state=tree_to(pkg["state"], "cpu"))
+        b.migrate_in(pkg)
+        return leaves
+
+    for name, bounce in (("card to card", False), ("through the host", True)):
+        walls = []
+        for i in range(CARDS_HOPS):
+            a, b = (src, dst) if i % 2 == 0 else (dst, src)
+            leaves, ms = sync_ms(torch, lambda: hop(a, b, bounce))
+            walls.append(ms)
+            got = [t.cpu() for t in leaves]
+            first = first or got
+            if not all(torch.equal(x, y) for x, y in zip(got, first)):
+                raise AssertionError(f"[cards] the package after hop {i} ({name}) differs")
+        summary[f"migrate-{name}"] = walls
+        log(f"[cards] a lane of {len(src.store[0].tokens)} tokens, "
+            f"{sum(t.numel() * t.element_size() for t in first) / 1e6:.1f} MB of pages and "
+            f"state, moved {name} between d2 on cuda:0-1 and "
+            f"{'-'.join(str(d) for d in dst_mesh.devices)}: "
+            f"{', '.join(f'{ms:.1f}' for ms in walls)} ms a move (migrate_out + migrate_in), "
+            f"every package bit-equal to the first")
+    copies = _host_copies(torch, lambda: hop(src, dst))
+    back = _host_copies(torch, lambda: hop(dst, src, bounce=True))
+    log(f"[cards] device-to-host copies in a move card to card: {copies}; through the host: "
+        f"{len(back)}")
+    if copies or not back:
+        raise AssertionError(f"[cards] a card-to-card move copied {copies} to the host "
+                             f"(the host bounce {len(back)})")
+    toks = src.decode([0], 4)[0]
+    log(f"[cards] the lane decodes on after the moves ({toks})")
+    del dst
+
+
+def _cards_reconfigure(torch, cfg, params, devices):
+    """A {2, 1, 1} fleet over ``devices``: four lanes admitted (two on the d2
+    worker, one on each d1), decoded, the fleet reconfigured to {4} (every
+    lane moved to the d4 worker), decoded, reconfigured back to {2, 1, 1},
+    decoded.  Returns (each lane's tokens, the two reconfigures' ms)."""
+    import numpy as np
+    from repro_torch.engine.fleet import FleetSpec, RolloutFleet
+    from repro_torch.engine.sampler import SamplerConfig
+    fleet = RolloutFleet(cfg, params, FleetSpec((2, 1, 1)), capacity=RUNTIME_CAPACITY,
+                         max_slots=8, sampler=SamplerConfig(temperature=0.8), seed=5,
+                         devices=devices)
+    rng = np.random.default_rng(SEED + 17)
+    home = {0: 0, 1: 0, 2: 1, 3: 2}
+    toks = {sid: [] for sid in home}
+    for sid, wi in home.items():
+        fleet.workers[wi].prefill(sid, rng.integers(0, cfg.vocab, 200).tolist())
+
+    def decode():
+        for w in fleet.workers:
+            for sid, t in w.decode(list(w.store), CARDS_RECONF_STEPS).items():
+                toks[sid] += t
+
+    decode()
+    ms = []
+    for spec in ((4,), (2, 1, 1)):
+        report, t = sync_ms(torch, lambda: fleet.reconfigure(FleetSpec(spec)))
+        ms.append(t)
+        if report["migrated_residents"] != len(home):
+            raise AssertionError(f"[cards] reconfigure to {spec}: {report}")
+        decode()
+    return toks, ms
+
+
+def _cards_runtime(torch, n, summary):
+    """(c) CARDS_RUNTIME_PROMPTS of phase 9's 6 prompts (groups of 4) on a
+    {2, 1, 1} fleet over cuda:0-3, paged: the
+    decision trace held to the sim's (which phase 9's one-card run is held
+    to), the paged kernel launched on every card, a few live calls on cards
+    other than 0 held; then the fleet's reconfigure {2, 1, 1} -> {4} -> {2,
+    1, 1} with live lanes on one card and on four, their tokens equal; then
+    the serve CLI with --degrees 2,1,1 as a process of its own.  Returns the
+    kernel's launches and the largest error of the kept calls."""
+    import os
+    from repro_torch.engine.fleet import FleetSpec
+    from repro_torch.engine.runtime import RuntimeConfig, build_workbench
+    from repro_torch.kernels import decode_attention as kernel
+    cfg, params = _full_width(torch)
+    cards = [torch.device("cuda", i) for i in range(4)]
+    batch, predictor = build_workbench(n_prompts=CARDS_RUNTIME_PROMPTS, group_size=4, seed=5)
+    with _PerCard(kernel, "paged_decode_attention") as card:
+        res, launches, _, kept, stats = _runtime_run(
+            torch, "cards {2,1,1}", cfg, params, batch, predictor,
+            RuntimeConfig(**RUNTIME_BASE), fleet=FleetSpec((2, 1, 1)), devices=cards,
+            every=CARDS_CAPTURE_EVERY)
+    if set(card.counts) != set(range(4)) or sum(card.counts.values()) != \
+            launches["paged_decode_attention"]:
+        raise AssertionError(f"[cards] runtime: launches by card {card.counts}, in all "
+                             f"{launches}")
+    if [s.get("mesh_devices") for s in stats] != [2, 1, 1]:
+        raise AssertionError(f"[cards] runtime: workers' meshes {stats}")
+    err = max(_hold_kept(torch, "cards {2,1,1}", kept, CARDS_CAPTURE_EVERY),
+              max(_hold_card_calls(torch, "runtime {2,1,1}", card).values()))
+    summary["runtime"] = {"wall_s": res.wall_time, "launches_by_card": card.counts}
+    log(f"[cards] runtime {{2,1,1}} over cuda:0..3: trace == sim ({len(res.trace)} events), "
+        f"paged kernel launches by card {card.counts}, wall {res.wall_time:.2f} s")
+    runs = {}
+    for name, devices in (("one card", [cards[0]] * 4), ("four cards", cards)):
+        runs[name] = _cards_reconfigure(torch, cfg, params, devices)
+        log(f"[cards] reconfigure {{2,1,1}} -> {{4}} -> {{2,1,1}} on {name}: "
+            f"{', '.join(f'{t:.1f}' for t in runs[name][1])} ms, 4 live lanes moved each time")
+    if runs["one card"][0] != runs["four cards"][0]:
+        raise AssertionError("[cards] the reconfigured lanes' tokens differ between one card "
+                             "and four")
+    summary["reconfigure_ms"] = {k: v[1] for k, v in runs.items()}
+    log(f"[cards] the 4 lanes' {3 * CARDS_RECONF_STEPS} tokens each, decoded before, between "
+        f"and after the moves, equal on one card and on four")
+    del params
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    cli = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+                          "qwen3-1.7b", "--requests", "8", "--steps", "2", "--degrees",
+                          "2,1,1"], cwd=ROOT, env=env, capture_output=True, text=True,
+                         timeout=600)
+    out = cli.stdout
+    if cli.returncode != 0 or "worker 0 (MP 2 over 2 devices)" not in out \
+            or "served 8 trajectories on cuda" not in out:
+        raise AssertionError(f"[cards] serve CLI --degrees 2,1,1 exited {cli.returncode}:\n"
+                             f"{out[-2000:]}\n{cli.stderr[-2000:]}")
+    log(f"[cards] serve CLI --degrees 2,1,1 over the {n} visible cards (a process of its own): "
+        f"exit 0 in {time.perf_counter() - t0:.1f} s")
+    return launches["paged_decode_attention"], err
+
+
+def phase_cards(torch):
+    """Tensor-parallel workers on distinct cards: needs two or more visible
+    cards, and four for jamba's f32 d4, the {2, 1, 1} runtime and d4
+    anywhere.  On one card it says so and claims nothing.  Returns None
+    there, else the launches and largest errors by kernel."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        log(f"[cards] not run: {n} card visible; phase 17 shards workers over distinct cards "
+            f"and needs two or more (four for all of it); nothing is claimed for it here")
+        return None
+    from repro_torch.launch.mesh import WorkerMesh
+    cards = subprocess.run(["nvidia-smi", "--query-gpu=index,name,power.limit",
+                            "--format=csv,noheader"], capture_output=True, text=True,
+                           check=True).stdout.strip().splitlines()
+    log(f"[cards] {n} cards: " + "; ".join(cards))
+    peers = WorkerMesh(tuple(torch.device("cuda", i) for i in range(n))).peer_access()
+    log("[cards] peer access: " + ", ".join(f"{a}->{b} {'on' if ok else 'off'}"
+                                            for (a, b), ok in peers.items()))
+    summary = {}
+
+    def part(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        log(f"[cards] part {name}: {time.perf_counter() - t0:.1f} s")
+        return out
+
+    kernel_errs = part("kernels", _cards_kernels, torch, n)
+    cfg, params, src, qwen3_launches, qwen3_err = part("(a) qwen3", _cards_qwen3, torch, n,
+                                                       summary)
+    part("(d) migration", _cards_migrate, torch, cfg, params, src, n, summary)
+    del src, params
+    torch.cuda.empty_cache()
+    jamba_launches, jamba_err = part("(b) jamba", _cards_jamba, torch, n, summary)
+    runtime = (part("(c) runtime", _cards_runtime, torch, n, summary) if n >= 4 else None)
+    if runtime is None:
+        log(f"[cards] the {{2,1,1}} runtime not run: {n} cards visible, it needs four")
+    log(f"[cards] summary {json.dumps(summary)}")
+    return {"paged_launches": qwen3_launches + jamba_launches.get("paged_decode_attention", 0)
+            + (runtime[0] if runtime else 0),
+            "scan_launches": jamba_launches.get("mamba_scan", 0),
+            "max_abs_err": {"first_launch": kernel_errs, "qwen3": qwen3_err,
+                            "jamba": jamba_err, "runtime": runtime and runtime[1]}}
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         print("chip_smoke: src/repro_torch not found next to this script", file=sys.stderr)
@@ -3454,6 +4186,7 @@ def main() -> int:
         tp_mixers = timed("tp-mixers", phase_tp_mixers, torch, info["smi"])
         tp_cross = timed("tp-cross", phase_tp_cross, torch, info["smi"])
         examples = timed("examples", phase_examples, torch, info["smi"])
+        cards = timed("cards", phase_cards, torch)
     except Exception:                                  # a failed phase fails the run
         traceback.print_exc()
         return 1
@@ -3474,6 +4207,8 @@ def main() -> int:
                      **tp_mixers["rows"]["paged_decode_attention"]},
          "examples_launches": examples["launches"],
          "examples_max_abs_err": examples["max_abs_err"],
+         "cards_launches": cards and cards["paged_launches"],
+         "cards_max_abs_err": cards and cards["max_abs_err"],
          **rows["paged_decode_attention"]["bfloat16"]},
         {"name": "decode_attention", "route": "cuda",
          "source": f"{csrc}/decode_attention.cu",
@@ -3501,6 +4236,7 @@ def main() -> int:
          "train_launches": train["jamba_launches"]["mamba_scan"],
          "tp_launches": tp_mixers["launches"]["mamba_scan"],
          "tp_rows": tp_mixers["rows"]["mamba_scan"],
+         "cards_launches": cards and cards["scan_launches"],
          **rows["mamba_scan"]["bfloat16"]},
         {"name": "mamba_scan_bwd", "route": "cuda",
          "source": f"{csrc}/mamba_scan_bwd.cu",

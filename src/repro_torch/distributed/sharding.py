@@ -397,11 +397,28 @@ def _piece(leaf: torch.Tensor, dim: int | None, r: int, d: int, device,
     return torch.empty(part.shape, dtype=part.dtype, device=device).copy_(part)
 
 
-def _shard(tree, dim_of, mesh, share: bool) -> list:
-    d = mesh.degree
-    return [_map_named(lambda path, leaf, r=r, dev=dev:
-                       _piece(leaf, dim_of(path, leaf.dim()), r, d, dev, share), tree)
-            for r, dev in enumerate(mesh.devices)]
+def _shard(tree, dim_of, mesh, share: bool, path: tuple = ()) -> list:
+    """One tree per shard of ``mesh``, in one walk over ``tree``'s leaves in
+    order.  A leaf given as a function of no arguments is made when its
+    turn comes and dropped once it is cut (a sharded init draws leaf by
+    leaf, never holding the whole tree on one device)."""
+    if isinstance(tree, dict):
+        parts = {k: _shard(v, dim_of, mesh, share, path + (k,)) for k, v in tree.items()}
+        return [{k: p[r] for k, p in parts.items()} for r in range(mesh.degree)]
+    leaf = tree() if callable(tree) else tree
+    dim = dim_of(path, leaf.dim())
+    return [_piece(leaf, dim, r, mesh.degree, dev, share) for r, dev in enumerate(mesh.devices)]
+
+
+class ShardedParams(list):
+    """Weights already cut for a mesh: one params tree per shard, in shard
+    order (shard ``r`` on ``mesh.devices[r]``), and the ``split`` they were
+    cut by.  ``RolloutWorker`` adopts them as they are, where a bare tree
+    is cut for its mesh."""
+
+    def __init__(self, shards, split: "TPSplit"):
+        super().__init__(shards)
+        self.split = split
 
 
 def _gather(shards: list, dim_of, device=None):
@@ -431,10 +448,11 @@ def _cache_dims(split: TPSplit):
     return lambda path, ndim: split.cache_dim(_name(path), ndim, mixer_of(path))
 
 
-def shard_params(params, split: TPSplit, mesh) -> list:
+def shard_params(params, split: TPSplit, mesh) -> ShardedParams:
     """One params tree per shard of ``mesh`` (shard ``r`` on ``mesh.devices[r]``);
-    shards on one device share the replicated leaves."""
-    return _shard(params, _param_dims(split), mesh, share=True)
+    shards on one device share the replicated leaves.  A leaf may be a
+    function that makes it (see ``_shard``)."""
+    return ShardedParams(_shard(params, _param_dims(split), mesh, share=True), split)
 
 
 def gather_params(shards: list, split: TPSplit, device=None):

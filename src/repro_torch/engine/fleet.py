@@ -21,8 +21,11 @@
   rebuilt on newly carved meshes (weights re-sharded from the fleet's
   un-sharded copy), and the resident sequences of retired workers are moved
   lane by lane onto the new fleet (``migrate_out`` gathers the shards to the
-  full layout, ``migrate_in`` cuts it for the destination's mesh, so
-  moves cross MP degrees).
+  full layout on the source's device 0, ``migrate_in`` cuts it for the
+  destination's mesh, so moves cross MP degrees, card to card).  The fleet
+  keeps its un-sharded copy of the params on ``device``, so a fleet serves
+  only a configuration whose whole params fit one card; a single worker
+  takes weights made already cut (``init_params(mesh=)``).
 """
 
 from __future__ import annotations
@@ -133,8 +136,8 @@ class RolloutFleet:
         stay warm).  Changed or new slots get a fresh worker on a newly carved
         mesh — the weight re-shard of a split/merge move.  Resident sequences
         of every retired engine are migrated onto the new fleet (same slot
-        index when it exists, else the least-populated new worker), through
-        the host when either side is sharded.  Returns a
+        index when it exists, else the least-populated new worker), card to
+        card.  Returns a
         report dict; the caller (runtime / controller) must re-sync
         ``controller.degrees`` from ``fleet.spec`` — ``FleetSpec`` stays the
         only authority.

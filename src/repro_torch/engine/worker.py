@@ -42,9 +42,11 @@ the heads of every xLSTM state, on each shard's device.  The page table and
 ``pos`` are replicated on every shard; the ``PagePool`` bookkeeping is the
 worker's one copy.  A sharded worker admits by chunks or, where chunked
 prefill does not apply (MoE, a ring), by one full forward on its mesh.  A
-migration or checkpoint package holds the full layout on the host (the
-shards gathered), whatever the source's degree, and ``migrate_in`` cuts it
-for the destination's mesh.
+migration package holds the full layout on the source's device 0 (the
+shards gathered there card to card), whatever the source's degree, and
+``migrate_in`` cuts it for the destination's mesh, each piece copied
+straight to its card; a checkpoint package is the same copied to the host.
+The shards of a mesh may share one device or lie on distinct cards.
 """
 
 from __future__ import annotations
@@ -57,11 +59,12 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.distributed.sharding import (gather_cache, shard_cache, shard_config,
-                                              shard_params, tp_split)
+from repro_torch.distributed.sharding import (ShardedParams, gather_cache, shard_cache,
+                                              shard_config, shard_params, tp_split)
 from repro_torch.engine import prng
 from repro_torch.engine.paging import PagePool, PagePoolExhausted
 from repro_torch.engine.sampler import SamplerConfig, sample_slots
+from repro_torch.launch.mesh import WorkerMesh
 from repro_torch.models import model as M
 from repro_torch.models.config import ModelConfig
 
@@ -296,7 +299,10 @@ class RolloutWorker:
     takes the place of ``device``, and a mesh of degree ``mp`` > 1 shards
     the worker, whatever its config: the groups whose widths divide by
     ``mp`` are cut (``distributed.sharding.tp_split``), the rest replicated.
-    ``params`` always takes the full tree; a meshed worker keeps its shards.
+    ``params`` takes the full tree, which a meshed worker cuts, or weights
+    already cut for the mesh (``distributed.sharding.ShardedParams``, e.g.
+    ``init_params(cfg, seed, mesh=mesh)``, which never holds the whole tree
+    on one card), which it checks and keeps.
     """
 
     def __init__(self, cfg: ModelConfig, params, capacity: int = 256,
@@ -384,10 +390,40 @@ class RolloutWorker:
 
     @params.setter
     def params(self, params) -> None:
-        """Adopt weights given as the full tree (construction, weight sync):
-        moved to the device, or cut for the mesh."""
-        self._params = (shard_params(params, self.split, self._tp) if self._tp is not None
-                        else M.tree_to(params, self.device))
+        """Adopt weights (construction, weight sync): the full tree is moved
+        to the device or cut for the mesh; weights already cut for this
+        worker (``ShardedParams``, e.g. from ``init_params(mesh=)``) are
+        checked and kept as they are."""
+        if isinstance(params, ShardedParams):
+            self._check_shards(params)
+            self._params = params if self._tp is not None else params[0]
+        else:
+            self._params = (shard_params(params, self.split, self._tp) if self._tp is not None
+                            else M.tree_to(params, self.device))
+
+    def _check_shards(self, shards: ShardedParams) -> None:
+        """Refuse weights cut for another degree or split, or whose shards
+        lie elsewhere or differ in names or shapes from this worker's cut of
+        its config."""
+        devices = self._tp.devices if self._tp is not None else (self.device,)
+        if len(shards) != len(devices) or shards.split != self.split:
+            raise ValueError(f"params cut into {len(shards)} shards by {shards.split}; this "
+                             f"worker computes on {len(devices)} by {self.split}")
+        meta = torch.device("meta")
+        want = M.init_params(self.cfg, device=meta, mesh=WorkerMesh((meta,) * len(devices)))
+        for r, (shard, like, dev) in enumerate(zip(shards, want, devices)):
+            got = dict(M.tree_items(shard))
+            need = dict(M.tree_items(like))
+            if got.keys() != need.keys():
+                raise ValueError(f"params shard {r}: leaves {sorted(got.keys() ^ need.keys())} "
+                                 f"differ from {self.cfg.name}'s")
+            for path, t in got.items():
+                if t.shape != need[path].shape:
+                    raise ValueError(f"params shard {r}: {path} has shape {tuple(t.shape)}, "
+                                     f"want {tuple(need[path].shape)}")
+                if not (t.device == dev or (dev.index is None and t.device.type == dev.type)):
+                    raise ValueError(f"params shard {r}: {path} is on {t.device}, the "
+                                     f"shard's device is {dev}")
 
     def _placed(self, make):
         """``make(config, device)`` for the unsharded worker, or one per shard
@@ -412,11 +448,11 @@ class RolloutWorker:
 
     def _joined(self, parts: list):
         """The full layout of a lane, lane state or page stack given per
-        shard: on the host for a sharded worker (the unsharded one's stays on
-        its device)."""
+        shard, on the worker's device 0: the shards' pieces are copied there
+        card to card, never through the host."""
         if self._tp is None:
             return parts[0]
-        return gather_cache(parts, self.split, "cpu")
+        return gather_cache(parts, self.split, self.device)
 
     # ------------------------------------------------------------ slot bookkeeping
     def _reclaim(self, slot: int) -> None:
@@ -772,9 +808,8 @@ class RolloutWorker:
 
     def _lane_payload(self, seq: Sequence) -> dict:
         """One lane's KV and state in the full layout, with its byte price: the
-        resident pages and dense state (paged) or the whole lane (dense).  It
-        stays on the device unsharded, and is gathered to the host from the
-        shards of a sharded worker."""
+        resident pages and dense state (paged) or the whole lane (dense), on
+        the worker's device 0 (a sharded worker's shards gathered there)."""
         if not self._paged:
             return {"cache": self._joined([M.gather_slots(p, [seq.slot])
                                            for p in self._shards(self.pool)]),
@@ -790,11 +825,12 @@ class RolloutWorker:
     def migrate_out(self, seq_id: int) -> dict:
         """Package one lane's context and KV for transfer.
 
-        The KV stays on the device (a move between unsharded workers on one
-        card is a device-to-device copy); a sharded worker's is gathered to
-        the host in the full layout.  ``logical_bytes`` prices the
-        resident pages + dense state, or the whole dense lane.  The local
-        copy retires into the radix cache."""
+        The KV stays on the devices, in the full layout on the worker's
+        device 0 (a sharded worker's shards gathered there card to card);
+        ``migrate_in`` copies its pieces straight to the destination's
+        devices, so a move never bounces through the host.  ``logical_bytes``
+        prices the resident pages + dense state, or the whole dense lane.
+        The local copy retires into the radix cache."""
         seq = self.store.pop(seq_id)
         pkg = self._package_meta(seq, seq.preempted, seq.finished)
         pkg.update(self._lane_payload(seq))

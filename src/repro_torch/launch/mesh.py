@@ -7,7 +7,14 @@ makes the collectives explicit: a ``WorkerMesh`` is the worker's devices in
 shard order, and its ``reduce`` and ``gather`` are the two collectives the
 tensor-parallel split needs.  A device may repeat (``[cpu] * 4`` in the
 tests, ``[cuda:0] * 2`` on one card): each shard is then a separate set of
-tensors on that device.  The reference's production meshes lower for a TPU
+tensors on that device.  The devices may also be distinct cards
+(``cuda:0 ... cuda:d-1``): the collectives are then peer copies between
+cards, issued on the cards' current streams, which wait for each other's
+work with events, so no collective waits on the host.  No process group
+and no NCCL collective is used: the partials are summed by one process on
+device 0, in shard order and in f32, so a degree's sums are the same
+arithmetic, and its outputs bit-equal, whether its shards share one card or
+lie on distinct ones.  The reference's production meshes lower for a TPU
 pod and have no counterpart here.
 """
 
@@ -31,6 +38,15 @@ class WorkerMesh:
     def degree(self) -> int:
         return len(self.devices)
 
+    def peer_access(self) -> dict[tuple[int, int], bool]:
+        """For each ordered pair of distinct cards of the mesh, whether the
+        first can read the second's memory directly (a peer copy over NVLink
+        or PCIe; without it the copy is staged through the host).  Empty
+        when the mesh holds fewer than two distinct cards."""
+        cards = sorted({d.index for d in self.devices if d.type == "cuda"})
+        return {(a, b): torch.cuda.can_device_access_peer(a, b)
+                for a in cards for b in cards if a != b}
+
     def broadcast(self, x: torch.Tensor) -> list[torch.Tensor]:
         """``x`` on every shard's device (no copy where it already lies)."""
         return [x.to(dev) for dev in self.devices]
@@ -38,7 +54,8 @@ class WorkerMesh:
     def reduce(self, parts: Sequence[torch.Tensor]) -> list[torch.Tensor]:
         """The sum of the shards' partial outputs, added in shard order on
         device 0 (in f32 for narrower dtypes, then cast back once), copied back
-        to every shard's device."""
+        to every shard's device.  The same additions on the same device
+        whatever the placement: on distinct cards only the copies change."""
         acc_dtype = torch.promote_types(parts[0].dtype, torch.float32)
         dev0 = self.devices[0]
         total = parts[0].to(dev0, acc_dtype)
@@ -61,7 +78,11 @@ def carve_worker_meshes(degrees: Sequence[int], devices=None) -> list[WorkerMesh
     worker (nothing to shard), and so does a fleet the list cannot cover
     (``sum(degrees) > len(devices)``): the declared degrees then drive the
     control plane only, as in the reference.  ``devices=None`` means every
-    visible card, and raises where there is none.
+    visible card, and raises where there is none: {2, 1, 1} over four cards
+    puts worker 0's two shards on ``cuda:0`` and ``cuda:1`` and workers 1
+    and 2 on ``cuda:2`` and ``cuda:3``.  A list that repeats a device
+    (``["cuda:0"] * 4``) places every shard on it, with the same sums in the
+    same order (``WorkerMesh.reduce``).
     """
     if devices is None:
         resolve_device("cuda")

@@ -42,7 +42,7 @@ import torch
 import torch.utils.checkpoint
 
 from repro_torch.device import resolve_device
-from repro_torch.distributed.sharding import shard_config, tp_split
+from repro_torch.distributed.sharding import shard_config, shard_params, tp_split
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
 
@@ -80,7 +80,7 @@ def _init_attn(cfg: ModelConfig, normal, ones, cross: bool = False) -> dict:
         p["q_norm"] = ones((hd,))
         p["k_norm"] = ones((hd,))
     if cross:
-        p["xgate"] = ones(()).zero_()         # tanh(0) = 0: the gate starts closed
+        p["xgate"] = _then(ones(()), torch.Tensor.zero_)   # tanh(0) = 0: the gate starts closed
     return p
 
 
@@ -118,7 +118,7 @@ def _init_mamba(cfg: ModelConfig, normal, ones) -> dict:
             "m_conv": normal((W, di), 1.0 / math.sqrt(W)),
             "m_xproj": normal((di, R + 2 * N), s),
             "m_dtproj": normal((R, di), 1.0 / math.sqrt(R)),
-            "m_Alog": torch.log(ones((di, N), F32).cumsum(-1)),       # log(1..N)
+            "m_Alog": _then(ones((di, N), F32), lambda t: torch.log(t.cumsum(-1))),  # log(1..N)
             "m_D": ones((di,), F32),
             "m_out": normal((di, d), s / math.sqrt(2 * cfg.n_layers))}
 
@@ -130,7 +130,7 @@ def _init_mlstm(cfg: ModelConfig, normal, ones) -> dict:
     return {"l_up": normal((d, di), s), "l_z": normal((d, di), s),
             "l_q": normal((di, H, hd), s), "l_k": normal((di, H, hd), s),
             "l_v": normal((di, H, hd), s), "l_ig": normal((di, H), s),
-            "l_fg": normal((di, H), s).add_(1.0),              # biased toward remembering
+            "l_fg": _then(normal((di, H), s), lambda t: t.add_(1.0)),  # biased toward remembering
             "l_skip": ones((di,)),
             "l_down": normal((di, d), s / math.sqrt(2 * cfg.n_layers))}
 
@@ -139,7 +139,7 @@ def _init_slstm(cfg: ModelConfig, normal, ones) -> dict:
     d, H, s = cfg.d_model, cfg.n_heads, 0.02
     hd = d // H
     return {"s_w": normal((d, 4, H, hd), s), "s_r": normal((4, H, hd, hd), s),
-            "s_b": ones((4, H, hd)).zero_(),
+            "s_b": _then(ones((4, H, hd)), torch.Tensor.zero_),
             "s_out": normal((d, d), s / math.sqrt(2 * cfg.n_layers))}
 
 
@@ -162,52 +162,76 @@ def _init_layer(cfg: ModelConfig, kind: str, normal, ones, norm) -> dict:
     return layer
 
 
-def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
+def init_params(cfg: ModelConfig, seed: int = 0, device=None, mesh=None):
     """Random parameters with ``model.init_params``'s names, shapes, dtypes
     and scales.
 
     Drawn from a ``torch.Generator`` seeded with ``seed`` on ``device``, so the
     numbers differ from ``jax.random``'s; to hold the port against the JAX
     package, convert the JAX pytree with ``repro_torch.params.from_jax``.
+
+    With a ``mesh`` (``launch.mesh.WorkerMesh``) the weights are made already
+    cut for it, as ``distributed.sharding.ShardedParams``: each leaf is drawn
+    in the same order with the same generator on ``mesh.devices[0]`` (which
+    takes the place of ``device``), cut as ``shard_params`` cuts it, its
+    pieces moved to their devices, and dropped before the next is drawn.
+    The result equals ``shard_params(init_params(cfg, seed,
+    mesh.devices[0]), tp_split(cfg, mesh.degree), mesh)`` bit for bit, and
+    device 0 holds its own shard and at most one whole leaf.
     """
     check_ported(cfg)
-    dev = resolve_device(device)
+    dev = resolve_device(device) if mesh is None else mesh.devices[0]
+    gen = torch.Generator(device="cpu" if dev.type == "meta" else dev).manual_seed(seed)
+    draws = _param_draws(cfg, gen, dev)
+    if mesh is not None:
+        return shard_params(draws, tp_split(cfg, mesh.degree), mesh)
+    return tree_map(lambda draw: draw(), draws)
+
+
+def _param_draws(cfg: ModelConfig, gen: torch.Generator, dev) -> dict:
+    """The params tree with every leaf a function that makes it.  Called in
+    the tree's order (its insertion order), they draw from ``gen`` in the
+    order a tree built at once would."""
     dtype = torch_dtype(cfg)
-    gen = torch.Generator(device=dev).manual_seed(seed)
     d = cfg.d_model
 
+    def randn(shape, scale, dt=dtype):
+        return lambda: torch.randn(shape, generator=gen, device=dev, dtype=dt).mul_(scale)
+
+    def full(shape, value, dt=dtype):
+        return lambda: torch.full(shape, value, device=dev, dtype=dt)
+
     def norm(lead=()):                           # LayerNorm also has a bias
-        p = {"scale": torch.ones(lead + (d,), device=dev, dtype=dtype)}
+        p = {"scale": full(lead + (d,), 1.0)}
         if cfg.norm == "layernorm":
-            p["bias"] = torch.zeros_like(p["scale"])
+            p["bias"] = full(lead + (d,), 0.0)
         return p
 
     def stack(kinds, n):                         # leaves stacked over n layers
         def normal(shape, scale, dt=dtype):
-            return torch.randn((n,) + shape, generator=gen, device=dev, dtype=dt).mul_(scale)
+            return randn((n,) + shape, scale, dt)
 
         def ones(shape, dt=dtype):
-            return torch.ones((n,) + shape, device=dev, dtype=dt)
+            return full((n,) + shape, 1.0, dt)
 
         return {f"{i:02d}_{kind}": _init_layer(cfg, kind, normal, ones, lambda: norm((n,)))
                 for i, kind in enumerate(kinds)}
 
-    params: dict[str, Any] = {
-        "tok_embed": torch.randn((cfg.vocab, d), generator=gen, device=dev,
-                                 dtype=dtype).mul_(0.02),
-        "final_norm": norm(),
-    }
+    params: dict[str, Any] = {"tok_embed": randn((cfg.vocab, d), 0.02), "final_norm": norm()}
     if not cfg.tie_embeddings:
-        params["lm_head"] = torch.randn((d, cfg.vocab), generator=gen, device=dev,
-                                        dtype=dtype).mul_(0.02)
+        params["lm_head"] = randn((d, cfg.vocab), 0.02)
     params["blocks"] = stack(cfg.block_pattern, cfg.n_periods)
     if cfg.arch_type == "audio":
         params["enc_blocks"] = stack(("enc_attn+mlp",), cfg.encoder_layers)
         params["enc_norm"] = norm()
     if cfg.arch_type == "vlm":
-        params["enc_proj"] = torch.randn((d, d), generator=gen, device=dev,
-                                         dtype=dtype).mul_(0.02)
+        params["enc_proj"] = randn((d, d), 0.02)
     return params
+
+
+def _then(draw, fn):
+    """A leaf made by ``draw``, then passed through ``fn``."""
+    return lambda: fn(draw())
 
 
 def param_count(params) -> int:
@@ -221,6 +245,16 @@ def tree_leaves(tree):
             yield from tree_leaves(v)
     else:
         yield tree
+
+
+def tree_items(tree, prefix: str = ""):
+    """(path, tensor) of a nested dict's leaves in insertion order, the
+    path its keys joined by ``/``."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from tree_items(v, f"{prefix}/{k}" if prefix else k)
+    else:
+        yield prefix, tree
 
 
 def tree_map(fn, tree, *rest):

@@ -80,3 +80,71 @@ def test_moe_routes_record_each_shard(cs):
     assert first[0].shape == (12, cfg.top_k) and first[-1].shape == (2, cfg.top_k)
     assert cs._flips(routes[2].shard(0), routes[2].shard(1))["choices_flipped"] == 0
     assert cs._flips(first, routes[2].shard(0))["choices"] == (12 + 3 * 2) * n_moe * cfg.top_k
+
+
+def test_rounded_shards_equal_the_rounded_sharded_init(cs):
+    """Phase 17's bf16 d2 jamba: the f32 draws rounded leaf by leaf and cut
+    for the mesh are the f32 sharded init rounded in place (``_to_bf16``),
+    the router, A_log and D kept in f32."""
+    from dataclasses import replace
+    from repro_torch.models import model as M
+    cfg = replace(get_config("jamba_v0_1_52b").reduced(n_periods=2), dtype="float32")
+    mesh = WorkerMesh((torch.device("cpu"),) * 2)
+    got = cs._rounded_shards(torch, cfg, mesh)
+    want = init_params(cfg, 0, mesh=mesh)
+    for shard in want:
+        cs._to_bf16(torch, shard)
+    assert got.split == want.split
+    for g, w in zip(got, want):
+        gl, wl = list(M.tree_items(g)), list(M.tree_items(w))
+        assert [p for p, _ in gl] == [p for p, _ in wl]
+        for (path, a), (_, b) in zip(gl, wl):
+            assert a.dtype == b.dtype and torch.equal(a, b), path
+            assert (a.dtype == torch.float32) == (path.split("/")[-1] in cs.F32_LEAVES), path
+
+
+class _OnCard:
+    """A stand-in for a tensor on card ``index``."""
+
+    def __init__(self, index):
+        self.device = type("Device", (), {"index": index})()
+
+    def clone(self):
+        return self
+
+
+def test_per_card_counts_calls_by_card_and_keeps_other_cards(cs):
+    import types
+    module = types.SimpleNamespace(kernel=lambda *args: len(args))
+    with cs._PerCard(module, "kernel", keep=2) as card:
+        for index in (0, 1, 1, 1, 3, 0):
+            assert module.kernel(_OnCard(index), _OnCard(index)) == 2
+    assert module.kernel(_OnCard(0)) == 1                   # restored
+    assert card.counts == {0: 2, 1: 3, 3: 1}
+    assert {c: len(k) for c, k in card.kept.items()} == {1: 2, 3: 1}
+    assert card.take() == {0: 2, 1: 3, 3: 1} and card.counts == {}
+    cs._per_card("x", {0: 4, 1: 4}, range(2), 4)
+    with pytest.raises(AssertionError, match="by card"):
+        cs._per_card("x", {0: 4, 1: 3}, range(2), 4)
+
+
+def test_flips_at_d4_against_d2(cs):
+    """Phase 17 counts jamba's flips between its bf16 d4 and d2 workers:
+    both record a whole top-k set per token at each MoE layer, and d2's
+    two shards route alike."""
+    cfg = get_config("jamba_v0_1_52b").reduced(n_periods=1)
+    params = init_params(cfg, 0, "cpu")
+    routes = {}
+    for d in (4, 2):
+        mesh = WorkerMesh((torch.device("cpu"),) * d)
+        w = RolloutWorker(cfg, params, capacity=64, page_size=8, max_slots=2, mp=d, mesh=mesh,
+                          sampler=SamplerConfig(temperature=0.0), device="cpu")
+        with cs._MoeRoutes(torch, d) as routes[d]:
+            w.prefill(0, list(range(3, 15)))
+            w.decode([0], 3)
+    # one admission; the first decode step stands where phase 17's teacher-forced step does
+    flips = cs._log_flips(cfg, 1, routes[4], routes[2], names=("d4", "d2"), tag="cards")
+    assert set(flips) == {"admissions", "teacher-forced", "decode", "d2 shards"}
+    assert flips["d2 shards"]["choices_flipped"] == 0
+    n_moe = sum(k.endswith("+moe") for k in cfg.block_pattern)
+    assert sum(f["tokens"] for k, f in flips.items() if k != "d2 shards") == (12 + 3 * 2) * n_moe

@@ -945,7 +945,7 @@ def test_cuda_sharded_worker_matches_degree_one(degree, paged, heads):
     assert out == out1 and stats == stats1
     assert float((logits - logits1).abs().max()) < TOL["float32"]
     fresh = RolloutWorker(cfg, params, worker_id=1, device="cuda", **kw)
-    fresh.migrate_in(w.migrate_out(3))             # gathered to the host, one shard again
+    fresh.migrate_in(w.migrate_out(3))             # gathered on cuda:0, one shard again
     assert fresh.decode([3], 4)[3] == one.decode([3], 4)[3]
 
 
