@@ -327,6 +327,23 @@ Phases (each raises on failure; any failure exits non-zero with no result line):
               over the visible cards as a process of its own.  The cuts
               (requests, steps, the runtime's prompts) fit the script's
               1,200 s on four cards, where phases 1-16 took 1,063 s.
+18. dryrun -- the dry run (repro_torch.launch.dryrun: every step reckoned
+              per card on meta tensors, nothing allocated) held against this
+              card: (a) qwen3-1.7b's decode_32k at full width on a one-card
+              layout (degree 1, 16 lanes of 32,768 slots: 60 GB of KV, 3.4
+              GB of weights), reckoned by run_one, then the same step run on
+              cuda:0: the argument bytes equal the real params' and cache's,
+              the product FLOPs equal torch.utils.flop_counter's over the
+              real step and the kernel's operations its formula, the
+              predicted dense-kernel launches (28) the real ones, the
+              reckoned temp within 1% + 64 MiB of the card's peak above the
+              arguments; (b) the same at degree 2 on [cuda:0] * 2 (4 lanes):
+              the reckoned all-reduces and all-gathers and their wire bytes
+              equal to the real step's WorkerMesh calls, each shard's
+              argument bytes, the FLOPs in all and the launches; (c) one
+              2,048-token admission on phase 7's one-period jamba: the
+              predicted scan launches (7) the real ones, the FLOPs and
+              argument bytes held, the temp gap logged.
 
 float32 matrix products run in full float32: TF32 is switched off for matmuls
 and cuDNN.  The next-to-last line is one JSON object describing each kernel;
@@ -4151,6 +4168,210 @@ def phase_cards(torch):
                             "jamba": jamba_err, "runtime": runtime and runtime[1]}}
 
 
+# ---------------------------------------------------------------- phase 18
+DRYRUN_LANES = 16          # (a): decode_32k's 128 lanes cut to fit one card (60 GB of KV)
+DRYRUN_TP_LANES = 4        # (b): lanes at degree 2 (only the collectives are held)
+DRYRUN_PROMPT = 2048       # (c): one jamba admission, phase 7's first prompt
+DRYRUN_PEAK_TOL = (0.01, 64 * 2**20)    # reckoned temp within 1% + 64 MiB of the card's
+
+
+def _storage_bytes(torch, tree):
+    """Bytes of the distinct storages under ``tree`` (a view counts once)."""
+    from repro_torch.launch.dryrun import _tensors
+    seen = {}
+    for t in _tensors(tree):
+        seen.setdefault(t.untyped_storage()._cdata, t.untyped_storage().nbytes())
+    return sum(seen.values())
+
+
+def _counted_mesh(devices):
+    """A ``WorkerMesh`` that counts its reduce and gather calls and their
+    wire bytes as the dry run reckons them (2x and 1x the output's bytes)."""
+    from repro_torch.launch.mesh import WorkerMesh
+
+    class CountedMesh(WorkerMesh):
+        def __init__(self, devs):
+            super().__init__(tuple(devs))
+            object.__setattr__(self, "calls", {"all-reduce": [0, 0.0], "all-gather": [0, 0.0]})
+
+        def reduce(self, parts):
+            call = self.calls["all-reduce"]
+            call[0] += 1
+            call[1] += 2.0 * parts[0].numel() * parts[0].element_size()
+            return super().reduce(parts)
+
+        def gather(self, parts, dim):
+            out = super().gather(parts, dim)
+            call = self.calls["all-gather"]
+            call[0] += 1
+            call[1] += 1.0 * out.numel() * out.element_size()
+            return out
+
+    return CountedMesh(devices)
+
+
+def _dryrun_real(torch, step):
+    """The step on the card, its products counted by FlopCounterMode, the
+    kernels' launches zeroed just before and read just after: (outputs,
+    product FLOPs, launches, peak allocated above what was allocated before
+    it, the step's ms)."""
+    from torch.utils.flop_counter import FlopCounterMode
+    sync_all(torch)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    _reset_launches()
+    counter = FlopCounterMode(display=False)
+    t0 = time.perf_counter()
+    with counter:
+        out = step.fn(*step.args)
+    launches = _read_launches(torch)
+    ms = (time.perf_counter() - t0) * 1e3
+    return out, counter.get_total_flops(), launches, torch.cuda.max_memory_allocated() - base, ms
+
+
+def _hold_dryrun(tag, rec, real_args, flops, formula, launches, peak, hold_peak=True):
+    """The reckoning of ``rec`` against the card's step: argument bytes and
+    product FLOPs equal, the kernels' operations their formula, the
+    predicted launches the real ones, the reckoned temp within
+    DRYRUN_PEAK_TOL of the card's peak above the arguments (logged only
+    where ``hold_peak`` is false)."""
+    gap = rec["temp_size_in_bytes"] - peak
+    limit = DRYRUN_PEAK_TOL[0] * peak + DRYRUN_PEAK_TOL[1]
+    log(f"[dryrun] {tag}: arguments reckoned {rec['argument_size_in_bytes']} B, on the card "
+        f"{real_args} B; product FLOPs reckoned {rec['product_flops']}, FlopCounterMode "
+        f"{flops}; kernel operations {rec['kernel_flops']} (formula {formula}); launches "
+        f"reckoned {rec['kernel_launches']}, on the card {launches}; temp reckoned "
+        f"{rec['temp_size_in_bytes'] / 2**30:.4f} GiB, the card's peak above its arguments "
+        f"{peak / 2**30:.4f} GiB (gap {gap / 2**20:+.1f} MiB, limit {limit / 2**20:.1f} MiB)")
+    if rec["argument_size_in_bytes"] != real_args:
+        raise AssertionError(f"[dryrun] {tag}: argument bytes {rec['argument_size_in_bytes']} "
+                             f"!= {real_args}")
+    if rec["product_flops"] != flops or rec["kernel_flops"] != formula:
+        raise AssertionError(f"[dryrun] {tag}: FLOPs ({rec['product_flops']}, "
+                             f"{rec['kernel_flops']}) != ({flops}, {formula})")
+    if rec["kernel_launches"] != {k: n for k, n in launches.items() if n}:
+        raise AssertionError(f"[dryrun] {tag}: launches {rec['kernel_launches']} != {launches}")
+    if hold_peak and abs(gap) > limit:
+        raise AssertionError(f"[dryrun] {tag}: reckoned temp off the card's by "
+                             f"{gap / 2**20:.1f} MiB (limit {limit / 2**20:.1f} MiB)")
+
+
+def _dryrun_decode(torch):
+    """(a) qwen3-1.7b's decode_32k at full width on a one-card layout
+    (degree 1, DRYRUN_LANES lanes of 32,768 slots): reckoned by run_one,
+    then the same step run for real on cuda:0."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import meta
+    from repro_torch.launch import dryrun, specs
+    from repro_torch.launch.mesh import ProductionLayout, WorkerMesh
+    from repro_torch.models.config import InputShape
+    cfg = get_config("qwen3_1_7b")
+    shape = InputShape("decode_32k", 32_768, DRYRUN_LANES, "decode")
+    t0 = time.perf_counter()
+    rec = dryrun.run_one("qwen3-1.7b", "decode_32k", verbose=False, shape=shape,
+                         layout=ProductionLayout(1, WorkerMesh((torch.device("meta"),))))
+    log(f"[dryrun] (a) reckoned on meta in {time.perf_counter() - t0:.1f} s: "
+        f"{json.dumps(rec)}")
+    torch.cuda.empty_cache()
+    log(f"[dryrun] (a) allocated on cuda:0 before the step's arguments: "
+        f"{torch.cuda.memory_allocated(0) / 2**30:.3f} GiB")
+    step = specs.build(cfg, shape, ProductionLayout(1, WorkerMesh((torch.device("cuda", 0),))))
+    real_args = _storage_bytes(torch, step.args)
+    out, flops, launches, peak, ms = _dryrun_real(torch, step)
+    logits = out[0]
+    if logits.shape != (DRYRUN_LANES, cfg.vocab) or not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"[dryrun] (a): logits {tuple(logits.shape)} not finite")
+    G = cfg.n_heads // cfg.n_kv_heads
+    formula = cfg.n_layers * meta.decode_cost(DRYRUN_LANES, cfg.n_kv_heads, G, cfg.hd,
+                                              DRYRUN_LANES * shape.seq_len, 2)[0]
+    log(f"[dryrun] (a) the step on cuda:0: {ms:.1f} ms (first call), logits finite")
+    _hold_dryrun("(a) qwen3-1.7b decode_32k, 16 lanes, degree 1", rec, real_args, flops,
+                 formula, launches, peak)
+    del step, out, logits
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _dryrun_tp(torch):
+    """(b) the same decode at degree 2 with both shards on cuda:0: the
+    reckoned all-reduces and all-gathers, their wire bytes, each shard's
+    argument bytes and the launches against the real step's mesh calls."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun, specs
+    from repro_torch.launch.mesh import ProductionLayout, WorkerMesh
+    from repro_torch.models.config import InputShape
+    cfg = get_config("qwen3_1_7b")
+    shape = InputShape("decode_32k", 32_768, DRYRUN_TP_LANES, "decode")
+    rec, tally = dryrun.reckon(cfg, shape, ProductionLayout(1, WorkerMesh(
+        (torch.device("meta"),) * 2)))
+    cards = [tally.per_card(r) for r in range(2)]
+    mesh = _counted_mesh((torch.device("cuda", 0),) * 2)
+    step = specs.build(cfg, shape, ProductionLayout(1, mesh))
+    shard_bytes = [_storage_bytes(torch, trees) for trees in step.shards]
+    out, flops, launches, _, ms = _dryrun_real(torch, step)
+    if not bool(torch.isfinite(out[0]).all()):
+        raise AssertionError("[dryrun] (b): logits not finite")
+    want = {k: [rec["collective_counts"][k], rec["collective_bytes"][k]] for k in mesh.calls}
+    log(f"[dryrun] (b) degree 2 on [cuda:0] * 2 ({ms:.1f} ms): collectives reckoned {want}, "
+        f"the mesh's calls {mesh.calls}; shard argument bytes reckoned "
+        f"{[c['argument_size_in_bytes'] for c in cards]}, on the card {shard_bytes}; "
+        f"product FLOPs reckoned {tally.totals()[0]} in all, FlopCounterMode {flops}; "
+        f"launches reckoned {cards[0]['kernel_launches']} a card, on the card {launches}")
+    if mesh.calls != want:
+        raise AssertionError(f"[dryrun] (b): collectives {mesh.calls} != reckoned {want}")
+    if [c["argument_size_in_bytes"] for c in cards] != shard_bytes:
+        raise AssertionError(f"[dryrun] (b): shard bytes {shard_bytes} != reckoned")
+    if tally.totals()[0] != flops:
+        raise AssertionError(f"[dryrun] (b): product FLOPs {flops} != {tally.totals()[0]}")
+    if launches["decode_attention"] != 2 * cards[0]["kernel_launches"]["decode_attention"]:
+        raise AssertionError(f"[dryrun] (b): launches {launches}")
+    del step, out, mesh
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _dryrun_jamba(torch):
+    """(c) one admission of a DRYRUN_PROMPT-token prompt on phase 7's
+    one-period jamba (prefill at degree 1): the predicted scan launches,
+    one a Mamba layer, against the real ones, and the FLOPs and bytes."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import meta
+    from repro_torch.launch import dryrun, specs
+    from repro_torch.launch.mesh import ProductionLayout, WorkerMesh
+    from repro_torch.models.config import InputShape
+    cfg = dataclasses.replace(get_config("jamba_v0_1_52b"), n_periods=1)
+    shape = InputShape("prefill_2k", DRYRUN_PROMPT, 1, "prefill")
+    rec, _ = dryrun.reckon(cfg, shape, ProductionLayout(1, WorkerMesh((torch.device("meta"),))))
+    step = specs.build(cfg, shape, ProductionLayout(1, WorkerMesh((torch.device("cuda", 0),))))
+    real_args = _storage_bytes(torch, step.args)
+    out, flops, launches, peak, ms = _dryrun_real(torch, step)
+    if not bool(torch.isfinite(out[0]).all()):
+        raise AssertionError("[dryrun] (c): logits not finite")
+    n_mamba = cfg.n_periods * sum(k.startswith("mamba") for k in cfg.block_pattern)
+    formula = n_mamba * meta.scan_cost(1, DRYRUN_PROMPT, cfg.d_inner, cfg.ssm_state_dim, 2)[0]
+    log(f"[dryrun] (c) jamba one period, a {DRYRUN_PROMPT}-token admission on cuda:0 "
+        f"({ms:.1f} ms, first call)")
+    _hold_dryrun(f"(c) jamba 1 period, prefill {DRYRUN_PROMPT}", rec, real_args, flops,
+                 formula, launches, peak, hold_peak=False)
+    del step, out
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_dryrun(torch, smi):
+    """The dry run (launch/dryrun.py) held against the card: (a), (b), (c)."""
+    t0 = time.perf_counter()
+    dense = _dryrun_decode(torch)
+    tp = _dryrun_tp(torch)
+    jamba = _dryrun_jamba(torch)
+    log(f"[dryrun] held on {smi}: (a) {dense['decode_attention']} dense launches as "
+        f"reckoned, (b) the collectives as reckoned, (c) {jamba['mamba_scan']} scan launches "
+        f"as reckoned; {time.perf_counter() - t0:.1f} s")
+    return {"decode_attention": dense["decode_attention"] + tp["decode_attention"],
+            "mamba_scan": jamba["mamba_scan"]}
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         print("chip_smoke: src/repro_torch not found next to this script", file=sys.stderr)
@@ -4159,6 +4380,7 @@ def main() -> int:
     import torch
     torch.backends.cuda.matmul.allow_tf32 = False      # f32 matmuls in full f32
     torch.backends.cudnn.allow_tf32 = False
+    t_script = time.perf_counter()
 
     def timed(name, fn, *args):
         t0 = time.perf_counter()
@@ -4187,6 +4409,7 @@ def main() -> int:
         tp_cross = timed("tp-cross", phase_tp_cross, torch, info["smi"])
         examples = timed("examples", phase_examples, torch, info["smi"])
         cards = timed("cards", phase_cards, torch)
+        dryrun = timed("dryrun", phase_dryrun, torch, info["smi"])
     except Exception:                                  # a failed phase fails the run
         traceback.print_exc()
         return 1
@@ -4228,6 +4451,7 @@ def main() -> int:
          "tp_cross_max_abs_err": tp_cross["max_abs_err"],
          "tp_rows": tp["rows"]["decode_attention"],
          "tp_cross_rows": {label: rows[label] for label, *_ in TP_CROSS_SHAPES},
+         "dryrun_launches": dryrun["decode_attention"],
          **rows["decode_attention"]["bfloat16"]},
         {"name": "mamba_scan", "route": "cuda",
          "source": f"{csrc}/mamba_scan.cu",
@@ -4237,6 +4461,7 @@ def main() -> int:
          "tp_launches": tp_mixers["launches"]["mamba_scan"],
          "tp_rows": tp_mixers["rows"]["mamba_scan"],
          "cards_launches": cards and cards["scan_launches"],
+         "dryrun_launches": dryrun["mamba_scan"],
          **rows["mamba_scan"]["bfloat16"]},
         {"name": "mamba_scan_bwd", "route": "cuda",
          "source": f"{csrc}/mamba_scan_bwd.cu",
@@ -4245,6 +4470,7 @@ def main() -> int:
          "launches": train["jamba_launches"]["mamba_scan_bwd"],
          **rows["mamba_scan_bwd"]["bfloat16"]},
     ]
+    log(f"[time] script: {time.perf_counter() - t_script:.1f} s")
     log(f"[device] {info['smi']}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": info["kind"],

@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import importlib
 
-from repro_torch.models.config import ModelConfig
+from repro_torch.models.config import INPUT_SHAPES, LONG_CONTEXT_WINDOW, ModelConfig
 
 ARCHITECTURES = (
     "smollm_135m",
@@ -46,3 +46,24 @@ def get_config(name: str) -> ModelConfig:
         raise KeyError(f"unknown architecture {name!r} (known: "
                        f"{', '.join(ARCHITECTURES + tuple(PAPER_CONFIGS))})")
     return importlib.import_module(f"repro_torch.configs.{mod_name}").CONFIG
+
+
+def combos(include_skipped: bool = False):
+    """Every (architecture, input shape) of the dry run, with the reference's
+    rules: the audio encoder-decoder skips ``long_500k`` (its decoder's
+    context is bounded), and a config with full attention takes the
+    ``LONG_CONTEXT_WINDOW`` sliding window there.  Yields (architecture,
+    shape name, config), the config None for a skip when
+    ``include_skipped`` holds."""
+    for arch in ARCHITECTURES:
+        cfg = get_config(arch)
+        for shape_name in INPUT_SHAPES:
+            if shape_name == "long_500k":
+                if cfg.arch_type == "audio":
+                    if include_skipped:
+                        yield arch, shape_name, None
+                    continue
+                if not cfg.is_subquadratic():
+                    yield arch, shape_name, cfg.with_sliding_window(LONG_CONTEXT_WINDOW)
+                    continue
+            yield arch, shape_name, cfg

@@ -9,8 +9,11 @@ the port's one kernel library (``build.py``) and are called through
 ``ctypes`` on PyTorch's current stream.
 
 On CPU tensors a wrapper returns the plain version (``ref.py``); on CUDA
-tensors it launches its kernel or raises.  ``launches[name]`` counts each
-kernel's launches, and nothing else.
+tensors it launches its kernel or raises; on ``meta`` tensors it runs the
+kernel's shape function (``meta.py``: the output's shape and dtype, the
+workspace, and the call's operations and bytes to the dry run's tally, every
+slot counted valid).  ``launches[name]`` counts each kernel's real launches,
+and nothing else.
 
 Each call is one launch, split over the sequence: ``_split_plan`` cuts a
 lane's C token slots into ``n_split`` pieces of L tokens from the shapes
@@ -30,7 +33,7 @@ import math
 
 import torch
 
-from repro_torch.kernels import ref
+from repro_torch.kernels import meta, ref
 from repro_torch.kernels.build import KERNELS
 
 launches = {"paged_decode_attention": 0, "decode_attention": 0}
@@ -122,12 +125,19 @@ def _launch(name: str, q: torch.Tensor, ptrs: list, ints: list, C: int,
     return out
 
 
-def _on_cuda(name: str, q: torch.Tensor) -> bool:
-    if q.device.type == "cpu":
-        return False
-    if q.device.type != "cuda":
-        raise ValueError(f"{name}: no kernel for device {q.device}")
-    return True
+def _shape_fn(name: str, q: torch.Tensor, C: int, page_size: int, pages: int = 0
+              ) -> torch.Tensor:
+    """The launch's shape function on ``meta`` tensors: the output and the
+    split's workspace as ``_launch`` takes them (on an H100's SMs), and the
+    call's operations and bytes with all B x C slots valid (the page table's
+    ``pages`` entries read)."""
+    B, KV, G, hd = q.shape
+    out = torch.empty_like(q)
+    _, n_split = _split_plan(B, KV, C, page_size, meta.LAYOUT_SMS)
+    if n_split > 1:
+        q.new_empty(B * KV * n_split * G * (hd + 2), dtype=torch.float32)
+    meta.report(name, *meta.decode_cost(B, KV, G, hd, B * C, q.element_size(), pages), q)
+    return out
 
 
 def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
@@ -137,13 +147,16 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.
     through page_table (B,num_pages) int32; valid_len (B,) int32, each >= 1.
     Returns (B,KV,G,hd) in q's dtype."""
     name = "paged_decode_attention"
-    if not _on_cuda(name, q):
+    route = meta.arm(name, q.device)
+    if route == "plain":
         return ref.paged_decode_attention_ref(q, k_pool, v_pool, page_table, valid_len)
     _check(name, q, (k_pool, v_pool), {"page_table": page_table, "valid_len": valid_len})
     B, KV, G, hd = q.shape
     if page_table.dim() != 2 or page_table.shape[0] != B or valid_len.shape != (B,):
         raise ValueError(f"{name}: page_table (B,num_pages) / valid_len (B,) do not match q")
     num_pages, ps = page_table.shape[1], k_pool.shape[1]
+    if route == "meta":
+        return _shape_fn(name, q, num_pages * ps, ps, B * num_pages)
     return _launch(name, q, [q, k_pool, v_pool, page_table, valid_len],
                    [B, KV, G, hd, num_pages, ps], num_pages * ps, ps)
 
@@ -154,10 +167,13 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     valid_len (B,) int32, each >= 1 (values above C count as C).  Returns
     (B,KV,G,hd) in q's dtype."""
     name = "decode_attention"
-    if not _on_cuda(name, q):
+    route = meta.arm(name, q.device)
+    if route == "plain":
         return ref.decode_attention_ref(q, k, v, valid_len)
     _check(name, q, (k, v), {"valid_len": valid_len})
     B, KV, G, hd = q.shape
     if k.shape[0] != B or valid_len.shape != (B,):
         raise ValueError(f"{name}: k (B,C,KV,hd) / valid_len (B,) do not match q")
+    if route == "meta":
+        return _shape_fn(name, q, k.shape[1], 1)
     return _launch(name, q, [q, k, v, valid_len], [B, KV, G, hd, k.shape[1]], k.shape[1], 1)

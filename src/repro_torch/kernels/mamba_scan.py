@@ -9,8 +9,11 @@ port's one kernel library (``build.py``) and called through ``ctypes`` on
 PyTorch's current stream.
 
 On CPU tensors each wrapper returns the plain version (``ref.py``); on CUDA
-tensors it launches the kernel or raises.  ``launches["mamba_scan"]`` and
-``launches["mamba_scan_bwd"]`` count the kernels' launches, and nothing else.
+tensors it launches the kernel or raises; on ``meta`` tensors it runs the
+kernel's shape function (``meta.py``: the outputs and scratch of the
+kernel's shapes and dtypes, and the call's operations and bytes to the dry
+run's tally).  ``launches["mamba_scan"]`` and ``launches["mamba_scan_bwd"]``
+count the kernels' real launches, and nothing else.
 
 ``_scan_plan`` and ``_scan_bwd_plan`` choose, from the shapes and addresses
 alone, the copy width of each operand into and out of the kernels'
@@ -23,7 +26,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import ref
+from repro_torch.kernels import meta, ref
 from repro_torch.kernels.build import KERNELS
 
 launches = {"mamba_scan": 0, "mamba_scan_bwd": 0}
@@ -71,12 +74,11 @@ def _scan_bwd_plan(S: int, di: int, N: int, item: int, ptrs) -> dict:
 
 
 def _check(name: str, dt, b_in, c_in, x, a_log, **grads) -> tuple[int, int, int, int]:
-    """Raise unless the kernel takes these CUDA tensors: dt and a_log (and the
-    gradients ``grads``, None allowed) f32, x, b_in and c_in of one dtype,
-    bfloat16 or float32, all contiguous on dt's device.  Returns (B, S, di, N)."""
+    """Raise unless the kernel takes these CUDA (or ``meta``) tensors: dt and
+    a_log (and the gradients ``grads``, None allowed) f32, x, b_in and c_in of
+    one dtype, bfloat16 or float32, all contiguous on dt's device.  Returns
+    (B, S, di, N)."""
     dev = dt.device
-    if dev.type != "cuda":
-        raise ValueError(f"{name}: no kernel for device {dev}")
     tensors = {"dt": dt, "b_in": b_in, "c_in": c_in, "x": x, "a_log": a_log,
                **{n: t for n, t in grads.items() if t is not None}}
     for n, t in tensors.items():
@@ -111,12 +113,16 @@ def mamba_scan(dt: torch.Tensor, b_in: torch.Tensor, c_in: torch.Tensor, x: torc
     (y (B,S,di) f32, last state (B,di,N) f32).  The kernel takes dt and a_log
     in f32 and x, b_in, c_in all in bf16 or all in f32, contiguous."""
     name = "mamba_scan"
-    if dt.device.type == "cpu":
+    route = meta.arm(name, dt.device)
+    if route == "plain":
         return ref.mamba_scan_ref(dt, b_in, c_in, x, a_log)
     B, S, di, N = _check(name, dt, b_in, c_in, x, a_log)
     dev = dt.device
-    y = torch.empty((B, S, di), dtype=torch.float32, device=dev)
-    h = torch.empty((B, di, N), dtype=torch.float32, device=dev)
+    y = dt.new_empty((B, S, di))
+    h = dt.new_empty((B, di, N))
+    if route == "meta":
+        meta.report(name, *meta.scan_cost(B, S, di, N, x.element_size()), dt)
+        return y, h
     plan = _scan_plan(S, di, N, x.element_size(),
                       [t.data_ptr() for t in (dt, b_in, c_in, x, y)])
     fn = KERNELS.function(f"{name}_{_SUFFIX[x.dtype]}", 7, 4 + len(PLAN_KEYS))
@@ -168,16 +174,19 @@ def mamba_scan_bwd(dt: torch.Tensor, b_in: torch.Tensor, c_in: torch.Tensor,
     dt, dB, dC, dx, dA_log): d dt and dA_log f32, the others in x's dtype.
     The same dtype and contiguity contract as ``mamba_scan``."""
     name = "mamba_scan_bwd"
-    if dt.device.type == "cpu":
+    route = meta.arm(name, dt.device)
+    if route == "plain":
         return ref.mamba_scan_bwd_ref(dt, b_in, c_in, x, a_log, g_y, g_h)
     B, S, di, N = _check(name, dt, b_in, c_in, x, a_log, g_y=g_y, g_h=g_h)
     dev = dt.device
-    d_dt = torch.empty((B, S, di), dtype=torch.float32, device=dev)
+    d_dt = dt.new_empty((B, S, di))
     d_x = torch.empty_like(x)
     d_b, d_c = torch.empty_like(b_in), torch.empty_like(c_in)
-    d_alog = torch.empty((di, N), dtype=torch.float32, device=dev)
-    scratch = torch.empty(bwd_scratch_bytes(B, S, di, N) // 4, dtype=torch.float32,
-                          device=dev)
+    d_alog = dt.new_empty((di, N))
+    scratch = dt.new_empty(bwd_scratch_bytes(B, S, di, N) // 4)
+    if route == "meta":
+        meta.report(name, *meta.scan_bwd_cost(B, S, di, N, x.element_size()), dt)
+        return d_dt, d_b, d_c, d_x, d_alog
     plan = _scan_bwd_plan(S, di, N, x.element_size(),
                           [t.data_ptr() for t in (dt, b_in, c_in, x, dt if g_y is None else g_y,
                                                   d_dt, d_x)])

@@ -2,6 +2,8 @@
 
 Counterpart of ``repro/kernels/ops.py``.  There is no switch: the device of
 the tensors decides, and a CUDA tensor that the kernel cannot take raises.
+On ``meta`` tensors (the dry run) the kernels' shape functions run
+(``meta.py``).
 """
 
 from __future__ import annotations

@@ -14,8 +14,12 @@ work with events, so no collective waits on the host.  No process group
 and no NCCL collective is used: the partials are summed by one process on
 device 0, in shard order and in f32, so a degree's sums are the same
 arithmetic, and its outputs bit-equal, whether its shards share one card or
-lie on distinct ones.  The reference's production meshes lower for a TPU
-pod and have no counterpart here.
+lie on distinct ones.
+
+``make_production_mesh`` is the counterpart of the reference's production
+meshes (a 16x16 TPU pod, two of them): the layout of H100 hosts that the
+dry run (``launch/dryrun.py``) reckons per card, described and never
+allocated.
 """
 
 from __future__ import annotations
@@ -66,6 +70,59 @@ class WorkerMesh:
     def gather(self, parts: Sequence[torch.Tensor], dim: int) -> torch.Tensor:
         """The shards' pieces concatenated along ``dim`` on device 0."""
         return torch.cat([p.to(self.devices[0]) for p in parts], dim=dim)
+
+
+# Cards a host: an HGX H100 board holds eight, joined all to all by NVLink.
+# This is the production layout's premise, not a measurement of any host.
+HOST_CARDS = 8
+
+
+@dataclass(frozen=True)
+class ProductionLayout:
+    """The production layout: ``replicas`` hosts (the data axis), each one
+    worker of MP degree ``HOST_CARDS`` over its host's cards (the model
+    axis, the NVLink domain that one controlling process's ``WorkerMesh``
+    spans).  ``mesh`` is one replica's worker mesh, over whatever device
+    the caller named."""
+
+    replicas: int
+    mesh: WorkerMesh
+
+    @property
+    def degree(self) -> int:
+        return self.mesh.degree
+
+    @property
+    def shape(self) -> tuple[int, ...]:
+        """(data, model) on one host, (pod, data, model) on two: the
+        reference's axes, each host's data axis 1."""
+        return (1, self.degree) if self.replicas == 1 else (self.replicas, 1, self.degree)
+
+    @property
+    def name(self) -> str:
+        return "x".join(map(str, self.shape))
+
+    @property
+    def chips(self) -> int:
+        return self.replicas * self.degree
+
+    @staticmethod
+    def batch(global_batch: int, replicas: int) -> int:
+        """A replica's batch: ``global_batch`` split over ``replicas`` where
+        it divides, else the whole batch on every replica (as the reference
+        shards only a divisible batch: ``long_500k``'s batch of 1 stays
+        whole)."""
+        return global_batch // replicas if global_batch % replicas == 0 else global_batch
+
+
+def make_production_mesh(*, multi_pod: bool = False, device="meta") -> ProductionLayout:
+    """One host of ``HOST_CARDS`` cards (``1x8``, 8 chips), or with
+    ``multi_pod`` two (``2x1x8``, 16 chips; the data axis of 2 splits the
+    batch across the hosts' replicas).  The worker mesh lists ``device``
+    ``HOST_CARDS`` times: ``meta`` by default, so that nothing is allocated
+    and no card is needed."""
+    return ProductionLayout(2 if multi_pod else 1,
+                            WorkerMesh((torch.device(device),) * HOST_CARDS))
 
 
 def carve_worker_meshes(degrees: Sequence[int], devices=None) -> list[WorkerMesh | None]:

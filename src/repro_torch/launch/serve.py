@@ -33,9 +33,15 @@ Open-loop serving (Poisson ingress, tenant SLOs, admission control):
 Rollout-as-a-service (streaming harvest + in-flight weight sync):
     PYTHONPATH=src python -m repro_torch.launch.serve --requests 16 --stream 4
 
-``--dry-run`` compiles for a TPU pod and has no GPU counterpart; it stops
-with an error, and so does an audio or VLM ``--arch``: the rollout worker
-admits token prompts only.
+``--dry-run`` serves nothing: it reckons ``--arch`` at full width per card
+on the H100 layout (one host of 8 cards, two with ``--multi-pod``) for
+``--shape``, on ``meta`` tensors with nothing allocated and no card needed
+(``launch/dryrun.py``): argument, output and temp bytes, FLOPs, bytes
+accessed and the collectives of a prefill or decode step at MP degree 8:
+    PYTHONPATH=src python -m repro_torch.launch.serve --dry-run --shape prefill_32k
+
+An audio or VLM ``--arch`` stops with an error outside the dry run: the
+rollout worker admits token prompts only.
 """
 
 from __future__ import annotations
@@ -59,8 +65,8 @@ def _validate_args(ap, args):
         ap.error(f"--steps must be >= 0 (got {args.steps})")
     if args.stream < 0:
         ap.error(f"--stream must be >= 0 (got {args.stream})")
-    if args.dry_run:
-        ap.error("--dry-run lowers for a TPU pod mesh; it has no GPU counterpart")
+    if args.multi_pod and not args.dry_run:
+        ap.error("--multi-pod is the dry run's two-host layout; it needs --dry-run")
     if args.tool_latency <= 0:
         ap.error(f"--tool-latency must be > 0 (got {args.tool_latency})")
     if args.degrees:
@@ -279,7 +285,12 @@ def main(argv=None):
                          "an in-flight weight sync every N harvests — workers "
                          "cut over as their resident lanes drain (0 = off)")
     ap.add_argument("--dry-run", action="store_true",
-                    help="TPU pod compile; no GPU counterpart (an error)")
+                    help="reckon the FULL config per card on the H100 layout "
+                         "(launch/dryrun.py) instead of serving the reduced one")
+    ap.add_argument("--shape", default="decode_32k",
+                    choices=["prefill_32k", "decode_32k", "long_500k"])
+    ap.add_argument("--multi-pod", action="store_true",
+                    help="the dry run's two-host layout, 2x1x8")
     ap.add_argument("--devices", default="",
                     help="comma-separated devices to carve --degrees over, in "
                          "order, a device may repeat (e.g. 'cuda:0,cuda:0' "
@@ -290,6 +301,11 @@ def main(argv=None):
                          "'cpu' runs the kernels' plain versions)")
     args = ap.parse_args(argv)
     _validate_args(ap, args)
+
+    if args.dry_run:
+        from repro_torch.launch import dryrun
+        return dryrun.main(["--arch", args.arch, "--shape", args.shape]
+                           + (["--multi-pod"] if args.multi_pod else []))
 
     from repro_torch.configs import get_config
     from repro_torch.device import resolve_device

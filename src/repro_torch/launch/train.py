@@ -7,8 +7,14 @@ with an error unless given ``--device cpu``):
     PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-135m --iters 20
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu --iters 2
 
-``--dry-run`` and ``--multi-pod`` lower for a TPU pod mesh and have no GPU
-counterpart; each stops with an error.
+``--dry-run`` trains nothing: it reckons ``--arch`` at full width per card on
+the H100 layout (one host of 8 cards, two with ``--multi-pod``) for one
+``train_4k`` step, the GRPO loss, its gradients and AdamW, on ``meta``
+tensors with nothing allocated and no card needed (``launch/dryrun.py``):
+argument, output and temp bytes, FLOPs and bytes accessed a card, each card
+a replica at MP degree 1 with its share of the batch:
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b --dry-run
 """
 
 from __future__ import annotations
@@ -30,17 +36,20 @@ def main(argv=None):
     ap.add_argument("--checkpoint-dir", default=None)
     ap.add_argument("--checkpoint-every", type=int, default=10)
     ap.add_argument("--dry-run", action="store_true",
-                    help="TPU pod compile; no GPU counterpart (an error)")
+                    help="reckon the FULL config per card on the H100 layout "
+                         "(launch/dryrun.py) instead of training the reduced one")
     ap.add_argument("--multi-pod", action="store_true",
-                    help="TPU multi-pod mesh; no GPU counterpart (an error)")
+                    help="the dry run's two-host layout, 2x1x8")
     ap.add_argument("--device", default=None,
                     help="torch device of the trainer and its workers (default: "
                          "cuda; 'cpu' runs the kernels' plain versions)")
     args = ap.parse_args(argv)
-    for flag in ("dry_run", "multi_pod"):
-        if getattr(args, flag):
-            ap.error(f"--{flag.replace('_', '-')} lowers for a TPU pod mesh; "
-                     "it has no GPU counterpart")
+    if args.dry_run:
+        from repro_torch.launch import dryrun
+        return dryrun.main(["--arch", args.arch, "--shape", "train_4k"]
+                           + (["--multi-pod"] if args.multi_pod else []))
+    if args.multi_pod:
+        ap.error("--multi-pod is the dry run's two-host layout; it needs --dry-run")
 
     from repro_torch.checkpoint import checkpoint as ckpt
     from repro_torch.configs import get_config

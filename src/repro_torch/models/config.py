@@ -90,6 +90,12 @@ class ModelConfig:
     def q_groups(self) -> int:
         return self.n_heads // self.n_kv_heads
 
+    def is_subquadratic(self) -> bool:
+        """Whether the config decodes with O(1) state a token at any context:
+        no attention mixer, or a sliding window on every one."""
+        mixers = {k.partition("+")[0] for k in self.block_pattern}
+        return not mixers & {"attn", "dec"} or self.sliding_window > 0
+
     def with_sliding_window(self, window: int) -> "ModelConfig":
         return replace(self, sliding_window=window)
 
@@ -145,6 +151,25 @@ class ShardConfig(ModelConfig):
     def slstm_inner(self) -> int:
         return self.xlstm_inner // self.xlstm_expand
 
+
+@dataclass(frozen=True)
+class InputShape:
+    """One of the assigned input shapes of the dry run: a step of ``mode``
+    (train, prefill or decode) over ``global_batch`` sequences of
+    ``seq_len`` tokens (a decode step's context)."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    mode: str                            # train | prefill | decode
+
+
+INPUT_SHAPES: dict[str, InputShape] = {
+    "train_4k": InputShape("train_4k", 4_096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32_768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524_288, 1, "decode"),
+}
 
 # Sliding window the full-attention configs take for long-context decode
 # (the JAX package's long_500k variant).

@@ -23,6 +23,7 @@ from repro.models import layers as JL
 from repro.models import model as JM
 from repro_torch.configs import get_config
 from repro_torch.kernels import mamba_scan as scan_kernel
+from repro_torch.kernels import meta as scan_kernel_meta
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models import model as M
@@ -80,13 +81,19 @@ def test_plain_scan_of_bf16_inputs_matches_oracle():
 
 def test_scan_wrapper_device_rule():
     """CPU tensors take the plain version without touching the kernel's
-    count; a device with no kernel raises."""
+    count; ``meta`` tensors take the kernel's shape function (the outputs'
+    shapes and dtypes, nothing launched or counted); a device with no kernel
+    raises (the rule is a function of the device: ``kernels/meta.py``)."""
     args = [torch.tensor(a) for a in _scan_inputs(1, 5, 8, 4)]
     before = dict(scan_kernel.launches)
-    y, _ = scan_kernel.mamba_scan(*args)
+    y, h = scan_kernel.mamba_scan(*args)
     assert y.shape == (1, 5, 8) and scan_kernel.launches == before
+    ym, hm = scan_kernel.mamba_scan(*(a.to("meta") for a in args))
+    assert [(t.shape, t.dtype, t.device.type) for t in (ym, hm)] == \
+        [(t.shape, t.dtype, "meta") for t in (y, h)]
+    assert scan_kernel.launches == before
     with pytest.raises(ValueError, match="no kernel"):
-        scan_kernel.mamba_scan(*(a.to("meta") for a in args))
+        scan_kernel_meta.arm("mamba_scan", torch.device("xpu"))
 
 
 @pytest.fixture(scope="module")

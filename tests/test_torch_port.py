@@ -29,7 +29,7 @@ def _imports(path: Path) -> list[str]:
 ENTRY_POINTS = ("engine/worker.py", "core/orchestrator.py", "engine/runtime.py",
                 "launch/serve.py", "engine/legacy.py", "rl/loop.py", "rl/service.py",
                 "launch/train.py", "distributed/sharding.py", "launch/mesh.py",
-                "analysis/lint.py")
+                "analysis/lint.py", "launch/specs.py", "launch/dryrun.py")
 
 
 def test_port_files_exist():

@@ -366,14 +366,23 @@ def test_serve_cli_refuses_the_cpu_by_default():
 
 @pytest.mark.parametrize("flag", [["--stream", "-1"], ["--dry-run"]])
 def test_serve_cli_refuses_unported_modes(flag, capsys):
-    """The TPU dry-run has no GPU counterpart; ``--stream`` is ported
-    (tests/test_torch_service.py) and refuses only a negative interval."""
+    """Both modes are ported: ``--stream`` (tests/test_torch_service.py)
+    refuses only a negative interval, and ``--dry-run`` delegates to the
+    port's dry run (launch/dryrun.py, tests/test_torch_dryrun.py), which
+    reckons the full config's decode step on the H100 layout, exits 0 and
+    prints its summary line; ``--multi-pod`` without it is refused."""
     from repro_torch.launch import serve
 
+    if flag[0] == "--dry-run":
+        assert serve.main(["--device", "cpu", *flag]) == 0
+        out = capsys.readouterr().out
+        assert "[1x8] qwen3-1.7b" in out and "decode_32k" in out
+        assert "dry-run: 1 ok, 0 skipped, 0 failed / 1 total" in out
+        flag = ["--multi-pod"]
     with pytest.raises(SystemExit) as err:
         serve.main(["--device", "cpu", *flag])
     assert err.value.code == 2
-    assert ("--stream must be >= 0" if flag[0] == "--stream" else "no GPU counterpart") in \
+    assert ("--stream must be >= 0" if flag[0] == "--stream" else "needs --dry-run") in \
         capsys.readouterr().err
 
 

@@ -313,10 +313,18 @@ def test_train_cli_runs_on_the_cpu_when_asked(tmp_path):
 
 
 def test_train_cli_refuses_the_cpu_by_default_and_the_dry_run(capsys):
+    """Without --device and with no card the CLI stops.  ``--dry-run`` is
+    ported: it delegates to the port's dry run (launch/dryrun.py), which
+    reckons the full config's train_4k step on the H100 layout with no
+    card, exits 0 and prints its summary line; ``--multi-pod`` alone is
+    refused."""
     out = _train("--iters", "1", CUDA_VISIBLE_DEVICES="")
     assert out.returncode != 0 and "CUDA" in out.stderr and "iter" not in out.stdout
     from repro_torch.launch import train
-    for flag in ("--dry-run", "--multi-pod"):
-        with pytest.raises(SystemExit) as err:
-            train.main(["--device", "cpu", flag])
-        assert err.value.code == 2 and "no GPU counterpart" in capsys.readouterr().err, flag
+    assert train.main(["--dry-run", "--multi-pod"]) == 0
+    printed = capsys.readouterr().out
+    assert "[2x1x8] smollm-135m" in printed and "train_4k" in printed
+    assert "dry-run: 1 ok, 0 skipped, 0 failed / 1 total" in printed
+    with pytest.raises(SystemExit) as err:
+        train.main(["--device", "cpu", "--multi-pod"])
+    assert err.value.code == 2 and "needs --dry-run" in capsys.readouterr().err
