@@ -87,7 +87,9 @@ Phases (each raises on failure; any failure exits non-zero with no result line):
               reduced jamba period the same way after a whole-prompt
               admission, its Mamba state card vs CPU; the reduced xLSTM
               period after a chunked recurrent admission, its state card vs
-              CPU.
+              CPU; engine.sampler.sample at qwen3's vocabulary (151,936), B
+              8, seeds 0-3, greedy and at temperature 1.0, top-p 0.9, its
+              tokens card == CPU.
 9. runtime -- the control plane over the port's workers: qwen3-1.7b at full
               width cut to 7 of its 28 layers (RUNTIME_LAYERS, for the
               script's time: the three runs are host-bound, a step's wall
@@ -300,10 +302,13 @@ Phases (each raises on failure; any failure exits non-zero with no result line):
               cuda:0-1 moved to a d2 worker on cuda:2-3 and back, 4 moves
               card to card, then 4 through the host (the package copied
               there first): every package leaf on its source's device 0,
-              no device-to-host copy in a move card to card
-              (torch.profiler), the package bit-equal at every move, each
-              move timed.  (b) jamba-v0.1-52b at its full depth (4
-              periods, 32 layers, nothing cut), initialised sharded
+              the package bit-equal at every move, each move timed; then
+              one move each way under one TorchDispatchMode that counts
+              the ATen ops copying a card's tensor or a count read off a
+              card to the host (_host_copies): 0 card to card, at least
+              one a package leaf through the host.  (b)
+              jamba-v0.1-52b at its full depth (4 periods, 32 layers,
+              nothing cut), initialised sharded
               (init_params(mesh=), each leaf drawn on cuda:0, cut, moved):
               f32 at d 4 on cuda:0-3 (the reference, 51.6 GB a card), the
               same weights rounded to bf16 in place at d 4, then the f32
@@ -1534,7 +1539,8 @@ def _profile_jamba(torch, cfg, params):
 def phase_reference(torch):
     """Teacher-forced decode logits, card (kernels) vs CPU (plain versions):
     the paged plane, and a sliding-window ring (window 32, a 50-token prompt
-    admitted by a full forward, so the ring has wrapped)."""
+    admitted by a full forward, so the ring has wrapped); then the reduced
+    jamba and xLSTM periods, and ``sample``'s tokens card vs CPU."""
     import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.models import model as M
@@ -1564,6 +1570,35 @@ def phase_reference(torch):
         f"{err:.2e} (tol 1e-4)")
     _reference_jamba(torch)
     _reference_xlstm(torch)
+    _reference_sample(torch)
+
+
+def _reference_sample(torch):
+    """``engine.sampler.sample`` (one key for the batch) at qwen3's
+    vocabulary, B 8, seeds 0-3, greedy and at temperature 1.0, top-p 0.9:
+    the tokens on the card equal to the same call's on the CPU."""
+    from repro_torch.configs import get_config
+    from repro_torch.engine.prng import prng_key
+    from repro_torch.engine.sampler import SamplerConfig, sample
+
+    V = get_config("qwen3_1_7b").vocab
+    gen = torch.Generator().manual_seed(SEED)
+    drawn = off_argmax = 0
+    for seed in range(4):
+        logits = 3 * torch.randn(8, V, generator=gen)
+        for cfg in (SamplerConfig(0.0, 1.0), SamplerConfig(1.0, 0.9)):
+            want = sample(prng_key(seed), logits, cfg)
+            got = sample(prng_key(seed, "cuda"), logits.cuda(), cfg)
+            if got.device.type != "cuda" or got.dtype != torch.int32:
+                raise AssertionError(f"sample on the card gave {got.dtype} on {got.device}")
+            if not torch.equal(got.cpu(), want):
+                raise AssertionError(f"sample seed {seed} {cfg}: card {got.tolist()} vs CPU "
+                                     f"{want.tolist()}")
+            drawn += want.numel()
+            if cfg.temperature > 0:
+                off_argmax += int((want != logits.argmax(-1)).sum())
+    log(f"[reference] sample (one key a batch) at V {V:,}, B 8, seeds 0-3, greedy and t 1.0 "
+        f"top-p 0.9: {drawn} tokens card == CPU ({off_argmax} of the 32 drawn off the argmax)")
 
 
 def _reference_jamba(torch):
@@ -3603,15 +3638,63 @@ def _busy_by_card(torch, fn):
     return wall, dict(sorted(busy.items()))
 
 
-def _host_copies(torch, fn):
-    """The names of the device-to-host copies that ``fn`` makes, under
-    torch.profiler."""
-    from torch.profiler import ProfilerActivity, profile
-    sync_all(torch)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        sync_all(torch)
-    return [e.name() for e in prof.profiler.kineto_results.events() if "DtoH" in e.name()]
+# ATen ops that read a count or a verdict back from the card and return no
+# CPU tensor; ``is_nonzero`` reaches ``_local_scalar_dense`` itself
+HOST_SYNCS = {"aten::nonzero", "aten::equal", "aten::masked_select", "aten::is_nonzero",
+              "aten::_unique", "aten::_unique2", "aten::unique_dim",
+              "aten::unique_consecutive", "aten::unique_dim_consecutive"}
+
+
+def _host_copies(torch, *fns):
+    """The copies from a card to the host that each of ``fns`` makes, all
+    run in turn under one ``TorchDispatchMode``: one list a function, of
+    (ATen op, source card), deterministic where a profiler's copy events
+    may be lost.  An op with a CUDA input counts when it returns a CPU
+    tensor (``aten._to_copy``: ``.cpu()``, ``.to("cpu")``, ``.tolist()``;
+    ``aten.copy_`` into a CPU tensor), reads a CUDA scalar
+    (``aten._local_scalar_dense``: ``.item()``, ``int()``, ``bool()``), is
+    one of ``HOST_SYNCS`` (``nonzero``, ``torch.equal``, ``masked_select``,
+    ``unique``, which read a count or a verdict back), or indexes with a
+    boolean mask (``aten.index`` / ``index_put_``, which take the mask's
+    ``nonzero``).  The mode sees every op that goes through the dispatcher,
+    not what a C++ extension copies itself; the port's CUDA kernels
+    (ctypes, ``kernels/build.py``) copy nothing to the host, and
+    ``RolloutWorker.migrate_out``/``migrate_in`` launch none of them.  The
+    mode is popped when the last function returns or raises."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves
+    aten = torch.ops.aten
+    masked = {aten.index.Tensor, aten.index_put_.default, aten.index_put.default}
+
+    def cards(tree):
+        return [t.device for t in tree_leaves(tree)
+                if isinstance(t, torch.Tensor) and t.device.type == "cuda"]
+
+    def on_host(tree):
+        return any(isinstance(t, torch.Tensor) and t.device.type == "cpu"
+                   for t in tree_leaves(tree))
+
+    def mask_index(func, args):
+        return func in masked and any(isinstance(t, torch.Tensor)
+                                      and t.dtype in (torch.bool, torch.uint8)
+                                      for t in tree_leaves(args[1]))
+
+    class Copies(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            out = func(*args, **kwargs)
+            src = cards((args, kwargs))
+            if src and (func is aten._local_scalar_dense.default or on_host(out)
+                        or func._schema.name in HOST_SYNCS or mask_index(func, args)):
+                copies[-1].append((str(func), str(src[0])))
+            return out
+
+    copies = []
+    with Copies():
+        for fn in fns:
+            copies.append([])
+            fn()
+    return copies
 
 
 def _outputs(out):
@@ -3979,10 +4062,11 @@ def _cards_migrate(torch, cfg, params, src, n, summary):
     """(d) one lane of the bf16 d2 worker on cuda:0-1 moved card to card to
     a d2 worker on cuda:2-3 (a d1 on the last card where fewer are
     visible) and back, CARDS_HOPS times: every leaf of each package on its
-    source's device 0, no device-to-host copy in a move (torch.profiler),
-    the package bit-equal after every hop; then the same hops through the
-    host, the package copied there before ``migrate_in``, as a sharded
-    package was before."""
+    source's device 0, the package bit-equal after every hop; then the same
+    hops through the host, the package copied there before
+    ``migrate_in``, as a sharded package was before.  Last, one hop each
+    way under one ``_host_copies`` mode: 0 copies to the host card to card,
+    and at least one a package leaf through the host (the control)."""
     from repro_torch.launch.mesh import WorkerMesh
     from repro_torch.models.model import tree_leaves, tree_to
     dst_mesh = (_cards_mesh(torch, 2, 2) if n >= 4
@@ -4018,13 +4102,17 @@ def _cards_migrate(torch, cfg, params, src, n, summary):
             f"{'-'.join(str(d) for d in dst_mesh.devices)}: "
             f"{', '.join(f'{ms:.1f}' for ms in walls)} ms a move (migrate_out + migrate_in), "
             f"every package bit-equal to the first")
-    copies = _host_copies(torch, lambda: hop(src, dst))
-    back = _host_copies(torch, lambda: hop(dst, src, bounce=True))
-    log(f"[cards] device-to-host copies in a move card to card: {copies}; through the host: "
-        f"{len(back)}")
-    if copies or not back:
-        raise AssertionError(f"[cards] a card-to-card move copied {copies} to the host "
-                             f"(the host bounce {len(back)})")
+    copies, back = _host_copies(torch, lambda: hop(src, dst),
+                                lambda: hop(dst, src, bounce=True))
+    summary["host-copies"] = {"card to card": len(copies), "through the host": len(back),
+                              "package leaves": len(first)}
+    log(f"[cards] copies to the host (TorchDispatchMode) in a move card to card: "
+        f"{len(copies)} {copies}; through the host: {len(back)} "
+        f"({sorted(set(back))}), the package's leaves {len(first)}")
+    if copies or len(back) < len(first):
+        raise AssertionError(f"[cards] a card-to-card move copied {copies} to the host, or "
+                             f"the host bounce counted {len(back)} copies for "
+                             f"{len(first)} package leaves")
     toks = src.decode([0], 4)[0]
     log(f"[cards] the lane decodes on after the moves ({toks})")
     del dst

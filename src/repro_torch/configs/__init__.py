@@ -48,6 +48,11 @@ def get_config(name: str) -> ModelConfig:
     return importlib.import_module(f"repro_torch.configs.{mod_name}").CONFIG
 
 
+def all_configs() -> dict[str, ModelConfig]:
+    """``{architecture: its full config}`` over ``ARCHITECTURES``."""
+    return {a: get_config(a) for a in ARCHITECTURES}
+
+
 def combos(include_skipped: bool = False):
     """Every (architecture, input shape) of the dry run, with the reference's
     rules: the audio encoder-decoder skips ``long_500k`` (its decoder's

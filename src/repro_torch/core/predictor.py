@@ -13,7 +13,8 @@ comes from the features, not the model class, and is what the paper's Figure 13 
 The fit solves the normal equations in numpy float64.  The JAX package solves them in
 f32, where rounding dominates (the Gram matrix's condition number reaches ~1e7), so the
 two packages' fitted weights differ; given the same fitted state, ``predict`` agrees
-exactly, since both evaluate it in numpy float64.
+exactly, since both evaluate it in numpy float64.  ``predict_batch`` is ``predict`` row
+by row here; the JAX package evaluates it in f32, so it agrees to f32 rounding.
 
 Two prompt-only baselines from §7.2 are included:
   * ``HistoryPredictor`` — per-prompt statistical heuristic over historical rollouts
@@ -87,6 +88,13 @@ class ProgressivePredictor:
         f = np.asarray(traj.features(), dtype=np.float64) / self._scale
         y = f @ self.weights + 0.5 * getattr(self, "_resid_var", 0.0)
         return float(np.expm1(np.clip(y, 0.0, 18.0)))
+
+    def predict_batch(self, trajs: Sequence[Trajectory]) -> np.ndarray:
+        """``predict`` over many trajectories: row ``i`` is ``predict(trajs[i])``
+        exactly (numpy float64, one dot product a row; the JAX package
+        evaluates the batch in f32)."""
+        assert self.weights is not None, "predictor not fitted"
+        return np.asarray([self.predict(t) for t in trajs], dtype=np.float64)
 
 
 @dataclass

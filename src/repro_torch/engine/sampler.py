@@ -1,8 +1,11 @@
 """Temperature / top-p token sampling (counterpart of ``repro/engine/sampler.py``).
 
-``sample_slots`` draws every lane from its own key (``engine.prng``), so a lane's
-token stream is a pure function of (its key, its context) and survives
-re-batching, preemption and migration.
+Two entry points:
+
+  * ``sample``        -- one shared key for a (B, V) batch.
+  * ``sample_slots``  -- every lane drawn from its own key (``engine.prng``), so a
+    lane's token stream is a pure function of (its key, its context) and survives
+    re-batching, preemption and migration.
 """
 
 from __future__ import annotations
@@ -28,6 +31,21 @@ def top_p_filter(logits: torch.Tensor, top_p: float) -> torch.Tensor:
     cutoff_idx = torch.argmax((cum >= top_p).to(torch.int8), dim=-1)
     cutoff = torch.gather(sorted_logits, -1, cutoff_idx[..., None])
     return torch.where(logits < cutoff, torch.full_like(logits, -torch.inf), logits)
+
+
+def sample(key: torch.Tensor, logits: torch.Tensor, cfg: SamplerConfig = SamplerConfig()
+           ) -> torch.Tensor:
+    """logits: (B, V) -> tokens (B,) int32, one Gumbel draw over the whole
+    (B, V) from the one (2,) ``key``: ``jax.random.categorical(key, logits)``
+    numbers a (B, V) array's elements row-major, so its noise is
+    ``random_bits(key, B * V)`` cut into rows."""
+    if cfg.temperature <= 0.0:
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+    scaled = logits.to(torch.float32) / cfg.temperature
+    if cfg.top_p < 1.0:
+        scaled = top_p_filter(scaled, cfg.top_p)
+    noise = prng.gumbel(key.to(scaled.device), scaled.numel()).reshape(scaled.shape)
+    return torch.argmax(noise + scaled, dim=-1).to(torch.int32)
 
 
 def sample_slots(keys: torch.Tensor, logits: torch.Tensor,

@@ -90,11 +90,18 @@ class ModelConfig:
     def q_groups(self) -> int:
         return self.n_heads // self.n_kv_heads
 
+    def layer_kinds(self) -> list[str]:
+        """Each layer's ``mixer[+mlp]`` kind, in order."""
+        return list(self.block_pattern) * self.n_periods
+
+    def has_kv_cache(self) -> bool:
+        """Whether any layer's mixer (``attn`` or ``dec``) keeps a KV cache."""
+        return any(k.partition("+")[0] in ("attn", "dec") for k in self.block_pattern)
+
     def is_subquadratic(self) -> bool:
         """Whether the config decodes with O(1) state a token at any context:
         no attention mixer, or a sliding window on every one."""
-        mixers = {k.partition("+")[0] for k in self.block_pattern}
-        return not mixers & {"attn", "dec"} or self.sliding_window > 0
+        return not self.has_kv_cache() or self.sliding_window > 0
 
     def with_sliding_window(self, window: int) -> "ModelConfig":
         return replace(self, sliding_window=window)

@@ -1,21 +1,31 @@
 """What the port's tests share that takes only PyTorch, so that the card's
 tests (``tests/test_torch_gpu.py``, which import no JAX) share it with the
-CPU tests: a tolerance and the examples' loader."""
+CPU tests: a tolerance and the loader of the examples and ``chip_smoke.py``."""
 
 import importlib.util
 from pathlib import Path
 
 import torch
 
-EXAMPLES = Path(__file__).resolve().parents[1] / "examples"
+REPO = Path(__file__).resolve().parents[1]
+EXAMPLES = REPO / "examples"
+
+
+def _load(name, path):
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def load_example(name):
     """``examples/torch_<name>.py`` imported as a module."""
-    spec = importlib.util.spec_from_file_location(f"torch_{name}", EXAMPLES / f"torch_{name}.py")
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
+    return _load(f"torch_{name}", EXAMPLES / f"torch_{name}.py")
+
+
+def load_chip_smoke():
+    """``chip_smoke.py`` imported as a module (its phases and helpers)."""
+    return _load("chip_smoke", REPO / "chip_smoke.py")
 
 
 def hold_bf16_cast(got, want, tol, label):

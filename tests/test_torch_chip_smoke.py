@@ -1,4 +1,5 @@
-"""The MoE-routing count of ``chip_smoke.py`` phase 14 on the CPU.
+"""``chip_smoke.py``'s counts on the CPU: the MoE routing of phase 14, the
+per-card kernel calls and the host-copy counter of phase 17.
 
 Phase 14 records each ``models.layers.moe`` call's top-k expert ids while
 jamba's bf16 workers at degree 1 and 2 run (``_MoeRoutes``) and counts the
@@ -7,9 +8,6 @@ choices, and the recorder runs on ``jamba_v0_1_52b.reduced(n_periods=1)``
 workers on the CPU: a degree-2 worker's calls alternate shards that route
 alike, and the recorder leaves the model's ``moe`` as it found it.
 """
-
-import importlib.util
-from pathlib import Path
 
 import pytest
 import torch
@@ -21,19 +19,15 @@ from repro_torch.launch.mesh import WorkerMesh
 from repro_torch.models import layers
 from repro_torch.models.model import init_params
 
+from _torch_hold import load_chip_smoke
 from _torch_parity import one_torch_thread  # noqa: F401
 
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
-REPO = Path(__file__).resolve().parents[1]
-
 
 @pytest.fixture(scope="module")
 def cs():
-    spec = importlib.util.spec_from_file_location("chip_smoke", REPO / "chip_smoke.py")
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
+    return load_chip_smoke()
 
 
 def _t(rows):
@@ -148,3 +142,35 @@ def test_flips_at_d4_against_d2(cs):
     assert flips["d2 shards"]["choices_flipped"] == 0
     n_moe = sum(k.endswith("+moe") for k in cfg.block_pattern)
     assert sum(f["tokens"] for k, f in flips.items() if k != "d2 shards") == (12 + 3 * 2) * n_moe
+
+
+def _dispatch_modes():
+    return torch._C._len_torch_dispatch_stack()
+
+
+def test_host_copies_count_nothing_on_the_cpu(cs):
+    """Phase 17(d)'s counter: a function that copies, reads scalars, masks
+    and compares on the CPU only counts nothing; each function gets its own list and runs
+    under the mode, which is gone after the last one returns."""
+    x = torch.arange(6.0)
+    inside = []
+
+    def work():
+        inside.append(_dispatch_modes())
+        y = x.cpu().clone().add_(1)
+        torch.zeros(3).copy_(y[:3])
+        y[y > 4] = 0.0
+        return (y.sum().item(), y.tolist(), int(y[0]), bool(y[1]), y[y > 1], y.nonzero(),
+                torch.equal(y, x), torch.unique(y))
+
+    assert cs._host_copies(torch, work, work) == [[], []]
+    assert inside == [1, 1] and _dispatch_modes() == 0
+
+
+def test_host_copies_pop_the_mode_when_a_function_raises(cs):
+    def boom():
+        raise ValueError("boom")
+
+    with pytest.raises(ValueError, match="boom"):
+        cs._host_copies(torch, lambda: None, boom)
+    assert _dispatch_modes() == 0

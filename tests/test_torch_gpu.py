@@ -20,14 +20,14 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_hold import hold_bf16_cast, load_example
+from _torch_hold import hold_bf16_cast, load_chip_smoke, load_example
 from repro_torch.configs import get_config
 from repro_torch.engine.paging import check_block_conservation
 from repro_torch.engine.worker import RolloutWorker
 from repro_torch.kernels import decode_attention as kernel
 from repro_torch.kernels import mamba_scan as scan_kernel
 from repro_torch.kernels import ref
-from repro_torch.models.model import init_params
+from repro_torch.models.model import init_params, tree_leaves, tree_to
 
 pytestmark = pytest.mark.gpu
 TOL = {"float32": 1e-5, "bfloat16": 2.5e-2}
@@ -1097,3 +1097,63 @@ def test_cuda_serve_rollout_example_launches_the_paged_kernel():
         == out["n_layers"] * out["decode_steps"] == 2 * (12 + 6 + 6)
     assert kernel.launches["decode_attention"] == before[0]["decode_attention"]
     assert dict(scan_kernel.launches) == before[1]
+
+
+# ---------------------------------------------------------------- host copies
+
+@pytest.fixture(scope="module")
+def host_copies():
+    """``chip_smoke.py``'s counter of copies from a card to the host, which
+    phase 17(d) holds a card-to-card migration to."""
+    return load_chip_smoke()._host_copies
+
+
+READS = {"cpu": lambda x: x.cpu(), "item": lambda x: x[1].item(),
+         "tolist": lambda x: x.tolist(), "copy_": lambda x: torch.empty(4).copy_(x),
+         "mask": lambda x: x[x > 0], "mask_put": lambda x: x.clone().__setitem__(x > 1, 0.0),
+         "equal": lambda x: torch.equal(x, x), "nonzero": lambda x: x.nonzero(),
+         "unique": lambda x: torch.unique(x)}
+
+
+@pytest.mark.parametrize("op", list(READS))
+def test_cuda_host_copies_count_each_read_from_the_card(host_copies, op):
+    _need_cuda()
+    x = torch.arange(4.0, device="cuda:0")
+    fn = lambda: READS[op](x)  # noqa: E731
+    [copies] = host_copies(torch, fn)
+    assert len(copies) >= 1 and {card for _, card in copies} == {"cuda:0"}, copies
+
+
+def test_cuda_host_copies_count_nothing_to_the_card(host_copies):
+    _need_cuda()
+    x, y = torch.arange(4.0, device="cuda:0"), torch.arange(4.0)
+    assert host_copies(torch, lambda: x.to("cuda:0"), lambda: x.to("cuda:0", copy=True),
+                       lambda: y.to("cuda:0"), lambda: (x + 1).sum()) == [[], [], [], []]
+
+
+def test_cuda_one_card_migration_copies_nothing_to_the_host(host_copies):
+    """Phase 17(d)'s hold on one card: a lane moved between two paged
+    workers on cuda:0 makes no copy to the host; the same move with its
+    package first copied to the host counts at least one a leaf; the lane
+    decodes on as a lane that never moved."""
+    _need_cuda()
+    cfg = get_config("qwen3_1_7b").reduced(n_periods=2)
+    params = init_params(cfg, seed=0, device="cpu")
+    kw = dict(capacity=64, max_slots=4, page_size=8, chunk_size=8, device="cuda")
+    w0, w1, still = (RolloutWorker(cfg, params, worker_id=0, **kw) for _ in range(3))
+    for w in (w0, still):
+        w.prefill(1, list(range(3, 23)))
+        w.decode([1], 3)
+    leaves = []
+
+    def hop(a, b, bounce=False):
+        pkg = a.migrate_out(1)
+        leaves.append(len(list(tree_leaves({"pages": pkg["pages"], "state": pkg["state"]}))))
+        if bounce:
+            pkg.update(pages=tree_to(pkg["pages"], "cpu"), state=tree_to(pkg["state"], "cpu"))
+        b.migrate_in(pkg)
+
+    card, host = host_copies(torch, lambda: hop(w0, w1), lambda: hop(w1, w0, bounce=True))
+    assert card == []
+    assert leaves[0] == leaves[1] > 0 and len(host) >= leaves[1], (host, leaves)
+    assert w0.decode([1], 4) == still.decode([1], 4)
