@@ -1779,6 +1779,7 @@ def _runtime_run(torch, tag, cfg, params, batch, predictor, config, faults=None,
             written[traj.traj_id] = rt.backend.ckpts[traj.traj_id]
 
     rt.backend.checkpoint = recording
+    rt.fleet.tracer.on = True                   # the workers' calls, timed on the host
     name = "decode_attention" if config.paged is False else "paged_decode_attention"
     torch.cuda.synchronize()
     with _Capture(kernel, name, every) as capture:
@@ -1806,8 +1807,10 @@ def _runtime_run(torch, tag, cfg, params, batch, predictor, config, faults=None,
                              f"makespan {res.makespan}) differs from the sim's "
                              f"({len(sim.trace)}, {sim.makespan})")
     stats = [view.engine.dispatch_stats() for view in rt.workers]
-    log(f"[runtime] {tag}: wall {res.wall_time * 1e3:.1f} ms, {rt.backend.wall * 1e3:.1f} ms "
-        f"of it inside the workers' calls (host clock, nothing added to the run); "
+    totals = rt.fleet.tracer.export()["totals"]
+    inside = sum(t["seconds"] for name, t in totals.items() if name.startswith("worker."))
+    log(f"[runtime] {tag}: wall {res.wall_time * 1e3:.1f} ms, {inside * 1e3:.1f} ms "
+        f"of it inside the workers' calls (the fleet's tracer, host clock); "
         f"{res.total_tokens} real tokens decoded ({res.total_tokens / res.wall_time:.1f} "
         f"tokens/s); decode calls {[s['decode_calls'] for s in stats]}, decode steps "
         f"{[s['decode_steps'] for s in stats]}, decode wall "

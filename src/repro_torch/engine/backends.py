@@ -27,7 +27,6 @@ shared orchestrator loop, is what makes sim-vs-engine decision traces equal.
 from __future__ import annotations
 
 import math
-import time
 from typing import Callable, Optional, Sequence
 
 import numpy as np
@@ -36,6 +35,7 @@ from repro_torch.core.faults import FaultPlan, RetryPolicy, resolve_tool_call
 from repro_torch.core.migration import kv_cache_bytes, migration_time
 from repro_torch.core.orchestrator import StepOutcome
 from repro_torch.core.trajectory import Trajectory
+from repro_torch.engine import tracing
 from repro_torch.models import model as M
 
 
@@ -431,6 +431,16 @@ class EngineBackend:
     context)`` — plan-driven (``ToolEnvironment``) for workload studies,
     task-driven (``rl.loop.TaskEnvironment``) for RL training, where
     ``stop_token``/``step_budget`` replace the pre-rolled plan.
+
+    Real time is the workers' tracer's (``engine.tracing``): the engines
+    must share one, as a fleet's do, or the backend raises.  While it is on,
+    the backend stamps when a lane's step becomes runnable (the end of its
+    admission, for its first step; the end of ``tool_absorb``, for later
+    ones; the end of ``restore``, for a step restarted after a worker died)
+    and when a lane is preempted, and the first decode call that includes the lane afterwards
+    records the seconds since as a ``wait.step`` or ``wait.preempted``
+    sample.  A preemption before the step's first decode keeps the runnable
+    stamp.  The virtual clock and every decision are the same either way.
     """
 
     interruptible = False
@@ -474,7 +484,12 @@ class EngineBackend:
         self._step_gen: dict[int, list[int]] = {}  # token ids decoded this step
         self._gen_time: dict[int, float] = {}
         self.total_tokens = 0  # real tokens decoded across all workers
-        self.wall = 0.0  # real seconds spent in the data plane
+        self.tracer = engines[0].tracer
+        if any(e.tracer is not self.tracer for e in engines):
+            raise ValueError("the engines hold different tracers: build them with one "
+                             "(RolloutWorker(tracer=...)), as a RolloutFleet does")
+        # traj -> (sample name, real stamp) until its next decode call
+        self._waiting: dict[int, tuple[str, float]] = {}
         # failure realism: tool-boundary checkpoints (host-gathered lane
         # packages in migrate_out format) + dead-worker bookkeeping
         self.checkpoint_dir = checkpoint_dir
@@ -501,14 +516,17 @@ class EngineBackend:
         for view in self.views:
             mine = [t for t in trajectories if t.worker_id == view.wid]
             mine.sort(key=lambda t: (t.prompt_id, t.sample_id))
-            t0 = time.perf_counter()
             for t in mine:
                 toks = self.prompts[t.traj_id]
                 view.engine.prefill(t.traj_id, toks)
+                self._runnable(t.traj_id)
                 view.clock = max(view.clock, now) + admission_seconds(
                     len(toks), view.token_time, self.prefill_speedup
                 )
-            self.wall += time.perf_counter() - t0
+
+    def _runnable(self, tid: int) -> None:
+        if self.tracer.on:
+            self._waiting[tid] = ("wait.step", tracing.now())
 
     def ready_time(self, wid: int, now: float) -> float:
         return max(now, self.views[wid].clock)
@@ -528,6 +546,8 @@ class EngineBackend:
         """Mask flip: the lane stays resident, ``step_remaining`` persists."""
         self.views[wid].engine.preempt(traj.traj_id)
         self._active[wid].discard(traj.traj_id)
+        if self.tracer.on and traj.traj_id not in self._waiting:
+            self._waiting[traj.traj_id] = ("wait.preempted", tracing.now())
 
     def advance(self, wid: int, now: float) -> list[int]:
         view = self.views[wid]
@@ -535,9 +555,13 @@ class EngineBackend:
             return []
         ids, q, end, dt = view.plan
         view.plan = None
-        t0 = time.perf_counter()
+        if self.tracer.on:
+            t = tracing.now()
+            for tid in ids:
+                if tid in self._waiting:
+                    name, stamp = self._waiting.pop(tid)
+                    self.tracer.sample(name, t - stamp)
         out = view.engine.decode(ids, q, stop_token=self.stop_token)
-        self.wall += time.perf_counter() - t0
         view.clock = end
         done = []
         for tid in ids:
@@ -589,27 +613,22 @@ class EngineBackend:
         self.last_absorb.pop(traj.traj_id, None)
         if toks:  # chunked prefill into the lane, wherever it lives now
             view = self.views[traj.worker_id]
-            t0 = time.perf_counter()
             view.engine.extend(traj.traj_id, toks)
-            self.wall += time.perf_counter() - t0
             self.last_absorb[traj.traj_id] = list(toks)
+        self._runnable(traj.traj_id)
 
     def can_migrate(self, traj: Trajectory) -> bool:
         return traj.traj_id in self.views[traj.worker_id].engine.store
 
     def migrate_out(self, traj: Trajectory, dst: int) -> float:
         src = self.views[traj.worker_id]
-        t0 = time.perf_counter()
         pkg = src.engine.migrate_out(traj.traj_id)
-        self.wall += time.perf_counter() - t0
         self.in_transit[traj.traj_id] = pkg
         return migration_time(_package_bytes(pkg), self.link_bandwidth)
 
     def migrate_in(self, traj: Trajectory, dst: int) -> None:
         pkg = self.in_transit.pop(traj.traj_id)
-        t0 = time.perf_counter()
         self.views[dst].engine.migrate_in(pkg)  # lane lands in the new pool
-        self.wall += time.perf_counter() - t0
 
     def release(self, traj: Trajectory) -> None:
         """Finished (or shed): the lane retires into the radix cache (prefix
@@ -622,6 +641,7 @@ class EngineBackend:
         self._step_gen.pop(traj.traj_id, None)
         self._gen_time.pop(traj.traj_id, None)
         self.pending_tool.pop(traj.traj_id, None)
+        self._waiting.pop(traj.traj_id, None)
 
     def stats(self, wid: int) -> dict:
         return self.views[wid].engine.dispatch_stats()
@@ -638,9 +658,7 @@ class EngineBackend:
         view = self.views[traj.worker_id]
         if tid not in view.engine.store:
             return  # lane already on the wire; the transfer carries the state
-        t0 = time.perf_counter()
         pkg = view.engine.checkpoint_out(tid)
-        self.wall += time.perf_counter() - t0
         self.ckpts[tid] = pkg
         self.last_absorb.pop(tid, None)  # the new snapshot includes it
         if self.checkpoint_dir:
@@ -682,16 +700,14 @@ class EngineBackend:
         pkg = self.ckpts.get(tid)
         if pkg is None:
             toks = self.prompts[tid]
-            t0 = time.perf_counter()
             view.engine.prefill(tid, toks)
-            self.wall += time.perf_counter() - t0
+            self._runnable(tid)
             return admission_seconds(len(toks), view.token_time, self.prefill_speedup)
-        t0 = time.perf_counter()
         view.engine.migrate_in(dict(pkg))
         extra = self.last_absorb.get(tid)
         if extra:  # tool output absorbed after the snapshot: replay it
             view.engine.extend(tid, extra)
-        self.wall += time.perf_counter() - t0
+        self._runnable(tid)
         return migration_time(_package_bytes(pkg), self.link_bandwidth)
 
     def kill(self, wid: int) -> None:
@@ -703,6 +719,7 @@ class EngineBackend:
             self.step_remaining.pop(tid, None)
             self._step_gen.pop(tid, None)
             self._gen_time.pop(tid, None)
+            self._waiting.pop(tid, None)
         self._active[wid].clear()
         view.plan = None
         view.engine.reset_cache()

@@ -25,7 +25,9 @@
   destination's mesh, so moves cross MP degrees, card to card).  The fleet
   keeps its un-sharded copy of the params on ``device``, so a fleet serves
   only a configuration whose whole params fit one card; a single worker
-  takes weights made already cut (``init_params(mesh=)``).
+  takes weights made already cut (``init_params(mesh=)``).  The fleet owns
+  one ``engine.tracing.Tracer`` (``tracer``, off until switched on) and
+  hands it to every worker it builds, rebuilt ones included.
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ from typing import Sequence
 
 from repro_torch.engine.sampler import SamplerConfig
 from repro_torch.device import resolve_device
+from repro_torch.engine.tracing import Tracer
 from repro_torch.engine.worker import RolloutWorker
 from repro_torch.launch.mesh import carve_worker_meshes
 from repro_torch.models import model as M
@@ -109,6 +112,7 @@ class RolloutFleet:
         self.worker_kwargs = dict(worker_kwargs)
         self.spec = spec
         self.reconfigurations = 0
+        self.tracer = Tracer()
         meshes = carve_worker_meshes(spec.degrees, self.devices)
         self.workers = [self._build_worker(i, degree, mesh)
                         for i, (degree, mesh) in enumerate(zip(spec.degrees, meshes))]
@@ -125,6 +129,7 @@ class RolloutFleet:
             mp=degree,
             device=self.device,
             mesh=mesh,
+            tracer=self.tracer,
             **self.worker_kwargs,
         )
 

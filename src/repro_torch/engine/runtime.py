@@ -42,6 +42,7 @@ from repro_torch.core.trajectory import Trajectory
 from repro_torch.engine.backends import EngineBackend, SimBackend
 from repro_torch.engine.fleet import FleetSpec, RolloutFleet
 from repro_torch.engine.tools import TOOL_PROFILES, ToolProfile
+from repro_torch.engine.tracing import Tracer, traced
 from repro_torch.engine.worker import RolloutWorker
 from repro_torch.engine.workload import TrajectoryPlan
 
@@ -532,6 +533,12 @@ class RolloutRuntime:
         return self.backend.views
 
     # ------------------------------------------------------------ run
+    @property
+    def tracer(self) -> Tracer:
+        """The workers' tracer (``engine.tracing``)."""
+        return self.backend.tracer
+
+    @traced("runtime.run")
     def run(self) -> RuntimeResult:
         cfg = self.cfg
         wall0 = time.perf_counter()

@@ -64,6 +64,7 @@ from repro_torch.distributed.sharding import (ShardedParams, gather_cache, shard
 from repro_torch.engine import prng
 from repro_torch.engine.paging import PagePool, PagePoolExhausted
 from repro_torch.engine.sampler import SamplerConfig, sample_slots
+from repro_torch.engine.tracing import Tracer, traced
 from repro_torch.launch.mesh import WorkerMesh
 from repro_torch.models import model as M
 from repro_torch.models.config import ModelConfig
@@ -99,11 +100,17 @@ class PrefixCacheIndex:
     (lane overwritten / evicted); stale refs are dropped lazily during matching.
     ``match_lane`` returns the deepest live ref, which the engine implants with an
     on-device lane-slice copy so only the unmatched suffix is prefilled.
+
+    ``tracer`` times the walks (``radix.match``, ``radix.insert``,
+    ``radix.prune``) and counts ``radix.nodes`` (its largest node count),
+    ``radix.prunes``, ``radix.pruned_nodes`` and ``radix.tokens_walked``
+    (tokens handed to inserts and lookups).
     """
 
-    def __init__(self, max_nodes: int = 65_536):
+    def __init__(self, max_nodes: int = 65_536, tracer: Tracer | None = None):
         self.root = _TrieNode()
         self.max_nodes = max_nodes
+        self.tracer = tracer if tracer is not None else Tracer()
         self.node_count = 0                  # root excluded
         self._clock = 0
         self._epochs: dict[int, int] = {}
@@ -121,7 +128,9 @@ class PrefixCacheIndex:
         self._epochs[slot] = self._epochs.get(slot, 0) + 1
 
     # ------------------------------------------------------------ insert / match
+    @traced("radix.insert")
     def insert(self, tokens: list[int], slot: int | None = None) -> None:
+        self.tracer.add("radix.tokens_walked", len(tokens))
         self._clock += 1
         now = self._clock
         epoch = self._epochs.setdefault(slot, 0) if slot is not None else 0
@@ -133,7 +142,7 @@ class PrefixCacheIndex:
                 if self.node_count >= self.max_nodes:
                     self._prune()
                 if self.node_count >= self.max_nodes:
-                    return                   # cap still binding: truncate the insert
+                    break                    # cap still binding: truncate the insert
                 child = _TrieNode()
                 node.children[int(t)] = child
                 self.node_count += 1
@@ -141,9 +150,12 @@ class PrefixCacheIndex:
             if slot is not None:
                 child.refs[slot] = epoch
             node = child
+        self.tracer.gauge("radix.nodes", self.node_count)
 
+    @traced("radix.match")
     def _walk(self, tokens: list[int]) -> tuple[int, int, int | None]:
         """Walk + account one lookup; returns (trie depth, reuse depth, lane)."""
+        self.tracer.add("radix.tokens_walked", len(tokens))
         self._clock += 1
         now = self._clock
         node = self.root
@@ -187,8 +199,10 @@ class PrefixCacheIndex:
             stack.extend(n.children.values())
         return count
 
+    @traced("radix.prune")
     def _prune(self) -> None:
         """Evict least-recently-used subtrees down to ~3/4 of the node cap."""
+        self.tracer.add("radix.prunes")
         target = max(1, self.max_nodes * 3 // 4)
         stamps: list[int] = []
         stack = [self.root]
@@ -211,6 +225,7 @@ class PrefixCacheIndex:
                 removed += self._subtree_size(node.children.pop(t))
             stack.extend(node.children.values())
         self.node_count -= removed
+        self.tracer.add("radix.pruned_nodes", removed)
 
 
 # ---------------------------------------------------------------- decode loop
@@ -303,6 +318,19 @@ class RolloutWorker:
     already cut for the mesh (``distributed.sharding.ShardedParams``, e.g.
     ``init_params(cfg, seed, mesh=mesh)``, which never holds the whole tree
     on one card), which it checks and keeps.
+
+    ``tracer`` (``engine.tracing.Tracer``; a fleet passes its own, a worker
+    built alone makes one that is off) times each call into the worker
+    (``worker.admit``, ``worker.absorb``, ``worker.decode``,
+    ``worker.release``, ``worker.migrate_out``, ``worker.migrate_in``,
+    ``worker.checkpoint``), the forwards of admission and absorption
+    (``admit.forward``, ``absorb.forward``, and absorption's device span
+    ``absorb``), and the decode call's host phases: ``decode.prep`` (the
+    lanes' last tokens, masks and keys, page coverage, the copies to the
+    device), ``decode.enqueue`` (the host issuing a pass of the step loop),
+    ``decode.wait`` (the host blocked on the device: the stop check and the
+    copy of the emitted tokens) and ``decode.emit`` (the tokens handed to
+    the lanes); the radix index writes to it too.
     """
 
     def __init__(self, cfg: ModelConfig, params, capacity: int = 256,
@@ -313,8 +341,10 @@ class RolloutWorker:
                  retired_kv_bytes: int | None = None,
                  prefix_index_nodes: int = 65_536, mp: int = 1,
                  paged: bool | None = None, page_size: int = 16,
-                 num_blocks: int | None = None, device=None, mesh=None):
+                 num_blocks: int | None = None, device=None, mesh=None,
+                 tracer: Tracer | None = None):
         check_servable(cfg)
+        self.tracer = tracer if tracer is not None else Tracer()
         self.mp = max(int(mp), 1)
         self.mesh = mesh
         if mesh is not None and mesh.degree not in (1, self.mp):
@@ -368,7 +398,8 @@ class RolloutWorker:
                   else self._lane_bytes * max_slots)
         self._max_retired = budget // self._lane_bytes if self._lane_bytes else 0
         self.retired: OrderedDict[int, int] = OrderedDict()   # slot -> token count
-        self.prefix_index = PrefixCacheIndex(max_nodes=prefix_index_nodes)
+        self.prefix_index = PrefixCacheIndex(max_nodes=prefix_index_nodes,
+                                             tracer=self.tracer)
         self.decode_steps = 0
         self.pool_grows = 0
         self.reused_tokens = 0                     # admission tokens implanted, not computed
@@ -561,6 +592,7 @@ class RolloutWorker:
         self._sync_row(slot)
 
     # ------------------------------------------------------------ lifecycle
+    @traced("worker.admit")
     def prefill(self, seq_id: int, tokens: list[int]) -> None:
         """Admit a sequence: reuse the radix-matched prefix (shared pages, or a
         lane-prefix copy on the dense plane), then chunk-prefill the suffix;
@@ -574,7 +606,8 @@ class RolloutWorker:
         if self._paged:
             self._prefill_paged(slot, tokens, reuse_n, src)
         elif not self._chunked:
-            self._write_lane(self._forward_lane(tokens, self.capacity), slot)
+            with self.tracer.span("admit.forward"):
+                self._write_lane(self._forward_lane(tokens, self.capacity), slot)
             self.prefilled_tokens += len(tokens)
         else:
             self._prefill_dense(slot, tokens, reuse_n, src)
@@ -603,8 +636,9 @@ class RolloutWorker:
             for pool, ln in zip(self._shards(self.pool), self._shards(lane)):
                 M.copy_prefix(pool, src, ln, reuse_n)
             self.reused_tokens += reuse_n
-        for buf, n in self._chunks(tokens, reuse_n):
-            M.prefill_chunk(self.cfg, self.params, lane, buf, n, mesh=self._tp)
+        with self.tracer.span("admit.forward"):
+            for buf, n in self._chunks(tokens, reuse_n):
+                M.prefill_chunk(self.cfg, self.params, lane, buf, n, mesh=self._tp)
         self._write_lane(lane, slot)
         self.prefilled_tokens += len(tokens) - reuse_n
 
@@ -643,15 +677,17 @@ class RolloutWorker:
         if boundary is not None:
             self._each(M.paged_copy_block, boundary[0], boundary[1])
         if not self._chunked:
-            lanes = self._shards(self._forward_lane(tokens, S))
-            for pool, ln in zip(self._shards(self.pool), lanes):
-                M.paged_write_lane(pool, ln, slot, self._row_of(blocks), S)
+            with self.tracer.span("admit.forward"):
+                lanes = self._shards(self._forward_lane(tokens, S))
+                for pool, ln in zip(self._shards(self.pool), lanes):
+                    M.paged_write_lane(pool, ln, slot, self._row_of(blocks), S)
             self.prefilled_tokens += S
             return
         self._each(lambda pool: M.paged_fresh_state(self.shard_cfg, pool, slot))
-        for buf, n in self._chunks(tokens, reuse_eff):
-            M.prefill_chunk_paged(self.cfg, self.params, self.pool, slot, buf, n,
-                                  mesh=self._tp)
+        with self.tracer.span("admit.forward"):
+            for buf, n in self._chunks(tokens, reuse_eff):
+                M.prefill_chunk_paged(self.cfg, self.params, self.pool, slot, buf, n,
+                                      mesh=self._tp)
         self.prefilled_tokens += S - reuse_eff
 
     def _chunks(self, tokens: list[int], start: int):
@@ -665,23 +701,27 @@ class RolloutWorker:
             self.prefill_dispatches += 1
             yield torch.from_numpy(buf).to(self.device), step
 
+    @traced("worker.absorb", device="absorb")
     def extend(self, seq_id: int, tool_tokens: list[int]) -> None:
         """Absorb tool output: chunked prefill into the lane at its current
         offset (one masked decode step per token without chunked prefill)."""
         if not self._chunked:
             self.extend_per_token(seq_id, tool_tokens)
             return
+        tr = self.tracer
         seq = self.store[seq_id]
         ext = list(seq.tokens) + [int(t) for t in tool_tokens]
         if self._paged:
             self._ensure_coverage(seq.slot, len(ext))
-            for buf, n in self._chunks(ext, len(seq.tokens)):
-                M.prefill_chunk_paged(self.cfg, self.params, self.pool, seq.slot, buf, n,
-                                      mesh=self._tp)
+            with tr.span("absorb.forward"):
+                for buf, n in self._chunks(ext, len(seq.tokens)):
+                    M.prefill_chunk_paged(self.cfg, self.params, self.pool, seq.slot,
+                                          buf, n, mesh=self._tp)
         else:
             lane = self._gather_lane(seq.slot)
-            for buf, n in self._chunks(ext, len(seq.tokens)):
-                M.prefill_chunk(self.cfg, self.params, lane, buf, n, mesh=self._tp)
+            with tr.span("absorb.forward"):
+                for buf, n in self._chunks(ext, len(seq.tokens)):
+                    M.prefill_chunk(self.cfg, self.params, lane, buf, n, mesh=self._tp)
             self._write_lane(lane, seq.slot)
         self.absorbed_tokens += len(tool_tokens)
         seq.tokens = ext
@@ -697,13 +737,15 @@ class RolloutWorker:
         active = torch.arange(B, device=self.device) == seq.slot
         toks = torch.as_tensor([int(t) for t in tool_tokens], dtype=torch.int64,
                                device=self.device)
-        for i in range(len(tool_tokens)):
-            M.decode_step(self.cfg, self.params, self.pool, toks[i].expand(B, 1),
-                          active=active, mesh=self._tp)
+        with self.tracer.span("absorb.forward"):
+            for i in range(len(tool_tokens)):
+                M.decode_step(self.cfg, self.params, self.pool, toks[i].expand(B, 1),
+                              active=active, mesh=self._tp)
         self.absorbed_tokens += len(tool_tokens)
         seq.tokens.extend(int(t) for t in tool_tokens)
         self.prefix_index.insert(seq.tokens, slot=seq.slot)
 
+    @traced("worker.decode")
     def decode(self, seq_ids: list[int], n_tokens: int, stop_token: int | None = None
                ) -> dict[int, list[int]]:
         """Batched decode of the requested resident sequences for ``n_tokens`` steps.
@@ -714,27 +756,29 @@ class RolloutWorker:
         and yields an empty stream.  With a stop token the host checks once per
         ``_DECODE_CHUNK`` steps whether every requested lane has stopped.
         """
+        tr = self.tracer
         requested = [sid for sid in seq_ids if not self.store[sid].finished]
         if not requested:
             return {sid: [] for sid in seq_ids}
         B = self.max_slots
-        last = np.zeros((B,), np.int32)
-        live = np.zeros((B,), bool)
-        keys = np.zeros((B, 2), np.int64)
-        for seq in self.store.values():
-            last[seq.slot] = seq.tokens[-1]
-            keys[seq.slot] = seq.key
-        for sid in requested:
-            seq = self.store[sid]
-            seq.preempted = False
-            live[seq.slot] = True
-            if self._paged:
-                # map decode headroom up front: the loop writes positions
-                # [len(tokens), len(tokens) + n_tokens) with no host check inside
-                self._ensure_coverage(seq.slot, len(seq.tokens) + n_tokens)
-        last_t = torch.from_numpy(last).to(self.device)
-        live_t = torch.from_numpy(live).to(self.device)
-        keys_t = torch.from_numpy(keys).to(self.device)
+        with tr.span("decode.prep"):
+            last = np.zeros((B,), np.int32)
+            live = np.zeros((B,), bool)
+            keys = np.zeros((B, 2), np.int64)
+            for seq in self.store.values():
+                last[seq.slot] = seq.tokens[-1]
+                keys[seq.slot] = seq.key
+            for sid in requested:
+                seq = self.store[sid]
+                seq.preempted = False
+                live[seq.slot] = True
+                if self._paged:
+                    # map decode headroom up front: the loop writes positions
+                    # [len(tokens), len(tokens) + n_tokens) with no host check inside
+                    self._ensure_coverage(seq.slot, len(seq.tokens) + n_tokens)
+            last_t = torch.from_numpy(last).to(self.device)
+            live_t = torch.from_numpy(live).to(self.device)
+            keys_t = torch.from_numpy(keys).to(self.device)
         chunk = n_tokens if stop_token is None else _DECODE_CHUNK
         parts = []
         remaining = n_tokens
@@ -743,9 +787,10 @@ class RolloutWorker:
         t0 = time.perf_counter()
         while remaining > 0:
             step = min(chunk, remaining)
-            self.pool, last_t, live_t, em = _decode_loop(
-                self.cfg, self.params, self.pool, last_t, live_t, keys_t,
-                step, stop_token, self.sampler, self._tp)
+            with tr.span("decode.enqueue"):
+                self.pool, last_t, live_t, em = _decode_loop(
+                    self.cfg, self.params, self.pool, last_t, live_t, keys_t,
+                    step, stop_token, self.sampler, self._tp)
             parts.append(em)           # device-resident: copied to the host after the loop
             remaining -= step
             ran += step
@@ -753,25 +798,30 @@ class RolloutWorker:
             if stop_token is None:                          # nothing stops early
                 lane_steps += step * len(requested)
             else:
-                n_live = int(live_t.sum())  # heddle: noqa HDL003 -- deliberate early-exit sync, one per chunk
+                with tr.span("decode.wait"):
+                    n_live = int(live_t.sum())  # heddle: noqa HDL003 -- deliberate early-exit sync, one per chunk
                 lane_steps += step * n_live
                 if remaining > 0 and n_live == 0:
                     break
-        emitted = (torch.cat(parts).cpu().numpy() if parts
-                   else np.zeros((0, B), np.int32))       # n_tokens == 0 edge
+        with tr.span("decode.wait"):
+            emitted = (torch.cat(parts).cpu().numpy() if parts
+                       else np.zeros((0, B), np.int32))       # n_tokens == 0 edge
         self.decode_wall_s += time.perf_counter() - t0
         self.decode_timed_steps += ran
         self.decode_timed_lane_steps += lane_steps
         self.decode_calls += 1
         out: dict[int, list[int]] = {sid: [] for sid in seq_ids}
+        with tr.span("decode.emit"):
+            for sid in requested:
+                seq = self.store[sid]
+                toks = [int(t) for t in emitted[:, seq.slot] if t >= 0]
+                out[sid] = toks
+                seq.tokens.extend(toks)
+                seq.generated += len(toks)
+                if stop_token is not None and toks and toks[-1] == stop_token:
+                    seq.finished = True
         for sid in requested:
             seq = self.store[sid]
-            toks = [int(t) for t in emitted[:, seq.slot] if t >= 0]
-            out[sid] = toks
-            seq.tokens.extend(toks)
-            seq.generated += len(toks)
-            if stop_token is not None and toks and toks[-1] == stop_token:
-                seq.finished = True
             self.prefix_index.insert(seq.tokens, slot=seq.slot)
         return out
 
@@ -780,6 +830,7 @@ class RolloutWorker:
         """Evict from the running batch but keep the KV: a mask flip."""
         self.store[seq_id].preempted = True
 
+    @traced("worker.release")
     def release(self, seq_id: int) -> None:
         """Finish a sequence; its lane retires into the radix cache's LRU set."""
         seq = self.store.pop(seq_id, None)
@@ -822,6 +873,7 @@ class RolloutWorker:
                 "page_size": self.page_size, "capacity": self.capacity,
                 "logical_bytes": len(blocks) * self._page_bytes + self._state_bytes}
 
+    @traced("worker.migrate_out")
     def migrate_out(self, seq_id: int) -> dict:
         """Package one lane's context and KV for transfer.
 
@@ -837,6 +889,7 @@ class RolloutWorker:
         self._retire_slot(seq.slot, len(seq.tokens))
         return pkg
 
+    @traced("worker.checkpoint")
     def checkpoint_out(self, seq_id: int) -> dict:
         """Host copy of one lane WITHOUT evicting it (tool-boundary checkpoint).
 
@@ -861,6 +914,7 @@ class RolloutWorker:
             M.paged_scatter_pages(pool, pg, blocks)
             M.paged_write_state(pool, st, slot, self._row_of(blocks))
 
+    @traced("worker.migrate_in")
     def migrate_in(self, package: dict) -> None:
         """Implant a migrated lane into a free slot (capacities must match).
 
@@ -928,7 +982,8 @@ class RolloutWorker:
             self._free_lane_pages(slot)
         self.store.clear()
         self.retired.clear()
-        self.prefix_index = PrefixCacheIndex(max_nodes=self.prefix_index.max_nodes)
+        self.prefix_index = PrefixCacheIndex(max_nodes=self.prefix_index.max_nodes,
+                                             tracer=self.tracer)
 
     def dispatch_stats(self) -> dict:
         """Admission, reuse, block-pool (paged) and decode counters (same keys

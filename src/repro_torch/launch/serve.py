@@ -33,6 +33,12 @@ Open-loop serving (Poisson ingress, tenant SLOs, admission control):
 Rollout-as-a-service (streaming harvest + in-flight weight sync):
     PYTHONPATH=src python -m repro_torch.launch.serve --requests 16 --stream 4
 
+``--tracer`` switches the fleet's tracer on (``engine/tracing.py``) and prints,
+at exit, each span's count and host seconds (the workers' calls, the decode
+call's host phases, the radix index), the device spans, the counters, and
+the percentiles of each lane's real wait for a decode slot:
+    PYTHONPATH=src python -m repro_torch.launch.serve --requests 16 --tracer
+
 ``--dry-run`` serves nothing: it reckons ``--arch`` at full width per card
 on the H100 layout (one host of 8 cards, two with ``--multi-pod``) for
 ``--shape``, on ``meta`` tensors with nothing allocated and no card needed
@@ -49,6 +55,8 @@ from __future__ import annotations
 import argparse
 import sys
 import time
+
+import numpy as np
 
 
 def _validate_args(ap, args):
@@ -216,6 +224,23 @@ def _run_service(args, runtime):
     return 0
 
 
+def print_tracer(out: dict) -> None:
+    """A tracer's ``export()``: span totals by host seconds, device spans,
+    counters, and the wait samples' percentiles."""
+    print("\ntracer (engine/tracing.py; host seconds unless marked):")
+    for name, t in sorted(out["totals"].items(), key=lambda kv: -kv[1]["seconds"]):
+        print(f"  {name:20s} {t['count']:7d} spans {t['seconds']:10.4f} s")
+    for name, t in sorted(out["device"].items()):
+        print(f"  {name:20s} {t['count']:7d} spans {t['seconds']:10.4f} s on the device")
+    for name, v in sorted(out["counters"].items()):
+        print(f"  {name:20s} {v}")
+    for name, vals in sorted(out["samples"].items()):
+        p50, p95, p99 = np.percentile(vals, [50, 95, 99])
+        print(f"  {name:20s} {len(vals):7d} samples, p50 {p50 * 1e3:.2f} ms, "
+              f"p95 {p95 * 1e3:.2f} ms, p99 {p99 * 1e3:.2f} ms, "
+              f"max {max(vals) * 1e3:.2f} ms")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--arch", default="qwen3-1.7b")
@@ -284,6 +309,9 @@ def main(argv=None):
                          "moment it finishes (no makespan barrier) and publish "
                          "an in-flight weight sync every N harvests — workers "
                          "cut over as their resident lanes drain (0 = off)")
+    ap.add_argument("--tracer", action="store_true",
+                    help="switch the fleet's tracer on and print its span totals, "
+                         "counters and wait percentiles at exit (engine/tracing.py)")
     ap.add_argument("--dry-run", action="store_true",
                     help="reckon the FULL config per card on the H100 layout "
                          "(launch/dryrun.py) instead of serving the reduced one")
@@ -326,9 +354,13 @@ def main(argv=None):
     params = M.init_params(cfg, seed=args.seed, device=device)
     runtime = build_runtime(args, cfg, params, devices)
     controller = runtime.controller
+    runtime.tracer.on = args.tracer
 
     if args.stream > 0:
-        return _run_service(args, runtime)
+        rc = _run_service(args, runtime)
+        if args.tracer:
+            print_tracer(runtime.tracer.export())
+        return rc
 
     t0 = time.time()
     res = runtime.run()
@@ -385,6 +417,8 @@ def main(argv=None):
         print(f"\ndecision trace (first {args.trace} of {len(res.trace)}):")
         for kind, tid, wid in res.trace[:args.trace]:
             print(f"  {kind:12s} traj {tid:4d}  worker {wid}")
+    if args.tracer:
+        print_tracer(runtime.tracer.export())
     return 0
 
 

@@ -50,6 +50,7 @@ from repro_torch.engine.runtime import (
 )
 from repro_torch.engine.sampler import SamplerConfig
 from repro_torch.engine.tools import TOOL_PROFILES
+from repro_torch.engine.tracing import Tracer
 from repro_torch.engine.worker import RolloutWorker
 from repro_torch.models import model as M
 from repro_torch.models.config import ModelConfig
@@ -197,6 +198,7 @@ class HeddleTrainer:
             ),
             max_workers=tcfg.n_workers,
         )
+        self.tracer = Tracer()          # one for every worker (engine.tracing), off
         self.workers = [
             RolloutWorker(
                 cfg,
@@ -206,6 +208,7 @@ class HeddleTrainer:
                 sampler=SamplerConfig(temperature=1.0, top_p=0.95),
                 seed=tcfg.seed,
                 device=self.device,
+                tracer=self.tracer,
             )
             for i in range(tcfg.n_workers)
         ]

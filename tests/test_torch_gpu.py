@@ -23,6 +23,7 @@ import torch
 from _torch_hold import hold_bf16_cast, load_chip_smoke, load_example
 from repro_torch.configs import get_config
 from repro_torch.engine.paging import check_block_conservation
+from repro_torch.engine.tracing import Tracer
 from repro_torch.engine.worker import RolloutWorker
 from repro_torch.kernels import decode_attention as kernel
 from repro_torch.kernels import mamba_scan as scan_kernel
@@ -1157,3 +1158,25 @@ def test_cuda_one_card_migration_copies_nothing_to_the_host(host_copies):
     assert card == []
     assert leaves[0] == leaves[1] > 0 and len(host) >= leaves[1], (host, leaves)
     assert w0.decode([1], 4) == still.decode([1], 4)
+
+
+def test_cuda_absorb_device_span_lies_within_its_host_span():
+    """Absorption's device span, two CUDA events on the worker's stream and
+    read only in ``export()``, is positive and no longer than the host span
+    around the same ``extend`` synchronised at both ends."""
+    import time
+    _need_cuda()
+    cfg = get_config("qwen3_1_7b").reduced(n_periods=2)
+    params = init_params(cfg, seed=0, device="cuda")
+    tracer = Tracer(on=True)
+    w = RolloutWorker(cfg, params, capacity=512, max_slots=4, page_size=16, chunk_size=64,
+                      device="cuda", tracer=tracer)
+    w.prefill(1, [3 + i % 500 for i in range(200)])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    w.extend(1, [7 + i % 300 for i in range(256)])
+    torch.cuda.synchronize()
+    host = time.perf_counter() - t0
+    absorb = tracer.export()["device"]["absorb"]
+    assert absorb["count"] == 1
+    assert 0 < absorb["seconds"] <= host
