@@ -1692,24 +1692,31 @@ CAPTURE_EVERY = 500                  # keep the inputs of every 500th decode-ker
 
 
 class _Capture:
-    """While a path runs, keeps a copy of the inputs of every ``every``-th
-    call of a decode kernel's wrapper (of the calls whose arguments ``keep``
-    accepts, when given): the inputs the path's decode steps give it, masked
-    lanes at their frozen positions included.  The wrapper is called as
-    before and counts its own launches; a kept call costs a few device
-    copies.  Captures nest: each wraps the wrapper it finds."""
+    """While a path runs, keeps a copy of the inputs of the first call of a
+    decode kernel's wrapper and of every ``every``-th after it (of the calls
+    whose arguments ``keep`` accepts, when given): the inputs the path's
+    decode steps give it, masked lanes at their frozen positions included.
+    The wrapper is called as before and counts its own launches; a kept call
+    costs a few device copies.  Captures nest: each wraps the wrapper it
+    finds.  A worker on one card replays its decode step as a CUDA graph,
+    whose replays call no wrapper: a call made while such a graph is
+    captured is neither counted nor kept (its inputs are made at each
+    replay), so on the card the calls kept are eager ones, such as the step
+    each capture runs first and the steps of a per-token absorption."""
 
     def __init__(self, module, name, every=CAPTURE_EVERY, keep=None):
         self.module, self.name, self.every, self.calls, self.kept = module, name, every, 0, []
         self.keep = keep
 
     def __enter__(self):
+        import torch
         self.launch = getattr(self.module, self.name)
 
         def capturing(*args):
-            if self.keep is None or self.keep(args):
+            if ((self.keep is None or self.keep(args))
+                    and not (args[0].is_cuda and torch.cuda.is_current_stream_capturing())):
                 self.calls += 1
-                if self.calls % self.every == 0:
+                if self.calls % self.every == 1 % self.every:
                     self.kept.append([a.clone() for a in args])
             return self.launch(*args)
 
@@ -1726,7 +1733,8 @@ def _hold_kept(torch, tag, kept, every=CAPTURE_EVERY):
         raise AssertionError(f"[runtime] {tag}: no decode-kernel call was kept")
     err, limit, scale, exact, plain_exact = _held(torch, f"[runtime] {tag} live calls", kept)
     q, *_, vl = kept[-1]
-    log(f"[runtime] {tag}: {len(kept)} live decode-kernel calls (every {every}th; "
+    log(f"[runtime] {tag}: {len(kept)} live decode-kernel calls (the first eager one and "
+        f"every {every}th after; "
         f"the last: q {tuple(q.shape)}, cache {tuple(kept[-1][1].shape)}, valid_len "
         f"{sorted(vl.tolist())}) against the plain version, cache poisoned where no lane "
         f"reads: max|err| {err:.3e} (tol {limit:.3e}, max|ref| {scale:.3e}); against the "
@@ -1807,13 +1815,22 @@ def _runtime_run(torch, tag, cfg, params, batch, predictor, config, faults=None,
                              f"makespan {res.makespan}) differs from the sim's "
                              f"({len(sim.trace)}, {sim.makespan})")
     stats = [view.engine.dispatch_stats() for view in rt.workers]
+    for view, s in zip(rt.workers, stats):
+        # a worker on one card replays its decode graph for every step but
+        # each capture's own eager one; a sharded worker runs the eager loop
+        graphed = s["decode_graph_steps"] + s["decode_graph_captures"]
+        if graphed != (s["decode_steps"] if view.engine._graph is not None else 0):
+            raise AssertionError(f"[runtime] {tag}: {graphed} graphed decode steps of "
+                                 f"{s['decode_steps']} ({s})")
     totals = rt.fleet.tracer.export()["totals"]
     inside = sum(t["seconds"] for name, t in totals.items() if name.startswith("worker."))
     log(f"[runtime] {tag}: wall {res.wall_time * 1e3:.1f} ms, {inside * 1e3:.1f} ms "
         f"of it inside the workers' calls (the fleet's tracer, host clock); "
         f"{res.total_tokens} real tokens decoded ({res.total_tokens / res.wall_time:.1f} "
         f"tokens/s); decode calls {[s['decode_calls'] for s in stats]}, decode steps "
-        f"{[s['decode_steps'] for s in stats]}, decode wall "
+        f"{[s['decode_steps'] for s in stats]} (by graph replay "
+        f"{[s['decode_graph_steps'] for s in stats]}, graph captures "
+        f"{[s['decode_graph_captures'] for s in stats]}), decode wall "
         f"{[round(s['decode_wall_s'] * 1e3, 1) for s in stats]} ms (the workers' own clock, "
         f"to the one host copy of the emitted tokens a call, which also waits for work "
         f"queued before the call); {len(res.trace)} trace events == sim, virtual makespan "

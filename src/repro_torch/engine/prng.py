@@ -67,9 +67,11 @@ def uniform(key: torch.Tensor, n: int, minval: float = 0.0) -> torch.Tensor:
     """float32 in [minval, 1): ``jax.random.uniform(key, (n,), minval=minval)``."""
     bits = (random_bits(key, n) >> 9) | 0x3F800000          # 23 mantissa bits, exponent 0
     floats = bits.to(torch.int32).view(torch.float32) - 1.0
+    # 0-d host tensors enter a device kernel as scalars: no copy to the
+    # device, which would wait for it (and which a CUDA graph cannot capture)
     lo = torch.tensor(minval, dtype=torch.float32)
     span = torch.tensor(1.0, dtype=torch.float32) - lo
-    return torch.maximum(lo.to(key.device), floats * span.to(key.device) + lo.to(key.device))
+    return torch.maximum(lo, floats * span + lo)
 
 
 def gumbel(key: torch.Tensor, n: int) -> torch.Tensor:

@@ -18,7 +18,8 @@ and a lane starts from a fresh state at every admission.
   * admission: chunked prefill of the suffix the radix cache cannot reuse,
     or one full-sequence forward where chunked prefill does not apply (MoE);
   * decode: a masked step loop over the whole pool; every step of every
-    attention layer calls a decode attention kernel;
+    attention layer calls a decode attention kernel.  A worker on one card
+    replays the step as one CUDA graph (``_StepGraph``);
   * preemption: a mask flip -- the lane stays resident, nothing moves;
   * migration: the lane's KV and recurrent state move device to device,
     between layouts too, and between MP degrees (below);
@@ -65,6 +66,7 @@ from repro_torch.engine import prng
 from repro_torch.engine.paging import PagePool, PagePoolExhausted
 from repro_torch.engine.sampler import SamplerConfig, sample_slots
 from repro_torch.engine.tracing import Tracer, traced
+from repro_torch.kernels import decode_attention, mamba_scan
 from repro_torch.launch.mesh import WorkerMesh
 from repro_torch.models import model as M
 from repro_torch.models.config import ModelConfig
@@ -230,28 +232,115 @@ class PrefixCacheIndex:
 
 # ---------------------------------------------------------------- decode loop
 
+def _step(cfg: ModelConfig, params, pool, last: torch.Tensor, live: torch.Tensor,
+          keys: torch.Tensor, stop, sampler: SamplerConfig, mesh=None):
+    """One masked step over the whole pool, with no host sync.
+
+    last: (B,) int32 last context token per lane; live: (B,) bool active mask;
+    keys: (B, 2) per-sequence base keys; stop: the stop token (an int or a
+    0-d tensor) or None.  Lane ``b`` draws its token with ``fold_in(keys[b],
+    pos[b])``.  Returns (pool, last, live, tokens (B,) int32), the tokens -1
+    on lanes that were inactive (or had already stopped).  With a ``mesh``,
+    ``params`` and ``pool`` are lists of its shards and the sampling runs on
+    its device 0.
+    """
+    step_keys = prng.fold_in(keys, (pool if mesh is None else pool[0])["pos"])
+    logits, pool = M.decode_step(cfg, params, pool, last[:, None], active=live, mesh=mesh)
+    toks = sample_slots(step_keys, logits, sampler, active=live)
+    last = torch.where(live, toks, last)
+    if stop is not None:
+        live = live & (toks != stop)
+    return pool, last, live, toks
+
+
 def _decode_loop(cfg: ModelConfig, params, pool, last: torch.Tensor,
                  live: torch.Tensor, keys: torch.Tensor, n_tokens: int,
                  stop_token: int | None, sampler: SamplerConfig, mesh=None):
-    """``n_tokens`` masked steps over the whole pool, with no host sync inside.
-
-    last: (B,) int32 last context token per lane; live: (B,) bool active mask;
-    keys: (B, 2) per-sequence base keys.  Each step draws lane ``b``'s token
-    with ``fold_in(keys[b], pos[b])``.  Returns (pool, last, live, emitted
-    (T, B) int32), where emitted is -1 for lanes that were inactive (or had
-    already stopped) at a step.  With a ``mesh``, ``params`` and ``pool`` are
-    lists of its shards and the sampling runs on its device 0.
-    """
+    """``n_tokens`` eager ``_step``s, with no host sync inside.  Returns (pool,
+    last, live, emitted (T, B) int32)."""
     emitted = []
     for _ in range(n_tokens):
-        step_keys = prng.fold_in(keys, (pool if mesh is None else pool[0])["pos"])
-        logits, pool = M.decode_step(cfg, params, pool, last[:, None], active=live, mesh=mesh)
-        toks = sample_slots(step_keys, logits, sampler, active=live)
-        last = torch.where(live, toks, last)
-        if stop_token is not None:
-            live = live & (toks != stop_token)
+        pool, last, live, toks = _step(cfg, params, pool, last, live, keys, stop_token,
+                                       sampler, mesh)
         emitted.append(toks)
     return pool, last, live, torch.stack(emitted)
+
+
+NO_STOP = -2         # the stop buffer's value for no stop token: no lane draws it
+# the kernel wrappers' launch counts, which a graph's replays add to
+_LAUNCHES = (decode_attention.launches, mamba_scan.launches)
+
+
+class _StepGraph:
+    """One ``_step`` of a worker's whole pool as a CUDA graph, on buffers of
+    its own: it reads ``last``, ``live``, ``keys`` and ``stop`` (the stop
+    token, or ``NO_STOP``), the pool and the params in place, and writes the
+    step's ``last``, ``live`` and tokens (``toks``) back.
+
+    ``capture`` runs the step once eagerly on the graph's own stream, which
+    warms that stream (the kernels' counters, cuBLAS's workspace), then
+    captures the same step; it changes nothing but that one step.  The graph
+    holds the addresses of every tensor it reads: where the worker replaces
+    one it marks the graph ``stale`` and the next decode drops it and
+    captures anew.  ``count`` adds, for each replay, the wrapper launches
+    that the capture counted (a capture launches nothing)."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.stream = self.graph = None
+        self.stale = True
+        self.launches: list[tuple[dict, str, int]] = []
+        self.last = self.live = self.keys = self.stop = self.toks = None
+
+    def load(self, last: np.ndarray, live: np.ndarray, keys: np.ndarray,
+             stop_token: int | None) -> None:
+        """The call's inputs into the buffers (made anew, stale, for another B)."""
+        if self.last is None or self.last.shape[0] != last.shape[0]:
+            B, dev = last.shape[0], self.device
+            self.last = torch.zeros(B, dtype=torch.int32, device=dev)
+            self.live = torch.zeros(B, dtype=torch.bool, device=dev)
+            self.keys = torch.zeros((B, 2), dtype=torch.int64, device=dev)
+            self.stop = torch.zeros((), dtype=torch.int32, device=dev)
+            self.toks = torch.zeros(B, dtype=torch.int32, device=dev)
+            self.stale = True
+        self.last.copy_(torch.from_numpy(last))
+        self.live.copy_(torch.from_numpy(live))
+        self.keys.copy_(torch.from_numpy(keys))
+        self.stop.fill_(NO_STOP if stop_token is None else stop_token)
+
+    def run(self, cfg: ModelConfig, params, pool, sampler: SamplerConfig) -> None:
+        """One step on the buffers (what the graph holds)."""
+        _, last, live, toks = _step(cfg, params, pool, self.last, self.live, self.keys,
+                                    self.stop, sampler)
+        self.last.copy_(last)
+        self.live.copy_(live)
+        self.toks.copy_(toks)
+
+    def capture(self, cfg: ModelConfig, params, pool, sampler: SamplerConfig) -> None:
+        """``run`` once eagerly, then captured; both on the graph's stream."""
+        if self.stream is None:
+            self.stream = torch.cuda.Stream(self.device)
+        self.graph = None                # the stale graph's memory goes back first
+        current = torch.cuda.current_stream(self.device)
+        self.stream.wait_stream(current)
+        with torch.cuda.stream(self.stream), torch.no_grad():
+            self.run(cfg, params, pool, sampler)
+            before = [dict(counts) for counts in _LAUNCHES]
+            graph = torch.cuda.CUDAGraph()
+            graph.capture_begin(capture_error_mode="thread_local")
+            try:
+                self.run(cfg, params, pool, sampler)
+            finally:
+                graph.capture_end()
+        current.wait_stream(self.stream)
+        self.launches = [(counts, name, n - was[name]) for counts, was in zip(_LAUNCHES, before)
+                         for name, n in counts.items() if n != was[name]]
+        self.count(-1)                   # the capture's calls launched nothing
+        self.graph, self.stale = graph, False
+
+    def count(self, replays: int) -> None:
+        for counts, name, n in self.launches:
+            counts[name] += replays * n
 
 
 # host-side chunk size for stop-token decodes: one host sync per CHUNK steps
@@ -330,7 +419,8 @@ class RolloutWorker:
     device), ``decode.enqueue`` (the host issuing a pass of the step loop),
     ``decode.wait`` (the host blocked on the device: the stop check and the
     copy of the emitted tokens) and ``decode.emit`` (the tokens handed to
-    the lanes); the radix index writes to it too.
+    the lanes), and counts the decode graph's ``decode.graph_replays`` and
+    ``decode.graph_captures``; the radix index writes to it too.
     """
 
     def __init__(self, cfg: ModelConfig, params, capacity: int = 256,
@@ -362,6 +452,11 @@ class RolloutWorker:
         self.worker_id = worker_id
         self.sampler = sampler
         self.base_key = prng.prng_key(seed + worker_id)
+        # a worker on one card replays its decode step as a CUDA graph
+        # (captured at its first decode); on the CPU or a mesh of several
+        # shards it runs the step eagerly
+        self._graph = (_StepGraph(self.device) if self._tp is None and self.device.type == "cuda"
+                       else None)
         self.params = params
         # byte prices, from shapes alone (meta tensors allocate nothing): a
         # lane's dense state (pos and recurrent state), a dense lane (state +
@@ -412,6 +507,8 @@ class RolloutWorker:
         self.decode_timed_steps = 0
         self.decode_timed_lane_steps = 0
         self.decode_calls = 0
+        self.decode_graph_steps = 0                # steps run by replaying the graph
+        self.decode_graph_captures = 0
 
     # ------------------------------------------------------------ placement
     @property
@@ -424,13 +521,20 @@ class RolloutWorker:
         """Adopt weights (construction, weight sync): the full tree is moved
         to the device or cut for the mesh; weights already cut for this
         worker (``ShardedParams``, e.g. from ``init_params(mesh=)``) are
-        checked and kept as they are."""
+        checked and kept as they are.  New weights make the decode graph
+        stale."""
+        self._stale_graph()
         if isinstance(params, ShardedParams):
             self._check_shards(params)
             self._params = params if self._tp is not None else params[0]
         else:
             self._params = (shard_params(params, self.split, self._tp) if self._tp is not None
                             else M.tree_to(params, self.device))
+
+    def _stale_graph(self) -> None:
+        """A tensor the decode graph reads is replaced: capture at the next decode."""
+        if self._graph is not None:
+            self._graph.stale = True
 
     def _check_shards(self, shards: ShardedParams) -> None:
         """Refuse weights cut for another degree or split, or whose shards
@@ -515,6 +619,7 @@ class RolloutWorker:
             self.pool = pools if self._tp is not None else pools[0]
         self.max_slots *= 2
         self.pool_grows += 1
+        self._stale_graph()
         self.prefix_index.invalidate(slot)
         return slot
 
@@ -577,6 +682,7 @@ class RolloutWorker:
     def _grow_blocks(self, min_extra: int) -> None:
         extra = max(min_extra, self.num_blocks)     # doubling growth
         self._each(M.grow_paged_blocks, extra)
+        self._stale_graph()
         self.pages.grow(self.num_blocks + extra)
         self.num_blocks += extra
         self.block_grows += 1
@@ -776,9 +882,13 @@ class RolloutWorker:
                     # map decode headroom up front: the loop writes positions
                     # [len(tokens), len(tokens) + n_tokens) with no host check inside
                     self._ensure_coverage(seq.slot, len(seq.tokens) + n_tokens)
-            last_t = torch.from_numpy(last).to(self.device)
-            live_t = torch.from_numpy(live).to(self.device)
-            keys_t = torch.from_numpy(keys).to(self.device)
+            if self._graph is not None:
+                self._graph.load(last, live, keys, stop_token)
+                live_t = self._graph.live
+            else:
+                last_t = torch.from_numpy(last).to(self.device)
+                live_t = torch.from_numpy(live).to(self.device)
+                keys_t = torch.from_numpy(keys).to(self.device)
         chunk = n_tokens if stop_token is None else _DECODE_CHUNK
         parts = []
         remaining = n_tokens
@@ -788,9 +898,12 @@ class RolloutWorker:
         while remaining > 0:
             step = min(chunk, remaining)
             with tr.span("decode.enqueue"):
-                self.pool, last_t, live_t, em = _decode_loop(
-                    self.cfg, self.params, self.pool, last_t, live_t, keys_t,
-                    step, stop_token, self.sampler, self._tp)
+                if self._graph is not None:
+                    em = self._replay(step)
+                else:
+                    self.pool, last_t, live_t, em = _decode_loop(
+                        self.cfg, self.params, self.pool, last_t, live_t, keys_t,
+                        step, stop_token, self.sampler, self._tp)
             parts.append(em)           # device-resident: copied to the host after the loop
             remaining -= step
             ran += step
@@ -824,6 +937,27 @@ class RolloutWorker:
             seq = self.store[sid]
             self.prefix_index.insert(seq.tokens, slot=seq.slot)
         return out
+
+    def _replay(self, n: int) -> torch.Tensor:
+        """``n`` steps of the decode graph, captured first where it is stale
+        (the capture's eager step is then the first of the ``n``); returns
+        their tokens, (n, B) int32."""
+        g = self._graph
+        em = torch.empty((n, self.max_slots), dtype=torch.int32, device=self.device)
+        done = 0
+        if g.stale:
+            g.capture(self.cfg, self.params, self.pool, self.sampler)
+            em[0].copy_(g.toks)
+            done = 1
+            self.decode_graph_captures += 1
+            self.tracer.add("decode.graph_captures")
+        for i in range(done, n):
+            g.graph.replay()
+            em[i].copy_(g.toks)
+        g.count(n - done)
+        self.decode_graph_steps += n - done
+        self.tracer.add("decode.graph_replays", n - done)
+        return em
 
     # ------------------------------------------------------------ control ops
     def preempt(self, seq_id: int) -> None:
@@ -1014,4 +1148,6 @@ class RolloutWorker:
             "decode_timed_steps": self.decode_timed_steps,
             "decode_timed_lane_steps": self.decode_timed_lane_steps,
             "decode_calls": self.decode_calls,
+            "decode_graph_steps": self.decode_graph_steps,
+            "decode_graph_captures": self.decode_graph_captures,
         }

@@ -574,7 +574,9 @@ def decode_step(cfg: ModelConfig, params, cache: dict, tokens: torch.Tensor,
                 active: torch.Tensor | None = None, mesh=None):
     """One decode step.  tokens: (B, 1) int; cache: a dense cache or a paged
     pool (it has a ``page_table``).  Returns (logits (B, V), cache), the cache
-    updated in place.
+    updated in place: every leaf, ``pos`` too, is the tensor it was (a
+    caller that keeps a ``pos`` takes a copy), so a step captured in a CUDA
+    graph reads and writes the same memory at every replay.
 
     With a ``mesh`` (``launch.mesh.WorkerMesh``), ``params`` and ``cache`` are
     lists of its shards (``shard_params``, and one pool or cache per shard
@@ -600,7 +602,7 @@ def decode_step(cfg: ModelConfig, params, cache: dict, tokens: torch.Tensor,
             x = _layer_step(cfg, kind, _period(params["blocks"][key], pi), x,
                             _period(cache["blocks"][key], pi), pos, page_table, active)
     logits = _logits(cfg, params, x)
-    cache["pos"] = pos + 1 if active is None else pos + active.to(torch.int32)
+    pos.add_(1 if active is None else active.to(torch.int32))
     return logits[:, 0], cache
 
 
@@ -1324,7 +1326,7 @@ def _decode_step_tp(cfg, params: list, caches: list, tokens, active, mesh):
                           lambda hxs, ps=ps, cs=cs: cross_attend(ps, hxs, cs, "xattn"))
     logits = _tp_logits(scfg, split, mesh, params, xs)
     for cache, a in zip(caches, acts):
-        cache["pos"] = cache["pos"] + 1 if a is None else cache["pos"] + a.to(torch.int32)
+        cache["pos"].add_(1 if a is None else a.to(torch.int32))
     return logits[:, 0], caches
 
 

@@ -34,7 +34,10 @@ from repro_torch.engine.worker import RolloutWorker
 from repro_torch.models import model as M
 from repro_torch.params import from_jax
 
-TIMING = {"decode_wall_s", "decode_timed_steps", "decode_timed_lane_steps"}
+# not compared with the JAX worker: decode timing, and the CUDA-graph
+# counters (zero on the CPU; the JAX worker has none)
+TIMING = {"decode_wall_s", "decode_timed_steps", "decode_timed_lane_steps",
+          "decode_graph_steps", "decode_graph_captures"}
 KV_TOL = 2e-5
 KW = dict(capacity=64, chunk_size=8)
 PROMPT = [3 + i for i in range(20)]

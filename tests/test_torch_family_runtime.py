@@ -41,7 +41,10 @@ from _torch_parity import ONE_THREAD_ENV, one_torch_thread, rcfg, workbench  # n
 
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
-TIMING = {"decode_wall_s", "decode_timed_steps", "decode_timed_lane_steps"}
+# not compared with the JAX worker: decode timing, and the CUDA-graph
+# counters (zero on the CPU; the JAX worker has none)
+TIMING = {"decode_wall_s", "decode_timed_steps", "decode_timed_lane_steps",
+          "decode_graph_steps", "decode_graph_captures"}
 WORKLOAD = dict(n_prompts=2, group_size=2, seed=11, max_total_tokens=24, max_steps=3)
 CONFIG = dict(link_bandwidth=math.inf, seed=11)
 REPO = Path(__file__).resolve().parents[1]

@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_graph as graph
 from _torch_hold import hold_bf16_cast, load_chip_smoke, load_example
 from repro_torch.configs import get_config
 from repro_torch.engine.paging import check_block_conservation
@@ -457,6 +458,15 @@ def _scenario(device, cfg, params, **plane):
     return out, stats, pages
 
 
+def _graph_counts_hold(cpu, card):
+    """The CPU worker never captures; the card's replays its decode graph for
+    every step but each capture's own eager one."""
+    assert cpu["decode_graph_steps"] == cpu["decode_graph_captures"] == 0
+    if card["decode_steps"]:
+        assert card["decode_graph_captures"] >= 1
+    assert card["decode_graph_steps"] + card["decode_graph_captures"] == card["decode_steps"]
+
+
 def test_cuda_worker_matches_cpu_worker():
     """The same script on the card (the CUDA kernel in every decode step) and
     on the CPU (its plain version): tokens, block ids and counters agree.  The
@@ -470,10 +480,11 @@ def test_cuda_worker_matches_cpu_worker():
     gpu_out, gpu_stats, gpu_pages = _scenario("cuda", cfg, params)
     assert kernel.launches["paged_decode_attention"] - launches == \
         cfg.n_layers * sum(s["decode_steps"] for s in gpu_stats)
-    timing = {"decode_wall_s"}
+    timing = {"decode_wall_s", "decode_graph_steps", "decode_graph_captures"}
     for c, g in zip(cpu_stats, gpu_stats):
         assert {k: v for k, v in g.items() if k not in timing} == \
             {k: v for k, v in c.items() if k not in timing}
+        _graph_counts_hold(c, g)
         assert check_block_conservation(g) == []
     assert gpu_pages == cpu_pages
     assert gpu_out[-1][0] == gpu_out[-1][1]        # restored lane == its source
@@ -500,10 +511,11 @@ def test_cuda_dense_worker_matches_cpu_worker(window):
     assert kernel.launches["decode_attention"] - launches["decode_attention"] == \
         cfg.n_layers * steps
     assert kernel.launches["paged_decode_attention"] == launches["paged_decode_attention"]
-    timing = {"decode_wall_s"}
+    timing = {"decode_wall_s", "decode_graph_steps", "decode_graph_captures"}
     for c, g in zip(cpu_stats, gpu_stats):
         assert {k: v for k, v in g.items() if k not in timing} == \
             {k: v for k, v in c.items() if k not in timing}
+        _graph_counts_hold(c, g)
     assert gpu_out[-1][0] == gpu_out[-1][1]        # restored lane == its source
     assert gpu_out == cpu_out
 
@@ -527,11 +539,52 @@ def test_cuda_hybrid_worker_matches_cpu_worker(paged):
     steps = sum(s["decode_steps"] + s["absorbed_tokens"] for s in gpu_stats)
     name = "paged_decode_attention" if paged else "decode_attention"
     assert kernel.launches[name] - launches[name] == steps      # one attention layer
-    timing = {"decode_wall_s"}
+    timing = {"decode_wall_s", "decode_graph_steps", "decode_graph_captures"}
     for c, g in zip(cpu_stats, gpu_stats):
         assert {k: v for k, v in g.items() if k not in timing} == \
             {k: v for k, v in c.items() if k not in timing}
+        _graph_counts_hold(c, g)
     assert gpu_out == cpu_out
+
+
+@pytest.mark.parametrize("name", list(graph.PLANES))
+def test_cuda_graphed_worker_matches_eager_loop(name):
+    """``tests/_torch_graph.py``'s script on the card, on a worker that
+    replays its decode graph and on one held to the eager loop, same weights
+    and seeds: the same tokens bit for bit (one, 3 and 8 steps, a masked and
+    a preempted lane, a stop token that ends the call after its first chunk,
+    and after block growth, lane growth, a weight swap and a migration in),
+    the same counters and the same kernel launches; every step but a
+    capture's own ran by replay, and each replacement of a tensor the graph
+    reads made one capture."""
+    _need_cuda()
+    cfg, plane = graph.plane(name)
+    params = init_params(cfg, seed=0, device="cpu")
+    params2 = init_params(cfg, seed=1, device="cpu")
+    stop = graph.probe_stop(cfg, params, params2, "cuda", **plane)
+    counts = lambda: {**kernel.launches, **scan_kernel.launches}  # noqa: E731
+    before = counts()
+    eager = graph.worker(cfg, params, "cuda", graphed=False, **plane)
+    assert eager._graph is None
+    eager_out, eager_stats, _ = graph.run(eager, params2, stop)
+    middle = counts()
+    w = graph.worker(cfg, params, "cuda", graphed=True, **plane)
+    assert w._graph is not None
+    out, stats, captures = graph.run(w, params2, stop)
+    after = counts()
+    assert out == eager_out
+    assert out[graph.STOP_CALL][3][-1] == stop
+    assert {k: v for k, v in stats.items() if k not in graph.UNCOMPARED} == \
+        {k: v for k, v in eager_stats.items() if k not in graph.UNCOMPARED}
+    assert eager_stats["decode_graph_steps"] == eager_stats["decode_graph_captures"] == 0
+    assert stats["decode_graph_captures"] == captures >= 3
+    assert stats["decode_graph_steps"] + captures == stats["decode_steps"]
+    launched = {k: after[k] - middle[k] for k in after}
+    assert launched == {k: middle[k] - before[k] for k in middle}
+    kernel_name = "paged_decode_attention" if plane.get("paged", True) else "decode_attention"
+    steps = stats["decode_steps"] + (stats["absorbed_tokens"] if not w._chunked else 0)
+    n_attn = sum(k.startswith("attn") for k in cfg.block_pattern) * cfg.n_periods
+    assert launched[kernel_name] == n_attn * steps
 
 
 # The dense kernel at the cross-attention decode shapes of the audio and VLM
@@ -904,7 +957,7 @@ def _tp_script(w):
     out.append(w.decode([1, 3], 4))
     out.append(w.decode([2], 3))
     skip = {"decode_wall_s", "decode_timed_steps", "decode_timed_lane_steps", "mp",
-            "mesh_devices"}
+            "mesh_devices", "decode_graph_steps", "decode_graph_captures"}
     return out, {k: v for k, v in w.dispatch_stats().items() if k not in skip}
 
 

@@ -34,7 +34,10 @@ from repro_torch.engine.sampler import SamplerConfig
 from repro_torch.engine.worker import RolloutWorker
 from repro_torch.params import from_jax
 
-TIMING = {"decode_wall_s", "decode_timed_steps", "decode_timed_lane_steps"}
+# not compared with the JAX worker: decode timing, and the CUDA-graph
+# counters (zero on the CPU; the JAX worker has none)
+TIMING = {"decode_wall_s", "decode_timed_steps", "decode_timed_lane_steps",
+          "decode_graph_steps", "decode_graph_captures"}
 TOL = 2e-5
 PROMPT = [3 + i for i in range(20)]
 PROMPT2 = [7, 11, 13, 5, 2, 9, 40, 41, 42, 43, 44]

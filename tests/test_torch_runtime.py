@@ -43,7 +43,10 @@ from repro_torch.params import from_jax
 
 from _torch_parity import SEED, rcfg, workbench
 
-TIMING = {"decode_wall_s", "decode_timed_steps", "decode_timed_lane_steps"}
+# not compared with the JAX worker: decode timing, and the CUDA-graph
+# counters (zero on the CPU; the JAX worker has none)
+TIMING = {"decode_wall_s", "decode_timed_steps", "decode_timed_lane_steps",
+          "decode_graph_steps", "decode_graph_captures"}
 REPO = Path(__file__).resolve().parents[1]
 
 

@@ -52,7 +52,10 @@ from _torch_parity import (ONE_THREAD_ENV, jax_and_port, one_torch_thread,  # no
 
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
-TIMING = {"decode_wall_s", "decode_timed_steps", "decode_timed_lane_steps"}
+# not compared with the JAX worker: decode timing, and the CUDA-graph
+# counters (zero on the CPU; the JAX worker has none)
+TIMING = {"decode_wall_s", "decode_timed_steps", "decode_timed_lane_steps",
+          "decode_graph_steps", "decode_graph_captures"}
 LOGIT_TOL = 5e-6
 KW = dict(capacity=64, max_slots=4, page_size=8, chunk_size=8)
 PROMPT = [3 + i for i in range(20)]

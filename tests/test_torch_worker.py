@@ -33,7 +33,10 @@ from repro_torch.engine.worker import RolloutWorker
 from repro_torch.models.model import init_params
 from repro_torch.params import from_jax
 
-TIMING = {"decode_wall_s", "decode_timed_steps", "decode_timed_lane_steps"}
+# not compared with the JAX worker: decode timing, and the CUDA-graph
+# counters (zero on the CPU; the JAX worker has none)
+TIMING = {"decode_wall_s", "decode_timed_steps", "decode_timed_lane_steps",
+          "decode_graph_steps", "decode_graph_captures"}
 KW = dict(capacity=64, max_slots=4, page_size=8, chunk_size=8)
 PROMPT = [3 + i for i in range(20)]          # 2.5 pages: full pages shared + a boundary
 
